@@ -7,8 +7,13 @@ each against its plain PyTorch version on the card (bit for bit, tolerance
 0) at tm-mnist width, checks every engine of ``run_compiled`` against the
 oracle, then drives the serving path (``repro_torch.launch.serve.serve_tm``
 on the committed tm-mnist artifact, 4096 requests in buckets of 512) once
-per kernel rung of the engine ladder, with the kernels' launch counts set to
-0 just before each run and read just after.  Prints the card's name and
+per kernel rung of the engine ladder, and the training path
+(``repro_torch.launch.train.train_tm``, tm-mnist, 40 steps of 64) fused,
+unfused and batch-chunked, with the kernels' launch counts set to 0 just
+before each run and read just after.  The three trained banks must equal
+each other and a run of the plain versions; a resumed run must equal an
+uninterrupted one; the trained bank must compile and serve equal to the
+oracle on every engine.  Prints the card's name and
 power limit, a ``kernels`` JSON line with each kernel's launches, error,
 time, plain-version time and bound, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -38,6 +43,12 @@ BUCKET = 512
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
+TRAIN_STEPS, TRAIN_BATCH = 40, 64
+TRAIN_BATCHES = (1, 33, 64, 97)
+# integer operations per automaton draw: the hash's 3 multiplies, 1 add,
+# 3 shifts and 3 xors (kernels/csrc/hash_rng.cuh)
+OPS_PER_DRAW = 10
+
 KERNELS = {
     "fused_infer": dict(source="src/repro_torch/kernels/csrc/fused_infer.cu",
                         replaces="src/repro/kernels/fused_infer.py:43",
@@ -48,6 +59,16 @@ KERNELS = {
     "term_infer": dict(source="src/repro_torch/kernels/csrc/term_infer.cu",
                        replaces="src/repro/kernels/term_infer.py:334",
                        engine="factorized"),
+}
+TRAIN_KERNELS = {
+    "fused_train": dict(source="src/repro_torch/kernels/csrc/fused_train.cu",
+                        replaces="src/repro/kernels/fused_train.py:65"),
+    "clause_eval": dict(source="src/repro_torch/kernels/csrc/clause_eval.cu",
+                        replaces="src/repro/kernels/clause_eval.py:34"),
+    "class_sum": dict(source="src/repro_torch/kernels/csrc/class_sum.cu",
+                      replaces="src/repro/kernels/class_sum.py:22"),
+    "ta_update": dict(source="src/repro_torch/kernels/csrc/ta_update.cu",
+                      replaces="src/repro/kernels/ta_update.py:28"),
 }
 
 
@@ -127,6 +148,298 @@ def chain_need(rows, chain, tile_jb, indptr, *, n_rows, block_c, block_j,
         n_bytes += int(live.any(-1).sum()) * block_j * 4
         n_ops += int((live.sum(-1) * real).sum())
     return n_bytes, n_ops
+
+
+def profile_device(fn, calls: int = 20):
+    """Mean device time (ms) of everything one call of ``fn`` launches,
+    from the profiler, and the per-name breakdown in microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = device_us(prof)
+    per = {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()}
+    return (sum(u for u, _ in us.values()) / calls / 1e3 if us else None), per
+
+
+class Training:
+    """The training slice on the card: tm-mnist, batches of 64."""
+
+    def __init__(self, dev):
+        import torch
+
+        from repro_torch.configs.matador_tm import TM_MNIST
+        from repro_torch.core import tm
+        from repro_torch.data.synthetic import paper_dataset
+        from repro_torch.kernels import (class_sum, clause_eval, fused_infer,
+                                         fused_train, ta_update)
+        from repro_torch.launch import train
+
+        self.torch, self.tm, self.train = torch, tm, train
+        self.dev, self.config = dev, TM_MNIST
+        self.mods = {"fused_infer": fused_infer, "fused_train": fused_train,
+                     "clause_eval": clause_eval, "class_sum": class_sum,
+                     "ta_update": ta_update}
+        self.X, self.y, self.Xte, self.yte = paper_dataset("mnist", n_train=4000)
+        c = TM_MNIST
+        self.votes = tm.vote_matrix(c, dev)
+        self.cls = tm.clause_class(c, dev)
+        self.pol = tm.polarity(c, dev)
+        self.p_act = 1.0 if c.boost_true_positive else (c.s - 1.0) / c.s
+        self.p_inact = 1.0 / c.s
+
+    def args(self, *extra, steps=TRAIN_STEPS):
+        return self.train.build_parser().parse_args(
+            ["--arch", "tm-mnist", "--device", "cuda", "--steps", str(steps),
+             "--batch-size", str(TRAIN_BATCH), "--log-every", str(steps), *extra])
+
+    def run(self, label, *extra, steps=TRAIN_STEPS):
+        """train_tm with every count zeroed before and read after."""
+        for m in self.mods.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        bank, _ = self.train.train_tm(self.args(*extra, steps=steps))
+        self.torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: m.launches for k, m in self.mods.items()}
+        print(f"train {label}: {wall:.2f} s for {steps} steps, launches {counts}")
+        return bank, counts, wall
+
+    def inputs(self, bank, x, y, seed, b_off):
+        """Literals, words and per-sample feedback scalars of one batch,
+        from the plain versions (the full bank's class sums)."""
+        torch = self.torch
+        from repro_torch.core import packetizer
+        from repro_torch.kernels import fused_infer, ops
+
+        c, T = self.config, self.config.threshold
+        lits = self.tm.literals(x)
+        lw = packetizer.pack_bits(lits)
+        inc = packetizer.pack_include_masks(bank)
+        ones = torch.ones(inc.shape[0], dtype=torch.int32, device=self.dev)
+        sums = fused_infer.fused_forward_plain(lw, inc, self.votes, ones)
+        kn, p_t, p_n = ops.feedback_probs(torch.clamp(sums, -T, T), y,
+                                          c.n_classes, T, seed, b_offset=b_off)
+        return dict(ta=bank, lits=lits, lit_words=lw, inc_words=inc, y=y, kn=kn,
+                    p_t=p_t, p_n=p_n, clause_class=self.cls, clause_pol=self.pol)
+
+    def plain_step(self, bank, x, y, seed):
+        from repro_torch.core import feedback
+        from repro_torch.kernels import fused_train
+
+        t = fused_train.prepare(self.inputs(bank, x, y, seed, 0))
+        delta = fused_train.fused_train_plain(t, seed, p_act=self.p_act,
+                                              p_inact=self.p_inact)
+        return feedback.apply_delta(self.config, bank, delta)
+
+    def plain_run(self, bank):
+        """The same 40 steps as train_tm, through the plain versions."""
+        from repro_torch.data.loader import ShardedBatcher
+
+        it = iter(ShardedBatcher((self.X, self.y), TRAIN_BATCH, seed=0, prefetch=0))
+        for step in range(TRAIN_STEPS):
+            xb, yb = next(it)
+            bank = self.plain_step(bank, self.torch.from_numpy(xb).to(self.dev),
+                                   self.torch.from_numpy(yb).to(self.dev), step)
+        return bank
+
+    def calls(self, name, t, fire, ftype, kw, seed):
+        """(kernel call, plain call) of a training kernel on one batch's
+        inputs ``t`` for the clause range of ``kw`` (its local rows)."""
+        m = self.mods[name]
+        sl = slice(kw["c_offset"], kw["c_offset"] + t["ta"].shape[0])
+        if name == "fused_train":
+            return (lambda: m.fused_train_cuda(t, seed, **kw),
+                    lambda: m.fused_train_plain(t, seed, **kw))
+        if name == "ta_update":
+            a = (t["ta"], t["lits"], fire, ftype, seed)
+            return (lambda: m.ta_delta_cuda(*a, **kw),
+                    lambda: m.ta_delta_plain(*a, **kw))
+        if name == "clause_eval":
+            a = (t["lit_words"], t["inc_words"])
+            return lambda: m.clause_fire_cuda(*a), lambda: m.clause_fire_plain(*a)
+        a = (fire.to(self.torch.int8), self.votes[sl])
+        return lambda: m.class_sum_cuda(*a), lambda: m.class_sum_plain(*a)
+
+    def batch(self, bank, B, seed, b_off, c_off=0, c_total=None):
+        """(t, fire, ftype, kw) for a batch of B test samples on the rows
+        [c_off, c_off + n_loc) of ``bank``: all of them, or half a bank
+        when ``c_total`` is set."""
+        from repro_torch.core import packetizer
+        from repro_torch.kernels import fused_train, ops, ref
+
+        torch = self.torch
+        x = torch.from_numpy(self.Xte[:B]).to(self.dev)
+        y = torch.from_numpy(self.yte[:B]).to(self.dev)
+        t = self.inputs(bank, x, y, seed, b_off)
+        n_loc = bank.shape[0] if c_total is None else bank.shape[0] // 2
+        sl = slice(c_off, c_off + n_loc)
+        for k in ("ta", "inc_words", "clause_class", "clause_pol"):
+            t[k] = t[k][sl]
+        t = fused_train.prepare(t)
+        fire = ref.clause_fire_ref(t["lit_words"], t["inc_words"]).to(torch.uint8)
+        ftype = ops.feedback_select(t["y"], t["kn"], t["p_t"], t["p_n"],
+                                    t["clause_class"], t["clause_pol"], seed,
+                                    b_offset=b_off, c_offset=c_off)
+        kw = dict(p_act=self.p_act, p_inact=self.p_inact, b_offset=b_off,
+                  c_offset=c_off, c_total=c_total)
+        return t, fire, ftype, kw
+
+    def check_kernels(self, banks, max_err):
+        """Every training kernel against its plain version, tolerance 0."""
+        torch = self.torch
+        C = self.config.n_clauses_total
+        for label, bank in banks.items():
+            for B in TRAIN_BATCHES:
+                for b_off, c_off, c_total in ((0, 0, None), (12345, 0, None),
+                                              (2 ** 32 - 5, C // 2, C)):
+                    t, fire, ftype, kw = self.batch(bank, B, 7, b_off, c_off, c_total)
+                    for name in TRAIN_KERNELS:
+                        kern, plain = self.calls(name, t, fire, ftype, kw, 7)
+                        a, b = kern(), plain()
+                        torch.cuda.synchronize()
+                        err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                        max_err[name] = max(max_err[name], err)
+                        check(err == 0, f"{name} {label} B={B} b_offset={b_off} "
+                              f"c_offset={c_off} c_total={c_total}: kernel differs "
+                              f"from its plain version by {err}")
+            print(f"training kernels == plain versions on the {label} bank at "
+                  f"B={TRAIN_BATCHES}, with offsets and a half-bank shard")
+
+    def work(self, t, fire, ftype):
+        """(bytes, operations) each training kernel needs on these inputs."""
+        C, L = t["ta"].shape
+        B, W = t["lit_words"].shape
+        K = self.votes.shape[1]
+        draws = int((ftype == 1).sum()) * L
+        bank_io = C * L + C * L * 4 + B * L          # ta in, delta out, lits in
+        scal = nbytes(t["y"], t["kn"], t["p_t"], t["p_n"], t["clause_class"],
+                      t["clause_pol"])
+        return {
+            "fused_train": (bank_io + nbytes(t["lit_words"], t["inc_words"]) + scal,
+                            B * C * W + OPS_PER_DRAW * draws),
+            "ta_update": (bank_io + 2 * B * C, OPS_PER_DRAW * draws),
+            "clause_eval": (nbytes(t["lit_words"], t["inc_words"]) + B * C, B * C * W),
+            "class_sum": (B * C + C * K * 4 + B * K * 4, B * C * K),
+        }, draws
+
+
+def train_phases(dev, max_err, launches):
+    """Drive the training path and hold its kernels; returns the timing
+    rows' numbers for the kernels line."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import compiler, packetizer
+    from repro_torch.kernels import ops
+
+    tr = Training(dev)
+    runs = {"fused": (), "--no-fuse": ("--no-fuse",),
+            "--batch-chunk 24": ("--batch-chunk", "24")}
+    expect = {"fused": ("fused_infer", "fused_train"),
+              "--no-fuse": ("clause_eval", "class_sum", "ta_update"),
+              "--batch-chunk 24": ("fused_infer", "fused_train")}
+    banks, walls = {}, {}
+    for label, extra in runs.items():
+        banks[label], counts, walls[label] = tr.run(label, *extra)
+        for name in expect[label]:
+            check(counts[name] > 0, f"{name} was never launched in the {label} run")
+            if name in TRAIN_KERNELS:   # the first run that drives it
+                launches.setdefault(name, counts[name])
+    init = tr.tm.init(tr.config, torch.Generator().manual_seed(0), dev).ta_state
+    plain = tr.plain_run(init)
+    for label, bank in banks.items():
+        check(torch.equal(bank, plain),
+              f"train_tm {label} ended on another bank than the plain versions")
+    trained = banks["fused"]
+    moved = int((trained != init).sum())
+    print(f"train: fused, --no-fuse and --batch-chunk 24 end on the plain "
+          f"versions' bank ({moved} automata moved in {TRAIN_STEPS} steps)")
+
+    with tempfile.TemporaryDirectory() as d:
+        tr.run("resume 1/2", "--ckpt-dir", d, "--ckpt-every", "10",
+               steps=TRAIN_STEPS // 2)
+        resumed, _, _ = tr.run("resume 2/2", "--ckpt-dir", d, "--ckpt-every", "10")
+    check(torch.equal(resumed, trained), "resumed run != uninterrupted run")
+    print("train: resume from step 20 is bit-exact")
+
+    tr.check_kernels({"initial": init, "trained": trained}, max_err)
+
+    # train -> compile -> serve on the trained bank
+    t0 = time.perf_counter()
+    comp = compiler.compile_tm(tr.config, trained)
+    print(f"compiled the trained bank in {time.perf_counter() - t0:.1f} s: "
+          f"U={comp.n_unique} includes={comp.stats.n_includes}")
+    x_te = torch.from_numpy(tr.Xte).to(dev)
+    xp = packetizer.pack_literals(x_te)
+    oracle = compiler.run_compiled(comp, xp, engine="oracle")
+    for eng in ("factorized", "sparse", "dense", ops.EngineSpec("dense", fuse=False)):
+        out = compiler.run_compiled(comp, xp, engine=eng)
+        torch.cuda.synchronize()
+        check(torch.equal(out, oracle), f"trained bank: run_compiled({eng}) != oracle")
+    pred = tr.tm.predict(tr.config, tr.tm.TMState(ta_state=trained), x_te)
+    check(torch.equal(pred, oracle.argmax(-1)), "tm.predict != compiled argmax")
+    acc = float((pred.cpu() == torch.from_numpy(tr.yte)).float().mean())
+    print(f"TRAINED test_acc={acc:.4f} include_frac="
+          f"{float((trained >= 0).float().mean()):.4f} (information, not a gate); "
+          "every engine == oracle")
+
+    # times at the training step's shapes (batch 64, the trained bank)
+    t, fire, ftype, kw = tr.batch(trained, TRAIN_BATCH, TRAIN_STEPS, 0)
+    times = {}
+    for name in TRAIN_KERNELS:
+        kern, plain = tr.calls(name, t, fire, ftype, kw, TRAIN_STEPS)
+        times[name] = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5))
+        times[name]["device_ms"], per = profile_device(kern)
+        print(f"{name} device work per call at B={TRAIN_BATCH}: {json.dumps(per)}")
+    f32 = (fire.to(torch.float32), tr.votes.to(torch.float32))
+    times["class_sum"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(*f32))
+    work, draws = tr.work(t, fire, ftype)
+    print("TRAIN_BOUND_WORK " + json.dumps(dict(
+        draws=draws, **{k: dict(bytes=b, ops=o) for k, (b, o) in work.items()})))
+    print("TRAIN_TIMES " + json.dumps(dict(times, train_wall_s=walls)))
+
+    # steady-state wall time of one synchronized step on the host's clock
+    xb = torch.from_numpy(tr.X[:TRAIN_BATCH]).to(dev)
+    yb = torch.from_numpy(tr.y[:TRAIN_BATCH]).to(dev)
+    step_ms = {}
+    for label, kw in (("fused", {}), ("--no-fuse", dict(fuse=False)),
+                      ("--batch-chunk 24", dict(batch_chunk=24))):
+        def step(kw=kw):
+            return ops.tm_train_step_kernel(tr.config, trained, xb, yb, 0, **kw)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        step_ms[label] = (time.perf_counter() - t0) / 20 * 1e3
+    print("TRAIN_STEP_MS " + json.dumps(step_ms))
+
+    # where one training step's time goes: train_tm under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, extra in (("fused", ()), ("--no-fuse", ("--no-fuse",))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train.train_tm(tr.args(*extra, steps=10))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        us = device_us(prof)
+        busy_s = sum(u for u, _ in us.values()) / 1e6
+        top = sorted(us.items(), key=lambda kv: -kv[1][0])[:10]
+        print("TRAIN_PROFILE " + json.dumps(dict(
+            run=label, steps=10, wall_s=wall_s, device_busy_s=busy_s if us else None,
+            idle_share=1 - busy_s / wall_s if us else None,
+            top=[dict(name=k[:60], us=u, count=n) for k, (u, n) in top])))
+    return times, work
 
 
 def main() -> None:
@@ -316,7 +629,12 @@ def main() -> None:
         idle_share=1 - busy_s / wall_s if us else None,
         top=[dict(name=k[:60], us=u, count=n) for k, (u, n) in top])))
 
-    # 7. the kernels line.  Bound: the bytes the function must move (each
+    # 7. the training path, its kernels, resume, train -> compile -> serve
+    for name in TRAIN_KERNELS:
+        max_err[name] = 0
+    train_times, train_work = train_phases(dev, max_err, launches)
+
+    # 8. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the
     # chain ids this run's walk needs, not the padded tables) over the
     # memory rate, against its integer operations over the issue rate
@@ -362,11 +680,27 @@ def main() -> None:
                    plain_ms=times[name][B]["plain_ms"],
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=None)
+                   library_ms=None,
+                   library_note="no single PyTorch call computes this function")
         for extra in ("device_ms", "early_exit_ms"):
             if extra in times[name][B]:
                 row[extra] = times[name][B][extra]
         rows.append(row)
+    for name, meta in TRAIN_KERNELS.items():
+        nb, ops = train_work[name]
+        t_bytes, t_ops = nb / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+        tt = train_times[name]
+        row = dict(name=name, route="cuda", source=meta["source"],
+                   replaces=meta["replaces"], launches=launches[name],
+                   max_abs_err=max_err[name], ms=tt["ms"], plain_ms=tt["plain_ms"],
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=tt.get("library_ms"), device_ms=tt["device_ms"])
+        if row["library_ms"] is None:
+            row["library_note"] = "no single PyTorch call computes this function"
+        rows.append(row)
+    check(len(rows) == 7 and all(r["launches"] > 0 and r["max_abs_err"] == 0
+                                 for r in rows), "kernels line incomplete")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

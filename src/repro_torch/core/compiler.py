@@ -807,7 +807,8 @@ def run_compiled(
 
     ``engine`` is an ``ops.EngineSpec`` or one of the ladder level names
     ``"auto"`` (default) / ``"factorized"`` / ``"sparse"`` / ``"dense"`` /
-    ``"oracle"``.  ``"auto"`` takes the kernel path whenever ``x_packed``
+    ``"oracle"``; ``EngineSpec("dense", fuse=False)`` runs the unfused
+    ``clause_eval`` -> ``class_sum`` pipeline.  ``"auto"`` takes the kernel path whenever ``x_packed``
     is on a CUDA device — the FACTORIZED schedule kernel when the
     artifact's ``partial_term_sharing`` clears
     ``FACTORIZE_SHARING_THRESHOLD`` (or a factorized-only tiling key is
@@ -835,7 +836,8 @@ def run_compiled(
     if unknown:
         raise TypeError(f"run_compiled: unknown block kwargs {sorted(unknown)}; "
                         f"expected a subset of {sorted(known)}")
-    name = ops.EngineSpec.coerce(engine).name
+    spec = ops.EngineSpec.coerce(engine)
+    name = spec.name
     fact_keys = {"block_t", "term_w"} & blocks.keys()
     if name == "auto":
         if not ops.kernel_dispatch(x_packed):
@@ -876,7 +878,8 @@ def run_compiled(
             margin = compiled.margin_tensor("sparse", x_packed.device, **stiling)
         return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin)
     if name == "dense":
-        return ops.tm_forward_packed(xw, tabs["include_words"], votes, None)
+        return ops.tm_forward_packed(xw, tabs["include_words"], votes, None,
+                                     fuse=spec.fuse)
     from repro_torch.kernels import ref
 
     return ref.class_sum_ref(ref.clause_fire_ref(xw, tabs["include_words"]), votes)

@@ -65,6 +65,12 @@ def pack_literals(x: torch.Tensor) -> torch.Tensor:
     return pack_bits(literals(x))
 
 
+def pack_include_masks(ta_state: torch.Tensor) -> torch.Tensor:
+    """(C, L) int8 automata -> (C, ceil(L/32)) packed int32 include words
+    (include iff state >= 0)."""
+    return pack_bits((ta_state >= 0).to(torch.uint8))
+
+
 # -- numpy twins (host-side Packetizer used by the offline compiler) ---------
 
 def pack_bits_np(bits: np.ndarray, word_bits: int = WORD_BITS) -> np.ndarray:

@@ -1,0 +1,156 @@
+"""Tsetlin-machine training and evaluation steps, and the ``fit`` loop.
+
+Every step is the hash-RNG batch step of ``kernels/ops.py``
+(``tm_train_step_kernel``): on a CUDA device the fused form is two kernel
+launches, the unfused form three; on the CPU the kernels' plain versions
+run.  Seeding a step by its global index makes runs reproducible and equal
+to the reference's bit for bit from the same bank.
+
+The reference's per-sample ``jax.random`` step (``engine="jnp"``) and its
+clause-sharded mesh step are not ported yet (ROADMAP queue 1, items 4 and
+6).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import tm
+
+
+def _metrics(new_ta: torch.Tensor, delta: torch.Tensor) -> dict:
+    return {"delta_abs_sum": int(delta.abs().sum()),
+            "include_frac": float((new_ta >= 0).to(torch.float32).mean())}
+
+
+def train_step_kernel(config: tm.TMConfig, state: tm.TMState, x: torch.Tensor,
+                      y: torch.Tensor, seed: int, batch_chunk: int | None = None,
+                      fuse: bool = True) -> Tuple[tm.TMState, dict]:
+    """One batch step of ``state`` (hash RNG seeded by ``seed``) ->
+    ``(new_state, metrics)``."""
+    from repro_torch.kernels import ops
+
+    new_ta, delta = ops.tm_train_step_kernel(config, state.ta_state, x, y, seed,
+                                             batch_chunk=batch_chunk, fuse=fuse)
+    return tm.TMState(ta_state=new_ta, steps=state.steps + 1), _metrics(new_ta, delta)
+
+
+def online_step(config: tm.TMConfig, ta_state: torch.Tensor, x: torch.Tensor,
+                y: torch.Tensor, seed: int) -> Tuple[torch.Tensor, int]:
+    """One streaming-feedback step on a raw bank -> ``(new_ta,
+    delta_abs_sum)``.  The previous bank is left as it was (rollback and
+    drain checkpoints need it)."""
+    from repro_torch.kernels import ops
+
+    new_ta, delta = ops.tm_train_step_kernel(config, ta_state, x, y, seed)
+    return new_ta, int(delta.abs().sum())
+
+
+def eval_step(config: tm.TMConfig, state: tm.TMState, x: torch.Tensor,
+              y: torch.Tensor) -> float:
+    return tm.accuracy(config, state, x, y)
+
+
+def fit(
+    config: tm.TMConfig,
+    state: tm.TMState,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    epochs: int,
+    batch_size: int,
+    generator: torch.Generator,
+    x_val=None,
+    y_val=None,
+    log_every: int = 0,
+    engine: str = "kernel",
+    batch_chunk: int | None = None,
+    ckpt_manager=None,
+    ckpt_every: int = 0,
+    preemption=None,
+    monitor=None,
+) -> tm.TMState:
+    """Host loop over epochs on ``state.ta_state``'s device.
+
+    Each epoch shuffles once (``torch.randperm`` from ``generator``, a CPU
+    generator) and slices contiguous batches; step ``g`` (counted over the
+    whole run) is seeded with ``g``.
+
+    **Fault tolerance.**  ``ckpt_manager`` with ``ckpt_every > 0`` saves
+    the bank, the generator's EPOCH-START state (``"rng"``) and the
+    ``(epoch, step_in_epoch, gstep)`` cursor, and resumes from the newest
+    checkpoint when the directory holds one: the epoch's permutation is
+    drawn again from the saved state, so an interrupted run ends on the
+    bank of an uninterrupted one.  ``preemption`` (a ``PreemptionHandler``)
+    turns SIGTERM into checkpoint + ``sys.exit(RESUME_EXIT_CODE)`` at the
+    next step boundary; ``monitor`` (a ``StragglerMonitor``) flags slow
+    steps.  Fault sites: ``train.sigterm`` and ``train.slow_step``, keyed
+    by the global step index.
+    """
+    from repro_torch.runtime import faults
+
+    if engine != "kernel":
+        raise ValueError(
+            f"fit(engine={engine!r}): only the hash-RNG engine='kernel' is "
+            "ported; the per-sample jax.random trainer (engine='jnp') needs "
+            "distribution tests, not parity tests, and comes with a later "
+            "slice of the port")
+    dev = state.ta_state.device
+    x, y = x.to(dev), y.to(dev)
+    n = x.shape[0]
+    steps_per_epoch = max(1, n // batch_size)
+    gstep = 0
+    start_epoch = start_step = 0
+    if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
+        restored, extra = ckpt_manager.restore(
+            {"ta": state.ta_state, "rng": generator.get_state().numpy()})
+        generator.set_state(torch.from_numpy(
+            np.ascontiguousarray(restored["rng"], dtype=np.uint8)))
+        start_epoch = int(extra["epoch"])
+        start_step = int(extra["step_in_epoch"])
+        gstep = int(extra["gstep"])
+        state = tm.TMState(ta_state=restored["ta"], steps=gstep)
+        print(f"fit: resumed at epoch {start_epoch} step {start_step} "
+              f"(global step {gstep})")
+
+    def save_ckpt(ep, next_step, rng_epoch, blocking=True):
+        ckpt_manager.save(
+            gstep, {"ta": state.ta_state, "rng": rng_epoch},
+            extra={"epoch": ep, "step_in_epoch": next_step, "gstep": gstep},
+            blocking=blocking)
+
+    for ep in range(start_epoch, epochs):
+        rng_epoch = generator.get_state().numpy()   # resume anchor
+        perm = torch.randperm(n, generator=generator).to(dev)
+        xs, ys = x[perm], y[perm]          # one shuffle per epoch
+        i0 = start_step if ep == start_epoch else 0
+        for i in range(i0, steps_per_epoch):
+            if monitor is not None:
+                monitor.start_step()
+            xb = xs[i * batch_size:(i + 1) * batch_size]
+            yb = ys[i * batch_size:(i + 1) * batch_size]
+            state, _ = train_step_kernel(config, state, xb, yb, gstep,
+                                         batch_chunk)
+            faults.sleep_if("train.slow_step", step=gstep)
+            gstep += 1
+            if monitor is not None:
+                flag = monitor.end_step(gstep - 1)
+                if flag:
+                    print(f"fit: straggler flagged: {flag}")
+            if (ckpt_manager is not None and ckpt_every
+                    and gstep % ckpt_every == 0):
+                save_ckpt(ep, i + 1, rng_epoch, blocking=False)
+            faults.sigterm_if("train.sigterm", step=gstep - 1)
+            if preemption is not None and preemption.preempted:
+                print("fit: preempted — checkpointing and exiting for resume")
+                preemption.checkpoint_and_exit(
+                    (lambda: save_ckpt(ep, i + 1, rng_epoch))
+                    if ckpt_manager is not None else (lambda: None))
+        if log_every and (ep + 1) % log_every == 0 and x_val is not None:
+            print(f"epoch {ep + 1}: val_acc={eval_step(config, state, x_val, y_val):.4f}")
+    if ckpt_manager is not None:
+        ckpt_manager.wait()              # surface any pending async failure
+    return state

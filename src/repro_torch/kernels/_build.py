@@ -30,7 +30,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_infer", "sparse_infer", "term_infer")
+SOURCES = ("fused_infer", "sparse_infer", "term_infer", "clause_eval",
+           "class_sum", "ta_update", "fused_train")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -144,3 +145,4 @@ def ptr(t) -> ctypes.c_void_p:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint32

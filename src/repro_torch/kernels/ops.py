@@ -1,10 +1,18 @@
-"""Engine selection and dispatch over the port's inference kernels.
+"""Engine selection and dispatch over the port's kernels.
 
-``EngineSpec`` names an engine, ``EngineLadder`` degrades through engines
-on failure, and the ``tm_forward_*`` functions run one compiled artifact
-through one kernel: the CUDA kernel for CUDA tensors, its plain PyTorch
-version for CPU tensors.  Each calls ``faults.raise_if("kernel.<engine>")``
-first, so the reference's ladder and chaos drills apply unchanged.
+``EngineSpec`` names an inference engine, ``EngineLadder`` degrades
+through engines on failure, and the ``tm_forward_*`` functions run one
+compiled artifact through one kernel: the CUDA kernel for CUDA tensors,
+its plain PyTorch version for CPU tensors.  Each kernel engine calls
+``faults.raise_if("kernel.<engine>")`` first, so the reference's ladder
+and chaos drills apply unchanged.
+
+The training half is the hash-RNG batch step ``tm_train_step_kernel``:
+the fused form is two launches (``fused_infer`` for the class sums, then
+``fused_train``), the unfused form three (``clause_eval``, ``class_sum``
+inside the feedback plan, ``ta_update``).  Every draw is
+``ref.hash_u32`` of global indices, so both forms, chunked or not, equal
+the reference's step bit for bit.
 """
 
 from __future__ import annotations
@@ -13,10 +21,15 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import class_sum as _class_sum_kernel
+from repro_torch.kernels import clause_eval as _clause_eval_kernel
 from repro_torch.kernels import fused_infer as _fused_infer_kernel
+from repro_torch.kernels import fused_train as _fused_train_kernel
 from repro_torch.kernels import sparse_infer as _sparse_infer_kernel
+from repro_torch.kernels import ta_update as _ta_update_kernel
 from repro_torch.kernels import term_infer as _term_infer_kernel
+from repro_torch.kernels.ref import M32
 from repro_torch.runtime import faults
 
 
@@ -47,18 +60,22 @@ class EngineSpec:
       sparse one, for CUDA inputs; the oracle for CPU inputs.
     * ``"factorized"`` — the two-level shared-term schedule kernel.
     * ``"sparse"`` — the flat block-sparse chain schedule kernel.
-    * ``"dense"`` — the fused dense kernel.
+    * ``"dense"`` — the fused dense kernel (``fuse=False``: the unfused
+      ``clause_eval`` -> ``class_sum`` pipeline).
     * ``"oracle"`` — the plain PyTorch reference path.
 
     The named kernel engines run their plain versions on CPU inputs.
     """
 
     name: str = "auto"
+    fuse: bool = True
 
     def __post_init__(self):
         if self.name not in ENGINE_NAMES:
             raise ValueError(
                 f"unknown engine {self.name!r}; one of {ENGINE_NAMES}")
+        if self.name in ("factorized", "sparse") and not self.fuse:
+            raise ValueError(f"engine {self.name!r} has no unfused form")
 
     @classmethod
     def coerce(cls, spec) -> "EngineSpec":
@@ -246,18 +263,32 @@ class EngineLadder:
             return out
 
 
+clause_fire = _clause_eval_kernel.clause_fire
+class_sums = _class_sum_kernel.class_sum
+ta_delta = _ta_update_kernel.ta_delta
+
+
 def tm_forward_packed(
     lit_words: torch.Tensor,    # (B, W) int32 packed literals
     inc_words: torch.Tensor,    # (C, W) int32 packed includes
     votes: torch.Tensor,        # (C, K) int32
     nonempty: torch.Tensor | None = None,   # (C,); None = training semantics
+    *,
+    fuse: bool = True,
 ) -> torch.Tensor:
-    """Packed literals -> (B, K) class sums through the fused dense kernel
-    (``fused_infer.py``): clause chain, empty-clause mask and vote fold in
-    one pass."""
-    faults.raise_if("kernel.dense")   # drill: dense-kernel failure
-    return _fused_infer_kernel.fused_tm_forward(lit_words, inc_words, votes,
-                                                nonempty)
+    """Packed literals -> (B, K) class sums.  ``fuse=True`` runs the fused
+    dense kernel (``fused_infer.py``): clause chain, empty-clause mask and
+    vote fold in one pass.  ``fuse=False`` runs the two-kernel pipeline
+    ``clause_fire`` -> (mask) -> ``class_sums`` with the (B, C) fire
+    matrix in device memory."""
+    if fuse:
+        faults.raise_if("kernel.dense")   # drill: dense-kernel failure
+        return _fused_infer_kernel.fused_tm_forward(lit_words, inc_words, votes,
+                                                    nonempty)
+    fired = clause_fire(lit_words, inc_words)
+    if nonempty is not None:
+        fired = fired * (nonempty != 0).to(torch.int8)[None, :]
+    return class_sums(fired, votes)
 
 
 def tm_forward_schedule(
@@ -288,3 +319,212 @@ def tm_forward_factorized(
     faults.raise_if("kernel.factorized")  # drill: factorized-kernel failure
     return _term_infer_kernel.factorized_tm_forward(
         lit_words, votes, schedule, tile_margin=tile_margin)
+
+
+# ---------------------------------------------------------------------------
+# Kernel-path TM training step (hash RNG; equals the reference bit for bit)
+# ---------------------------------------------------------------------------
+
+_NEG_XOR = 0x9E3779B9     # negative-class stream
+_SEL_MIX = 0x9E3779B1     # selection stream: must match csrc/hash_rng.cuh
+_SEL_XOR = 0x85EBCA6B
+
+
+def feedback_probs(
+    sums: torch.Tensor,    # (B, K) int32 CLAMPED class sums
+    y: torch.Tensor,       # (B,) int32 targets (-1 = padded sample)
+    n_classes: int,
+    threshold: int,
+    seed: int,
+    b_offset: int = 0,     # global index of sample 0 (chunked training)
+):
+    """Per-sample feedback scalars ``(kn, p_t, p_n)``.
+
+    ``kn`` is the hash-sampled negative class (uniform over the K-1
+    others); ``p_t``/``p_n`` are the Type-I-side / Type-II-side clause
+    selection probabilities ``(T -/+ clamp(sum)) / 2T`` in float32.  A
+    padded sample (``y = -1``) reads its sums at a clamped index: the
+    caller masks its feedback.
+    """
+    B = y.shape[0]
+    T = threshold
+    b_idx = (torch.arange(B, dtype=torch.int64, device=y.device) + b_offset) & M32
+    r_neg = ref.hash_u32(b_idx, (int(seed) ^ _NEG_XOR) & M32)
+    kn = (r_neg % (n_classes - 1)).to(torch.int32)
+    kn = kn + (kn >= y).to(torch.int32)
+    cols = torch.stack([y, kn], dim=1).to(torch.int64).clamp(0, n_classes - 1)
+    picked = sums.gather(1, cols)
+    p_t = (T - picked[:, 0]).to(torch.float32) / (2.0 * T)
+    p_n = (T + picked[:, 1]).to(torch.float32) / (2.0 * T)
+    return kn, p_t, p_n
+
+
+def feedback_select(
+    y: torch.Tensor,       # (B,) int32 targets
+    kn: torch.Tensor,      # (B,) int32 sampled negative classes
+    p_t: torch.Tensor,     # (B,) float32
+    p_n: torch.Tensor,     # (B,) float32
+    clause_class: torch.Tensor,   # (C,) int32 class id per clause
+    clause_pol: torch.Tensor,     # (C,) int32 +1/-1 (0 = padded)
+    seed: int,
+    b_offset: int = 0,     # global index of sample 0
+    c_offset: int = 0,     # global index of clause 0 (clause-sharded step)
+) -> torch.Tensor:
+    """(B, C) uint8 feedback types: 0 none, 1 Type I, 2 Type II.
+
+    The oracle the fused training kernel reproduces: the selection draw of
+    (b, c) hashes GLOBAL ids, ``(b + b_offset) * _SEL_MIX + c + c_offset``
+    mod 2**32, so chunked and sharded callers match the unsharded stream.
+    The draw becomes float32 ``round(r) / 2**32`` (r >= 0xFFFFFF80 gives
+    exactly 1.0) and selects where it is below p.
+    """
+    B, C = y.shape[0], clause_class.shape[0]
+    dev = y.device
+    b_idx = (torch.arange(B, dtype=torch.int64, device=dev) + b_offset) & M32
+    c_idx = (torch.arange(C, dtype=torch.int64, device=dev) + c_offset) & M32
+    mixed = (ref.mul_u32(b_idx, _SEL_MIX)[:, None] + c_idx[None, :]) & M32
+    r_sel = ref.hash_u32(mixed, (int(seed) ^ _SEL_XOR) & M32)
+    r_sel = r_sel.to(torch.float32) / 2 ** 32
+
+    is_t = clause_class[None, :] == y[:, None]                 # (B, C)
+    is_n = clause_class[None, :] == kn[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    p = torch.where(is_t, p_t[:, None], torch.where(is_n, p_n[:, None], zero))
+    sel = r_sel < p
+    pos = (clause_pol > 0)[None, :]
+    neg = (clause_pol < 0)[None, :]
+    ftype = torch.where(
+        is_t & pos, 1, torch.where(is_t & neg, 2,
+        torch.where(is_n & pos, 2, torch.where(is_n & neg, 1, 0))))
+    return torch.where(sel, ftype, 0).to(torch.uint8)
+
+
+def feedback_plan(
+    fire: torch.Tensor,    # (B, C) uint8 training-mode clause outputs
+    y: torch.Tensor,       # (B,) int32 targets
+    votes: torch.Tensor,   # (C, K) int32
+    clause_class: torch.Tensor,
+    clause_pol: torch.Tensor,
+    threshold: int,
+    seed: int,
+    b_offset: int = 0,
+    c_offset: int = 0,
+    sums: torch.Tensor | None = None,   # precomputed clamped class sums
+):
+    """Per-(sample, clause) feedback types and the clamped class sums
+    ``(ftype, sums)``; the sums are ``fire @ votes`` through the
+    ``class_sum`` kernel (its plain version on the CPU)."""
+    K, T = votes.shape[1], threshold
+    if sums is None:
+        sums = torch.clamp(class_sums(fire, votes), -T, T)
+    kn, p_t, p_n = feedback_probs(sums, y, K, T, seed, b_offset=b_offset)
+    ftype = feedback_select(y, kn, p_t, p_n, clause_class, clause_pol, seed,
+                            b_offset=b_offset, c_offset=c_offset)
+    return ftype, sums
+
+
+def tm_train_step_kernel(
+    config,
+    ta_state: torch.Tensor,  # (C, L) int8: the full bank OR a clause shard
+    x: torch.Tensor,         # (B, F) {0,1}
+    y: torch.Tensor,         # (B,) class ids
+    seed: int,
+    batch_chunk: int | None = None,
+    *,
+    fuse: bool = True,
+    b_offset: int = 0,       # global index of sample 0 (data-sharded caller)
+    c_offset: int = 0,       # global index of clause 0 (clause-sharded caller)
+    c_total: int | None = None,  # set when ta_state is a clause shard
+    sums_reduce=None,        # completes a shard's partial class sums
+):
+    """One hash-RNG batch training step on ``ta_state``'s device ->
+    ``(new_ta, delta)``, the (C, L) int8 bank and its int32 delta.
+
+    ``fuse=True`` runs two launches: the dense fused-inference kernel for
+    the class sums (training semantics: empty clauses fire), then the
+    fused training kernel (fire -> feedback type -> delta, nothing of
+    (B, C) in device memory).  ``fuse=False`` runs ``clause_fire``, the
+    feedback plan (``class_sums``) and ``ta_delta``.  CPU tensors run the
+    kernels' plain versions.  Every form gives the same bits.
+
+    ``batch_chunk`` steps through the batch in slices, summing the deltas:
+    the draws are indexed by global sample id, so the result equals the
+    unchunked step; a ragged tail is padded with ``y = -1`` samples whose
+    feedback is masked.  For a clause shard pass ``c_offset``,
+    ``c_total=config.n_clauses_total`` and ``sums_reduce`` (the sum of the
+    partial class sums over the shards); the delta is then the full bank's
+    rows, and ``new_ta`` applies only this batch's delta.
+    """
+    from repro_torch.core import packetizer, tm
+
+    dev = ta_state.device
+    inc_words = packetizer.pack_include_masks(ta_state)
+    C_loc = ta_state.shape[0]
+    votes = tm.vote_matrix(config, dev)
+    cls = tm.clause_class(config, dev)
+    pol = tm.polarity(config, dev)
+    if c_total is not None:   # clause shard: local slices of the bank metadata
+        if c_total != config.n_clauses_total:
+            raise ValueError(f"c_total {c_total} != the config's "
+                             f"{config.n_clauses_total} clauses")
+        sl = slice(c_offset, c_offset + C_loc)
+        votes, cls, pol = votes[sl], cls[sl], pol[sl]
+    p_act = 1.0 if config.boost_true_positive else (config.s - 1.0) / config.s
+    p_inact = 1.0 / config.s
+    K, T = config.n_classes, config.threshold
+    x = x.to(dev)
+    y = y.to(device=dev, dtype=torch.int32)
+    B = x.shape[0]
+    step_kw = dict(p_act=p_act, p_inact=p_inact, c_offset=c_offset,
+                   c_total=c_total)
+
+    def chunk_delta(xc, yc, b_off, valid):
+        lits = tm.literals(xc)
+        lit_words = packetizer.pack_bits(lits)
+        if fuse:
+            # launch 1: class sums (no empty-clause mask in training)
+            sums = _fused_infer_kernel.fused_tm_forward(lit_words, inc_words,
+                                                        votes, None)
+            if sums_reduce is not None:
+                sums = sums_reduce(sums)
+            kn, p_t, p_n = feedback_probs(torch.clamp(sums, -T, T), yc, K, T,
+                                          seed, b_offset=b_off)
+            if valid is not None:     # padded tail samples select nothing
+                p_t = torch.where(valid, p_t, 0.0)
+                p_n = torch.where(valid, p_n, 0.0)
+            # launch 2: fire -> feedback type -> delta
+            return _fused_train_kernel.fused_tm_train_delta(
+                ta_state, lits, lit_words, inc_words, yc, kn, p_t, p_n, cls,
+                pol, seed, b_offset=b_off, **step_kw)
+        fire = clause_fire(lit_words, inc_words).to(torch.uint8)
+        sums = None
+        if sums_reduce is not None:   # clause shard: complete the partials
+            sums = torch.clamp(sums_reduce(class_sums(fire, votes)), -T, T)
+        ftype, _ = feedback_plan(fire, yc, votes, cls, pol, T, seed,
+                                 b_offset=b_off, c_offset=c_offset, sums=sums)
+        if valid is not None:
+            ftype = torch.where(valid[:, None], ftype, 0).to(torch.uint8)
+        return ta_delta(ta_state, lits, fire, ftype, seed, b_offset=b_off,
+                        **step_kw)
+
+    b_base = int(b_offset) & M32
+    if batch_chunk and B > batch_chunk:
+        n = -(-B // batch_chunk)
+        pad = n * batch_chunk - B
+        xs, ys = x, y
+        if pad:   # ragged tail: zero samples with y = -1, feedback masked
+            xs = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            ys = torch.cat([y, y.new_full((pad,), -1)])
+        delta = torch.zeros(ta_state.shape, dtype=torch.int32, device=dev)
+        for i in range(n):
+            lo = i * batch_chunk
+            valid = None
+            if pad:
+                valid = torch.arange(lo, lo + batch_chunk, device=dev) < B
+            delta += chunk_delta(xs[lo:lo + batch_chunk], ys[lo:lo + batch_chunk],
+                                 (b_base + lo) & M32, valid)
+    else:
+        delta = chunk_delta(x, y, b_base, None)
+    new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
+                         config.n_states - 1).to(torch.int8)
+    return new_ta, delta

@@ -6,8 +6,9 @@ port's kernels.
 
 The loop mirrors the MATADOR runtime: load a compiled artifact, packetize
 requests, stream them through the clause datapath in fixed-size buckets
-behind the async gateway, argmax.  Training, and so serving without an
-artifact, arrives with a later slice of the port.
+behind the async gateway, argmax.  Serving without an artifact trains
+first, as the reference does, with the per-sample ``jax.random`` trainer
+(``engine="jnp"``), which a later slice of the port brings.
 """
 
 from __future__ import annotations
@@ -71,15 +72,17 @@ def serve_tm(args) -> tuple[dict, dict]:
             raise SystemExit(f"--{flag} needs {what}, which a later slice of "
                              "the port brings; serve without it")
     if not args.artifact:
-        raise SystemExit("--artifact is required: this port serves compiled "
-                         "artifacts; training arrives with a later slice")
+        raise SystemExit("--artifact is required: serving without one trains "
+                         "with the engine='jnp' trainer, which a later slice "
+                         "of the port brings")
     dev = _device.resolve(args.device)
     config = TM_CONFIGS[args.arch]
     path = args.artifact if args.artifact.endswith(".npz") else args.artifact + ".npz"
     if not os.path.exists(path):
         raise SystemExit(f"artifact {path} not found; compile one with the "
                          "reference (python -m repro.launch.serve --artifact "
-                         "...), training arrives with a later slice")
+                         "...) or with core.compiler.compile_tm on a bank "
+                         "from repro_torch.launch.train")
     try:
         compiled = compiler.CompiledTM.load(path)
     except compiler.ArtifactError as e:

@@ -1,0 +1,167 @@
+"""Training entry point: the paper's Tsetlin machine on the port's kernels.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tm-mnist \\
+        --steps 200 --batch-size 64 --ckpt-dir /tmp/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tm-tiny \\
+        --device cpu --steps 20 --batch-size 16
+
+The loop wires the prefetching loader, async atomic checkpoints with
+restart-resume, preemption handling and the straggler monitor around the
+hash-RNG batch step (``ops.tm_train_step_kernel``): fused (two kernel
+launches per step) by default, unfused with ``--no-fuse``.  A checkpoint
+written by the reference's ``repro.launch.train`` resumes here and the
+reverse: the layout, the loader and every draw are the same.  It runs on
+the card unless ``--device cpu`` asks for the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+# train options that need modules not yet ported
+_LATER = {"mesh": "clause-sharded multi-GPU training",
+          "autotune": "autotuning and the cost model"}
+
+
+def train_tm(args) -> tuple[torch.Tensor, dict]:
+    """Train ``args.arch`` for ``args.steps`` steps -> ``(bank, health)``.
+
+    The initial bank is ``tm.init`` with a CPU generator seeded by
+    ``--seed``; step ``s`` is seeded with ``s``; batches come from the
+    reference's ``ShardedBatcher`` over its synthetic datasets.  Prints a
+    test-accuracy line every ``--log-every`` steps and the ``TRAIN_HEALTH``
+    JSON line at the end (also returned).
+    """
+    from repro_torch import device as _device
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.matador_tm import TM_CONFIGS
+    from repro_torch.core import tm
+    from repro_torch.data.loader import ShardedBatcher
+    from repro_torch.data.synthetic import (make_boolean_classification,
+                                            paper_dataset)
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.preemption import (RESUME_EXIT_CODE,
+                                                PreemptionHandler)
+    from repro_torch.runtime.straggler import StragglerMonitor
+
+    for flag, what in _LATER.items():
+        if getattr(args, flag, None):
+            raise SystemExit(f"--{flag} needs {what}, which a later slice of "
+                             "the port brings; train without it")
+    dev = _device.resolve(args.device)
+    config = TM_CONFIGS[args.arch]
+    name = args.arch.replace("tm-", "")
+    if name in ("mnist", "kmnist", "fmnist", "cifar2", "kws6"):
+        X, y, Xte, yte = paper_dataset(name, n_train=args.n_train)
+    else:
+        X, y = make_boolean_classification(
+            args.n_train, config.n_features, config.n_classes, seed=0)
+        Xte, yte = make_boolean_classification(
+            1000, config.n_features, config.n_classes, seed=1)
+    x_test = torch.from_numpy(Xte).to(dev)
+    y_test = torch.from_numpy(yte).to(dev)
+
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    ta = tm.init(config, torch.Generator().manual_seed(args.seed), dev).ta_state
+    start_step = 0
+    loader = ShardedBatcher((X, y), args.batch_size, seed=args.seed)
+    if mgr and mgr.latest_step() is not None:
+        restored, extra = mgr.restore({"ta": ta})
+        ta = restored["ta"]
+        loader.load_state_dict(extra["loader"])
+        start_step = extra["step"]
+        print(f"resumed from step {start_step}")
+
+    def save(step, blocking):
+        mgr.save(step, {"ta": ta},
+                 extra={"step": step, "loader": loader.state_dict()},
+                 blocking=blocking)
+
+    # chains to any handler the host process already registered and is
+    # uninstalled in the finally below, so embedding this loop in a
+    # serving process never clobbers the gateway's SIGTERM drain
+    pre = PreemptionHandler().install()
+    mon = StragglerMonitor()
+    it = iter(loader)
+    try:
+        for step in range(start_step, args.steps):
+            mon.start_step()
+            xb, yb = next(it)
+            ta, _ = ops.tm_train_step_kernel(
+                config, ta, torch.from_numpy(xb).to(dev),
+                torch.from_numpy(yb).to(dev), step,
+                batch_chunk=args.batch_chunk, fuse=not args.no_fuse)
+            faults.sleep_if("train.slow_step", step=step)  # straggler drill
+            flag = mon.end_step(step)
+            if flag:
+                print(f"straggler flagged: {flag}")
+            if mgr and (step + 1) % args.ckpt_every == 0:
+                save(step + 1, blocking=False)
+            faults.sigterm_if("train.sigterm", step=step)  # preemption drill
+            if pre.preempted:
+                # checkpoint (when durable storage is configured) and exit
+                # with the code the launcher restarts on
+                print("preempted: checkpointing and exiting for restart "
+                      f"(exit code {RESUME_EXIT_CODE})")
+                pre.checkpoint_and_exit(
+                    (lambda: save(step + 1, blocking=True))
+                    if mgr else (lambda: None))
+            if (step + 1) % args.log_every == 0:
+                acc = tm.accuracy(config, tm.TMState(ta_state=ta, steps=step + 1),
+                                  x_test, y_test)
+                inc = float((ta >= 0).to(torch.float32).mean())
+                print(f"step {step + 1}: test_acc={acc:.4f} "
+                      f"include_frac={inc:.4f}")
+    finally:
+        pre.uninstall()
+    if mgr:
+        save(args.steps, blocking=True)
+        mgr.wait()
+    health = dict(steps=args.steps, resumed_from=start_step,
+                  stragglers=mon.events)
+    print("TRAIN_HEALTH " + json.dumps(health))
+    return ta, health
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu (the "
+                         "kernels' plain PyTorch versions)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--n-train", type=int, default=4000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--batch-chunk", type=int, default=None,
+                    help="step through the batch in slices of this size "
+                         "(ragged tails are padded and masked; results stay "
+                         "bit-identical)")
+    ap.add_argument("--no-fuse", action="store_true",
+                    help="run the unfused three-kernel training step "
+                         "instead of the fused two-kernel one")
+    ap.add_argument("--autotune", action="store_true",
+                    help="not ported yet (autotuning slice)")
+    ap.add_argument("--mesh", default=None,
+                    help="not ported yet (multi-GPU slice)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=20)
+    return ap
+
+
+def main() -> None:
+    args = build_parser().parse_args()
+    if not args.arch.startswith("tm-"):
+        raise SystemExit(f"--arch {args.arch}: only the Tsetlin machines "
+                         "(tm-*) are ported; the LM substrate arrives with a "
+                         "later slice")
+    train_tm(args)
+
+
+if __name__ == "__main__":
+    main()

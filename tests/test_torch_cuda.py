@@ -67,3 +67,78 @@ def test_cuda_all_empty_and_wide_classes(cuda_device):
             got = compiler.run_compiled(wide, x.to(cuda_device), engine=eng,
                                         early_exit=ee)
             np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# -- training kernels -----------------------------------------------------------
+
+def _train_problem(B, F, K, cpc, seed, pad=1):
+    from repro_torch.core import packetizer as pk
+    rng = np.random.default_rng(seed)
+    cfg = tm.TMConfig(n_features=F, n_classes=K, clauses_per_class=cpc,
+                      threshold=9, s=4.0, clause_pad_multiple=pad)
+    ta = torch.from_numpy(rng.integers(-30, 30, (cfg.n_clauses_total, cfg.n_literals),
+                                       dtype=np.int8))
+    ta[cfg.n_clauses_raw:] = -cfg.n_states
+    x = torch.from_numpy(rng.integers(0, 2, (B, F), dtype=np.uint8))
+    y = torch.from_numpy(rng.integers(0, K, B, dtype=np.int32))
+    lits = tm.literals(x)
+    return cfg, ta, x, y, lits, pk.pack_bits(lits), pk.pack_include_masks(ta)
+
+
+def _fused_inputs(cfg, ta, y, lits, lw, iw, seed, b_off, c_off, sl):
+    from repro_torch.kernels import ops, ref
+    T = cfg.threshold
+    votes = tm.vote_matrix(cfg)
+    sums = torch.clamp(ref.class_sum_ref(ref.clause_fire_ref(lw, iw), votes), -T, T)
+    kn, p_t, p_n = ops.feedback_probs(sums, y, cfg.n_classes, T, seed, b_offset=b_off)
+    return (ta[sl], lits, lw, iw[sl], y, kn, p_t, p_n, tm.clause_class(cfg)[sl],
+            tm.polarity(cfg)[sl], seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,K,cpc,pad", [(13, 17, 3, 7, 1), (33, 9, 2, 50, 1),
+                                          (97, 784, 10, 200, 256), (1, 40, 4, 5, 1),
+                                          (1030, 12, 3, 6, 1),
+                                          (3, 8200, 2, 8, 1)])   # W = 513 words
+def test_cuda_training_kernels_equal_plain_versions(cuda_device, B, F, K, cpc, pad):
+    from repro_torch.kernels import class_sum, clause_eval, fused_train, ta_update
+    cfg, ta, x, y, lits, lw, iw = _train_problem(B, F, K, cpc, B, pad)
+    C = cfg.n_clauses_total
+    g = lambda t: t.to(cuda_device)
+    fire = clause_eval.clause_fire(lw, iw)
+    np.testing.assert_array_equal(clause_eval.clause_fire(g(lw), g(iw)).cpu().numpy(),
+                                  fire.numpy())
+    votes = tm.vote_matrix(cfg)
+    np.testing.assert_array_equal(class_sum.class_sum(g(fire), g(votes)).cpu().numpy(),
+                                  class_sum.class_sum(fire, votes).numpy())
+    for b_off, c_off, n_loc, c_total in [(0, 0, C, None), (37, 0, C, None),
+                                          (5, C // 2, C - C // 2, None),
+                                          (2 ** 32 - 3, C // 2, C - C // 2, C)]:
+        sl = slice(c_off, c_off + n_loc)
+        args = _fused_inputs(cfg, ta, y, lits, lw, iw, 55, b_off, c_off, sl)
+        kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off,
+                  c_total=c_total)
+        want = fused_train.fused_tm_train_delta(*args, **kw)
+        got = fused_train.fused_tm_train_delta(*[g(a) if torch.is_tensor(a) else a
+                                                 for a in args], **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        from repro_torch.kernels import ops
+        ftype = ops.feedback_select(*args[4:], b_offset=b_off, c_offset=c_off)
+        f_loc = fire[:, sl].to(torch.uint8)
+        want = ta_update.ta_delta(ta[sl], lits, f_loc, ftype, 55, **kw)
+        got = ta_update.ta_delta(g(ta[sl]), g(lits), g(f_loc), g(ftype), 55, **kw)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False])
+@pytest.mark.parametrize("chunk", [None, 8, 5])
+def test_cuda_train_step_equals_cpu(cuda_device, fuse, chunk):
+    from repro_torch.kernels import ops
+    cfg, ta, x, y, *_ = _train_problem(21, 19, 3, 11, 4)
+    want = ops.tm_train_step_kernel(cfg, ta, x, y, 9, chunk, fuse=fuse)
+    got = ops.tm_train_step_kernel(cfg, ta.to(cuda_device), x.to(cuda_device),
+                                   y.to(cuda_device), 9, chunk, fuse=fuse)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+    assert int(want[1].abs().sum()) > 0

@@ -1,0 +1,416 @@
+"""Port: the training slice against the reference, bit for bit.
+
+Every input is made with numpy from a seed and handed to both packages;
+the reference runs its jnp oracles and, where a Pallas kernel exists, the
+kernel in interpret mode (``use_kernel=True, interpret=True``, as
+``tests/test_fused_train.py`` runs it).  Tolerance 0 throughout: training
+is integer arithmetic over the same hash draws.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import packetizer as r_pk
+from repro.core import tm as r_tm
+from repro.kernels import fused_train as r_fused_train
+from repro.kernels import ops as r_ops
+from repro.kernels import ref as r_ref
+from repro_torch.core import packetizer as t_pk
+from repro_torch.core import tm as t_tm
+from repro_torch.kernels import class_sum as t_class_sum
+from repro_torch.kernels import clause_eval as t_clause_eval
+from repro_torch.kernels import fused_train as t_fused_train
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import ta_update as t_ta_update
+
+KW = dict(use_kernel=True, interpret=True)
+
+
+def _cfgs(**kw):
+    return r_tm.TMConfig(**kw), t_tm.TMConfig(**kw)
+
+
+def _problem(B=13, F=17, K=3, cpc=7, threshold=9, s=4.0, seed=0):
+    rng = np.random.default_rng(seed)
+    rc, tc = _cfgs(n_features=F, n_classes=K, clauses_per_class=cpc,
+                   threshold=threshold, s=s)
+    ta = rng.integers(-30, 30, (rc.n_clauses_total, rc.n_literals), dtype=np.int8)
+    x = rng.integers(0, 2, (B, F), dtype=np.uint8)
+    y = rng.integers(0, K, B, dtype=np.int32)
+    return rc, tc, ta, x, y
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _words(a):
+    """uint32 words -> the port's int32 bit patterns."""
+    return torch.from_numpy(np.asarray(a, np.uint32).view(np.int32).copy())
+
+
+def _eq(port, reference):
+    np.testing.assert_array_equal(
+        port.numpy() if isinstance(port, torch.Tensor) else np.asarray(port),
+        np.asarray(reference))
+
+
+# -- hash RNG -----------------------------------------------------------------
+
+def test_hash_and_thresholds_on_edge_words():
+    edge = np.array([0, 1, 2, 0xFFFF, 0x10000, 2 ** 31 - 1, 2 ** 31,
+                     2 ** 32 - 2, 2 ** 32 - 1, 0x9E3779B1, 0x85EBCA6B],
+                    dtype=np.uint32)
+    rnd = np.random.default_rng(0).integers(0, 2 ** 32, 4096, dtype=np.uint64)
+    idx = np.concatenate([edge, rnd.astype(np.uint32)])
+    for seed in (0, 1, 77, 2 ** 31, 2 ** 32 - 1, 0x9E3779B9 ^ 5):
+        want = np.asarray(r_ref.hash_u32(jnp.asarray(idx), jnp.uint32(seed)))
+        got = t_ref.hash_u32(torch.from_numpy(idx.astype(np.int64)), seed)
+        np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    for p in (0.0, 1e-10, 0.1, 0.25, 1 / 3, 0.5, 0.75, 1 - 1e-10, 1.0):
+        assert t_ref.prob_to_u32(p) == int(r_ref.prob_to_u32(p)), p
+    assert t_ref.prob_to_u32(1.0) == 0xFFFFFFFF
+
+
+# -- the unfused kernels -------------------------------------------------------
+
+@pytest.mark.parametrize("B,F,cpc", [(13, 17, 7), (40, 70, 11), (1, 33, 3)])
+def test_clause_fire_and_class_sum_match_reference(B, F, cpc):
+    rc, tc, ta, x, y = _problem(B=B, F=F, cpc=cpc, seed=B)
+    ta[::5] = -1                              # empty clauses fire in training
+    lw = r_pk.pack_literals(jnp.asarray(x))
+    iw = r_pk.pack_include_masks(jnp.asarray(ta))
+    fire_ref = r_ref.clause_fire_ref(lw, iw)
+    fire = t_clause_eval.clause_fire(_words(lw), _words(iw))
+    _eq(fire, fire_ref)
+    _eq(fire, r_ops.clause_fire(lw, iw, **KW))
+    votes = r_tm.vote_matrix(rc)
+    _eq(t_tm.vote_matrix(tc), votes)
+    sums = t_class_sum.class_sum(fire, t_tm.vote_matrix(tc))
+    _eq(sums, r_ref.class_sum_ref(fire_ref, votes))
+    _eq(sums, r_ops.class_sums(fire_ref, votes, **KW))
+    for nonempty in (None, (ta >= 0).any(-1).astype(np.uint8)):
+        ne_r = None if nonempty is None else jnp.asarray(nonempty)
+        ne_t = None if nonempty is None else _t(nonempty)
+        want = r_ops.tm_forward_packed(lw, iw, votes, ne_r, fuse=False, **KW)
+        _eq(t_ops.tm_forward_packed(_words(lw), _words(iw), t_tm.vote_matrix(tc),
+                                    ne_t, fuse=False), want)
+        _eq(t_ops.tm_forward_packed(_words(lw), _words(iw), t_tm.vote_matrix(tc),
+                                    ne_t), want)
+
+
+def _selection(rc, ta, x, y, seed, b_off, sl=slice(None), c_off=0):
+    """Reference fire / ftype / lits for a (possibly sliced) bank."""
+    T = rc.threshold
+    lits = r_tm.literals(jnp.asarray(x))
+    lw = r_pk.pack_bits(lits)
+    iw = r_pk.pack_include_masks(jnp.asarray(ta))
+    votes = r_tm.vote_matrix(rc)
+    cls = jnp.clip(jnp.arange(rc.n_clauses_total) // rc.clauses_per_class, 0,
+                   rc.n_classes - 1)
+    pol = r_tm.polarity(rc)
+    sums = jnp.clip(r_ref.clause_fire_ref(lw, iw).astype(jnp.int32) @ votes, -T, T)
+    kn, p_t, p_n = r_ops.feedback_probs(sums, jnp.asarray(y), rc.n_classes, T,
+                                        jnp.uint32(seed), b_offset=b_off)
+    fire = r_ref.clause_fire_ref(lw, iw[sl]).astype(jnp.uint8)
+    ftype = r_ops.feedback_select(jnp.asarray(y), kn, p_t, p_n, cls[sl], pol[sl],
+                                  jnp.uint32(seed), b_offset=b_off, c_offset=c_off)
+    return dict(lits=lits, lw=lw, iw=iw, sums=sums, kn=kn, p_t=p_t, p_n=p_n,
+                cls=cls, pol=pol, fire=fire, ftype=ftype)
+
+
+@pytest.mark.parametrize("b_off,c_off,n_loc,c_total", [
+    (0, 0, None, None), (37, 0, None, None), (5, 10, 11, None),
+    (2 ** 32 - 7, 7, 12, 21),
+])
+def test_feedback_plan_and_ta_delta_match_reference(b_off, c_off, n_loc, c_total):
+    rc, tc, ta, x, y = _problem(B=11, F=23, K=3, cpc=7, seed=3)
+    seed = 55
+    sl = slice(c_off, None if n_loc is None else c_off + n_loc)
+    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off)
+    kn, p_t, p_n = t_ops.feedback_probs(_t(np.asarray(r["sums"])), _t(y),
+                                        tc.n_classes, tc.threshold, seed,
+                                        b_offset=b_off)
+    _eq(kn, r["kn"])
+    _eq(p_t, r["p_t"])
+    _eq(p_n, r["p_n"])
+    _eq(t_tm.clause_class(tc), r["cls"])
+    _eq(t_tm.polarity(tc), r["pol"])
+    ftype = t_ops.feedback_select(_t(y), kn, p_t, p_n, t_tm.clause_class(tc)[sl],
+                                  t_tm.polarity(tc)[sl], seed, b_offset=b_off,
+                                  c_offset=c_off)
+    _eq(ftype, r["ftype"])
+    kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off,
+              c_total=c_total)
+    want = r_ref.ta_delta_ref(jnp.asarray(ta[sl]), r["lits"], r["fire"],
+                              r["ftype"], jnp.uint32(seed), **kw)
+    got = t_ta_update.ta_delta(_t(ta[sl]), _t(np.asarray(r["lits"])),
+                               _t(np.asarray(r["fire"])), ftype, seed, **kw)
+    _eq(got, want)
+    kw["b_offset"] = jnp.uint32(b_off)     # the jitted kernel takes uint32
+    _eq(got, r_ops.ta_delta(jnp.asarray(ta[sl]), r["lits"], r["fire"], r["ftype"],
+                            jnp.uint32(seed), **kw, **KW))
+    assert int(got.abs().sum()) > 0
+
+
+def test_feedback_plan_returns_ftype_and_clamped_sums():
+    rc, tc, ta, x, y = _problem(B=7, seed=2)
+    r = _selection(rc, ta, x, y, 4, 0)
+    want_ft, want_sums = r_ops.feedback_plan(
+        r["fire"], jnp.asarray(y), r_tm.vote_matrix(rc), r["cls"], r["pol"],
+        rc.threshold, jnp.uint32(4))
+    ft, sums = t_ops.feedback_plan(
+        _t(np.asarray(r["fire"])), _t(y), t_tm.vote_matrix(tc),
+        t_tm.clause_class(tc), t_tm.polarity(tc), tc.threshold, 4)
+    _eq(ft, want_ft)
+    _eq(sums, want_sums)
+
+
+# -- the fused kernel ----------------------------------------------------------
+
+def _fused_args(r, ta, y, sl):
+    return (_t(ta[sl]), _t(np.asarray(r["lits"])), _words(r["lw"]),
+            _words(np.asarray(r["iw"])[sl]), _t(y), _t(np.asarray(r["kn"])),
+            _t(np.asarray(r["p_t"])), _t(np.asarray(r["p_n"])),
+            _t(np.asarray(r["cls"])[sl]), _t(np.asarray(r["pol"])[sl]))
+
+
+@pytest.mark.parametrize("B,F,K,cpc", [(13, 17, 3, 7), (8, 64, 4, 32), (33, 9, 2, 50)])
+@pytest.mark.parametrize("b_off,c_off", [(0, 0), (37, 10)])
+def test_fused_train_delta_matches_reference(B, F, K, cpc, b_off, c_off):
+    """The plain fused delta equals the reference's composed oracle and its
+    Pallas kernel in interpret mode: selection hashed on global (sample,
+    clause) ids, the automaton draw on (global sample, local clause)."""
+    rc, tc, ta, x, y = _problem(B=B, F=F, K=K, cpc=cpc, seed=B)
+    seed = 77
+    C = rc.n_clauses_total
+    sl = slice(c_off, C)
+    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off)
+    kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off)
+    want = r_ref.ta_delta_ref(jnp.asarray(ta[sl]), r["lits"], r["fire"],
+                              r["ftype"], jnp.uint32(seed), p_act=1.0,
+                              p_inact=0.25, b_offset=b_off)
+    got = t_fused_train.fused_tm_train_delta(*_fused_args(r, ta, y, sl), seed, **kw)
+    _eq(got, want)
+    pallas = r_fused_train.fused_tm_train_delta(
+        jnp.asarray(ta[sl]), r["lits"], r["lw"], r["iw"][sl], jnp.asarray(y),
+        r["kn"], r["p_t"], r["p_n"], r["cls"][sl], r["pol"][sl],
+        jnp.uint32(seed), interpret=True, **kw)
+    _eq(got, pallas)
+    assert int(got.abs().sum()) > 0
+
+
+def test_fused_clause_shards_reassemble_full_delta():
+    """Two half-bank shards with ``c_offset``/``c_total`` equal the full
+    bank's delta rows (the clause-sharded trainer's invariant), in the port
+    and in the reference's kernel."""
+    rc, tc, ta, x, y = _problem(B=9, F=15, K=2, cpc=12, seed=8)
+    seed, C = 13, rc.n_clauses_total
+    half = C // 2
+    r = _selection(rc, ta, x, y, seed, 0)
+    full = t_fused_train.fused_tm_train_delta(
+        *_fused_args(r, ta, y, slice(None)), seed, p_act=1.0, p_inact=0.25)
+    parts = []
+    for c_off in (0, half):
+        sl = slice(c_off, c_off + half)
+        kw = dict(p_act=1.0, p_inact=0.25, c_offset=c_off, c_total=C)
+        part = t_fused_train.fused_tm_train_delta(*_fused_args(r, ta, y, sl),
+                                                  seed, **kw)
+        _eq(part, r_fused_train.fused_tm_train_delta(
+            jnp.asarray(ta[sl]), r["lits"], r["lw"], r["iw"][sl], jnp.asarray(y),
+            r["kn"], r["p_t"], r["p_n"], r["cls"][sl], r["pol"][sl],
+            jnp.uint32(seed), interpret=True, **kw))
+        parts.append(part)
+    _eq(torch.cat(parts), full.numpy())
+
+
+# -- the training step -----------------------------------------------------------
+
+def _steps(cfg, ta, x, y, seed, **kw):
+    new_ta, delta = r_ops.tm_train_step_kernel(cfg, jnp.asarray(ta), jnp.asarray(x),
+                                               jnp.asarray(y), jnp.uint32(seed), **kw)
+    return np.asarray(new_ta), np.asarray(delta)
+
+
+@pytest.mark.parametrize("B,F,K,cpc", [(13, 17, 3, 7), (8, 64, 4, 32), (33, 9, 2, 50)])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_train_step_matches_reference(B, F, K, cpc, fuse):
+    rc, tc, ta, x, y = _problem(B=B, F=F, K=K, cpc=cpc, seed=B)
+    want_ta, want_d = _steps(rc, ta, x, y, 77, use_kernel=False)
+    got_ta, got_d = t_ops.tm_train_step_kernel(tc, _t(ta), _t(x), _t(y), 77, fuse=fuse)
+    _eq(got_d, want_d)
+    _eq(got_ta, want_ta)
+    assert np.abs(want_d).sum() > 0
+
+
+@pytest.mark.parametrize("B,chunk", [(24, 8), (21, 8), (13, 4)])
+@pytest.mark.parametrize("fuse", [True, False])
+def test_chunked_step_matches_unchunked_reference(B, chunk, fuse):
+    rc, tc, ta, x, y = _problem(B=B, seed=B + chunk)
+    _, want = _steps(rc, ta, x, y, 31, use_kernel=False)
+    _, fused_pallas = _steps(rc, ta, x, y, 31, batch_chunk=chunk, fuse=fuse, **KW)
+    _, got = t_ops.tm_train_step_kernel(tc, _t(ta), _t(x), _t(y), 31, chunk, fuse=fuse)
+    _eq(got, want)
+    _eq(got, fused_pallas)
+
+
+def test_train_step_clause_shard_with_sums_reduce():
+    """A clause shard with ``c_total`` and a sums reduction equals the
+    full-bank delta's rows (the data the sharded trainer exchanges)."""
+    rc, tc, ta, x, y = _problem(B=10, F=13, K=2, cpc=8, seed=6)
+    C = tc.n_clauses_total
+    _, full = t_ops.tm_train_step_kernel(tc, _t(ta), _t(x), _t(y), 3)
+    for fuse in (True, False):
+        parts = []
+        for c_off in (0, C // 2):
+            sl = slice(c_off, c_off + C // 2)
+            other = slice(C // 2 - c_off, C - c_off)
+
+            def reduce(s, other=other):
+                lw = t_pk.pack_literals(_t(x))
+                iw = t_pk.pack_include_masks(_t(ta[other]))
+                return s + t_ref.class_sum_ref(t_ref.clause_fire_ref(lw, iw),
+                                               t_tm.vote_matrix(tc)[other])
+            parts.append(t_ops.tm_train_step_kernel(
+                tc, _t(ta[sl]), _t(x), _t(y), 3, fuse=fuse, c_offset=c_off,
+                c_total=C, sums_reduce=reduce)[1])
+        _eq(torch.cat(parts), full.numpy())
+    with pytest.raises(ValueError, match="c_total"):
+        t_ops.tm_train_step_kernel(tc, _t(ta), _t(x), _t(y), 3, c_total=C + 1)
+
+
+def test_five_tm_tiny_steps_from_reference_init():
+    """Five consecutive steps of tm-tiny from the reference's ``tm.init``
+    bank, carried over with ``state_from_numpy``."""
+    from repro.configs.matador_tm import TM_TINY as R_TINY
+    from repro.core import train as r_train
+    from repro_torch.configs.matador_tm import TM_TINY as T_TINY
+    from repro_torch.core import train as t_train
+
+    rng = np.random.default_rng(4)
+    xs = rng.integers(0, 2, (5, 16, 32), dtype=np.uint8)
+    ys = rng.integers(0, 3, (5, 16), dtype=np.int32)
+    r_state = r_tm.init(R_TINY, jax.random.PRNGKey(0))
+    t_state = t_tm.state_from_numpy(np.asarray(r_state.ta_state), device="cpu")
+    for s in range(5):
+        fuse = s % 2 == 0
+        r_state, r_m = r_train.train_step_kernel(R_TINY, r_state, jnp.asarray(xs[s]),
+                                                 jnp.asarray(ys[s]), jnp.uint32(s))
+        t_state, t_m = t_train.train_step_kernel(T_TINY, t_state, _t(xs[s]),
+                                                 _t(ys[s]), s, fuse=fuse)
+        _eq(t_state.ta_state, r_state.ta_state)
+        assert t_state.steps == int(r_state.steps) == s + 1
+        assert t_m["delta_abs_sum"] == int(r_m["delta_abs_sum"])
+    new_ta, das = t_train.online_step(T_TINY, t_state.ta_state, _t(xs[0]), _t(ys[0]), 9)
+    want_ta, want_das = r_train.online_step(R_TINY, r_state.ta_state,
+                                            jnp.asarray(xs[0]), jnp.asarray(ys[0]),
+                                            jnp.uint32(9))
+    _eq(new_ta, want_ta)
+    assert das == int(want_das)
+
+
+def test_init_predict_accuracy_and_apply_delta():
+    from repro.core import feedback as r_feedback
+    from repro_torch.core import feedback as t_feedback
+
+    rc, tc = _cfgs(n_features=20, n_classes=3, clauses_per_class=5,
+                   clause_pad_multiple=8)
+    st = t_tm.init(tc, torch.Generator().manual_seed(0), "cpu")
+    assert st.ta_state.dtype == torch.int8 and st.ta_state.shape == (16, 40)
+    assert set(st.ta_state[:15].unique().tolist()) == {-1, 0}
+    assert (st.ta_state[15:] == -tc.n_states).all()
+    again = t_tm.init(tc, torch.Generator().manual_seed(0), "cpu")
+    assert torch.equal(st.ta_state, again.ta_state)
+    with pytest.raises(ValueError):
+        t_tm.state_from_numpy(np.zeros((3, 4), np.int32), device="cpu")
+
+    rng = np.random.default_rng(1)
+    ta = rng.integers(-20, 20, (16, 40), dtype=np.int8)
+    ta[3] = -5                                    # an empty clause: dropped
+    x = rng.integers(0, 2, (50, 20), dtype=np.uint8)
+    y = rng.integers(0, 3, 50, dtype=np.int32)
+    r_st = r_tm.TMState(ta_state=jnp.asarray(ta), steps=jnp.int32(0))
+    t_st = t_tm.state_from_numpy(ta, device="cpu")
+    for kw in (dict(), KW):
+        _eq(t_tm.predict(tc, t_st, _t(x)), r_tm.predict(rc, r_st, jnp.asarray(x), **kw))
+    assert t_tm.accuracy(tc, t_st, _t(x), _t(y)) == float(
+        r_tm.accuracy(rc, r_st, jnp.asarray(x), jnp.asarray(y)))
+    lits = t_tm.literals(_t(x))
+    for training in (True, False):
+        _eq(t_tm.clause_outputs(_t(ta), lits, training=training),
+            r_tm.clause_outputs(jnp.asarray(ta), jnp.asarray(lits.numpy()),
+                                training=training))
+        _eq(t_tm.class_sums(tc, _t(ta), lits, training=training),
+            r_tm.class_sums(rc, jnp.asarray(ta), jnp.asarray(lits.numpy()),
+                            training=training))
+    delta = rng.integers(-300, 300, ta.shape).astype(np.int32)
+    _eq(t_feedback.apply_delta(tc, _t(ta), _t(delta)),
+        r_feedback.apply_delta(rc, jnp.asarray(ta), jnp.asarray(delta)))
+
+
+def test_run_compiled_unfused_dense_engine():
+    from repro.core import compiler as r_compiler
+    from repro_torch.core import compiler as t_compiler
+
+    rc, tc, ta, x, y = _problem(B=37, F=30, K=4, cpc=9, seed=12)
+    r_comp = r_compiler.compile_tm(rc, jnp.asarray(ta))
+    t_comp = t_compiler.compile_tm(tc, _t(ta))
+    xp_r = r_pk.pack_literals(jnp.asarray(x))
+    want = r_compiler.run_compiled(r_comp, xp_r,
+                                   engine=r_ops.EngineSpec("dense", fuse=False),
+                                   interpret=True)
+    xp = _words(xp_r)
+    got = t_compiler.run_compiled(t_comp, xp, engine=t_ops.EngineSpec("dense", fuse=False))
+    _eq(got, want)
+    _eq(got, r_compiler.run_compiled(r_comp, xp_r, engine="oracle"))
+    _eq(t_compiler.run_compiled(t_comp, xp, engine="oracle"), want)
+    for name in ("sparse", "factorized"):
+        with pytest.raises(ValueError, match="unfused"):
+            t_ops.EngineSpec(name, fuse=False)
+
+
+# -- fit and the launcher ------------------------------------------------------------
+
+def test_fit_matches_manual_loop():
+    from repro_torch.core import train as t_train
+    from repro_torch.data.synthetic import make_noisy_xor
+
+    X, y = make_noisy_xor(120, noise=0.05, seed=11)
+    cfg = t_tm.TMConfig(n_features=12, n_classes=2, clauses_per_class=10,
+                        threshold=15, s=3.9)
+    st0 = t_tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    bs, epochs = 30, 2
+    st = t_train.fit(cfg, st0, _t(X), _t(y), epochs=epochs, batch_size=bs,
+                     generator=torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(7)
+    ta, gstep = st0.ta_state, 0
+    for _ in range(epochs):
+        perm = torch.randperm(120, generator=g)
+        xs, ys = _t(X)[perm], _t(y)[perm]
+        for i in range(120 // bs):
+            ta, _ = t_ops.tm_train_step_kernel(cfg, ta, xs[i * bs:(i + 1) * bs],
+                                               ys[i * bs:(i + 1) * bs], gstep)
+            gstep += 1
+    _eq(st.ta_state, ta.numpy())
+    assert st.steps == gstep
+    with pytest.raises(ValueError, match="jnp"):
+        t_train.fit(cfg, st0, _t(X), _t(y), epochs=1, batch_size=bs,
+                    generator=g, engine="jnp")
+
+
+def test_train_tm_flags_not_ported_and_device():
+    from repro_torch.launch import train as t_launch
+
+    base = ["--arch", "tm-tiny", "--steps", "1", "--device", "cpu"]
+    for extra in (["--mesh", "model=2"], ["--autotune"]):
+        args = t_launch.build_parser().parse_args(base + extra)
+        with pytest.raises(SystemExit, match="later slice"):
+            t_launch.train_tm(args)
+    if not torch.cuda.is_available():
+        args = t_launch.build_parser().parse_args(["--arch", "tm-tiny", "--steps", "1"])
+        with pytest.raises(RuntimeError, match="cuda"):
+            t_launch.train_tm(args)
