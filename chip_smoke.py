@@ -3,19 +3,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version on the card (bit for bit, tolerance
-0) at tm-mnist width, checks every engine of ``run_compiled`` against the
-oracle, then drives the serving path (``repro_torch.launch.serve.serve_tm``
-on the committed tm-mnist artifact, 4096 requests in buckets of 512) once
-per kernel rung of the engine ladder, and the training path
-(``repro_torch.launch.train.train_tm``, tm-mnist, 40 steps of 64) fused,
-unfused and batch-chunked, with the kernels' launch counts set to 0 just
-before each run and read just after.  The three trained banks must equal
-each other and a run of the plain versions; a resumed run must equal an
-uninterrupted one; the trained bank must compile and serve equal to the
-oracle on every engine.  Prints the card's name and
-power limit, a ``kernels`` JSON line with each kernel's launches, error,
-time, plain-version time and bound, and as its last line
+each against its plain PyTorch version on the card (bit for bit for the
+eight integer kernels; flash attention to the tolerance stated at
+``flash_tolerance``) at the widths its path uses, checks every engine of
+``run_compiled`` against the oracle, then drives the serving path
+(``repro_torch.launch.serve.serve_tm`` on the committed tm-mnist artifact,
+4096 requests in buckets of 512) once per kernel rung of the engine
+ladder, the training path (``repro_torch.launch.train.train_tm``,
+tm-mnist, 40 steps of 64) fused, unfused and batch-chunked, the BNN
+baseline (784-256-256-256-10 trained one epoch, packed, 10,000
+predictions through ``xnor_popcount``) and the LM serving path
+(``serve_lm`` on tinyllama-1.1b at full width in bf16, batch 16, 1024
+prompt tokens, 64 decode steps, the flash kernel in every layer's
+prefill), with the kernels' launch counts set to 0 just before each run
+and read just after.  The three trained banks must equal each other and a
+run of the plain versions; a resumed run must equal an uninterrupted one;
+the trained bank must compile and serve equal to the oracle on every
+engine.  Prints the card's name and power limit, a ``kernels`` JSON line
+with each kernel's launches, error and tolerance, time, plain-version
+time, library time and bound, and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, when the port's sources are missing, or when
 any phase fails.  Imports nothing of JAX or of the reference package.
@@ -42,6 +48,13 @@ BUCKET = 512
 # per clock (CUDA programming guide, compute capability 9.0) x 1.98 GHz boost
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# __popc issues at 16 per SM per clock on compute capability 9.0, a quarter
+# of the 32-bit integer rate (CUDA programming guide, arithmetic instruction
+# throughput table), so xnor_popcount's population counts run at this rate
+POPC_OPS_PER_S = 132 * 16 * 1.98e9
+# dense bf16 tensor-core peak (NVIDIA data sheet), the rate flash
+# attention's products could run at
+BF16_FLOPS_PER_S = 989e12
 
 TRAIN_STEPS, TRAIN_BATCH = 40, 64
 TRAIN_BATCHES = (1, 33, 64, 97)
@@ -70,6 +83,20 @@ TRAIN_KERNELS = {
     "ta_update": dict(source="src/repro_torch/kernels/csrc/ta_update.cu",
                       replaces="src/repro/kernels/ta_update.py:28"),
 }
+
+
+BNN_SIZES = (784, 256, 256, 256, 10)
+BNN_TEST = 10000
+BNN_LR = 0.05
+BNN_KERNEL = dict(source="src/repro_torch/kernels/csrc/xnor_popcount.cu",
+                  replaces="src/repro/kernels/xnor_popcount.py:22")
+LM_ARGV = ["--arch", "tinyllama-1.1b", "--device", "cuda", "--batch-size", "16",
+           "--seq-len", "2048", "--new-tokens", "64"]
+FLASH_KERNEL = dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:29")
+# float32: the reference holds its own flash kernel to flash_ref at this
+# absolute tolerance (tests/test_kernels.py)
+FLASH_F32_ATOL = 2e-5
 
 
 def fail(msg: str) -> None:
@@ -442,7 +469,254 @@ def train_phases(dev, max_err, launches):
     return times, work
 
 
+def bound(n_bytes, t_ops_ms):
+    """(bound ms, what bounds it) from bytes moved once and the operations'
+    time at their peak rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops_ms), ("bytes" if t_bytes >= t_ops_ms else "operations")
+
+
+def bnn_phase(dev) -> dict:
+    """The BNN baseline: train 784-256-256-256-10 one epoch, pack, predict
+    10,000 samples through xnor_popcount; the kernel against its plain
+    version on every layer's inputs; times at the first layer's shape."""
+    import torch
+
+    from repro_torch.baselines import bnn
+    from repro_torch.core import packetizer
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import xnor_popcount as xp
+
+    X, y, Xte, yte = paper_dataset("mnist", n_train=4000, n_test=BNN_TEST)
+    # one epoch at the default rate (1e-3) leaves the net near chance
+    cfg = bnn.BNNConfig(layer_sizes=BNN_SIZES, lr=BNN_LR)
+    t0 = time.perf_counter()
+    params = bnn.bnn_init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = bnn.bnn_train(cfg, params, X, y, epochs=1, batch_size=50)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    packed = bnn.bnn_pack(params)
+    x = torch.from_numpy(Xte).to(dev)
+    bnn.bnn_predict(packed, x)                        # warm-up
+    torch.cuda.synchronize()
+    xp.launches = 0
+    t0 = time.perf_counter()
+    pred = bnn.bnn_predict(packed, x)
+    torch.cuda.synchronize()
+    predict_ms = (time.perf_counter() - t0) * 1e3
+    launches = xp.launches
+    check(launches == len(packed), f"bnn_predict launched xnor_popcount {launches} "
+          f"times for {len(packed)} layers")
+    check(pred.shape == (BNN_TEST,) and int(pred.min()) >= 0 and int(pred.max()) < 10,
+          f"bnn_predict output {tuple(pred.shape)}")
+    with torch.no_grad():
+        pred_float = bnn._forward_float(params, x).argmax(-1)
+    agree = float((pred == pred_float).float().mean())
+    check(agree >= 0.99, f"packed predictions agree with the float network on "
+          f"{agree:.4f} < 0.99 (the reference's bar, tests/test_bnn.py)")
+    acc = float((pred.cpu() == torch.from_numpy(yte)).float().mean())
+    print(f"bnn: 784-256-256-256-10 trained 1 epoch at batch 50, lr {BNN_LR}, in "
+          f"{train_s:.2f} s; "
+          f"bnn_predict on {BNN_TEST} samples in {predict_ms:.2f} ms, launches "
+          f"{launches}; test_acc={acc:.4f} (information, not a gate); agreement "
+          f"with the float network {agree:.4f}")
+
+    # every layer's real inputs, and a ragged width
+    max_err, shapes = 0, []
+    a = x.to(torch.uint8)
+    layers = []
+    for i, (w, n_bits) in enumerate(packed):
+        aw = packetizer.pack_bits(a)
+        layers.append((aw, w, n_bits))
+        dots = xp.xnor_popcount_plain(aw, w, n_bits)
+        a = (dots >= 0).to(torch.uint8)
+    rng = torch.Generator(device=dev).manual_seed(5)
+    rag = [packetizer.pack_bits(torch.randint(0, 2, (n, 150), generator=rng, device=dev))
+           for n in (777, 33)]
+    for aw, w, n_bits in layers + [(rag[0], rag[1], 150)]:
+        got, want = xp.xnor_popcount_cuda(aw, w, n_bits), xp.xnor_popcount_plain(aw, w, n_bits)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+        shapes.append(f"B={aw.shape[0]} W={aw.shape[1]} O={w.shape[0]} n_bits={n_bits}")
+        check(err == 0, f"xnor_popcount {shapes[-1]}: kernel differs from its plain "
+              f"version by {err}")
+    print("xnor_popcount == plain version at " + "; ".join(shapes))
+
+    per_layer = []
+    for aw, w, n_bits in layers:
+        per_layer.append(dict(W=aw.shape[1], O=w.shape[0], ms=cuda_time_ms(
+            lambda aw=aw, w=w, n_bits=n_bits: xp.xnor_popcount_cuda(aw, w, n_bits))))
+    aw, w, n_bits = layers[0]
+    B, W = aw.shape
+    O = w.shape[0]
+    kern = lambda: xp.xnor_popcount_cuda(aw, w, n_bits)
+    plain = lambda: xp.xnor_popcount_plain(aw, w, n_bits)
+    pm_a = 2.0 * x.to(torch.float32) - 1.0
+    pm_w = torch.sign(torch.where(params[0] == 0, 1.0, params[0]))
+    row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5),
+               library_ms=cuda_time_ms(lambda: torch.matmul(pm_a, pm_w)))
+    row["device_ms"], per = profile_device(kern)
+    print(f"xnor_popcount device work per call at B={B} W={W} O={O}: {json.dumps(per)}")
+    n_words = B * O * W
+    # per word: one population count, one three-input logic op (xnor), one add
+    t_ops = max(n_words / POPC_OPS_PER_S, 2 * n_words / INT32_OPS_PER_S) * 1e3
+    row["bound_ms"], row["bound_by"] = bound(nbytes(aw, w) + B * O * 4, t_ops)
+    print("BNN_TIMES " + json.dumps(dict(row, shape=dict(B=B, W=W, O=O),
+                                         per_layer=per_layer, predict_ms=predict_ms,
+                                         train_s=train_s)))
+    return dict(row, launches=launches, max_abs_err=max_err, tolerance=0)
+
+
+def flash_tolerance(v, want) -> float:
+    """bf16: the kernel and the plain version round the unnormalized
+    probabilities to bf16 against different running maxima (each rounding
+    <= 2^-8 relative, so a row's weights differ by <= 2^-7 of its sum,
+    times at most max|v|), and round the output to bf16 (one unit in the
+    last place <= 2^-7 x |out|)."""
+    return 2 ** -7 * (float(v.abs().max()) + float(want.abs().max()))
+
+
+def split_device_time(us) -> dict:
+    """Device microseconds by kind: the flash kernel, GEMMs, the rest."""
+    import re
+
+    out = dict(flash=0.0, gemm=0.0, rest=0.0)
+    for name, (u, _) in us.items():
+        if "flash_fwd_kernel" in name:
+            out["flash"] += u
+        elif re.search(r"gemm|nvjet|xmma|cutlass|cublas|matmul", name, re.I):
+            out["gemm"] += u
+        else:
+            out["rest"] += u
+    return out
+
+
+def lm_phase(dev) -> dict:
+    """serve_lm on tinyllama-1.1b at full width: the kernel route (counts
+    zeroed around it), the plain route, a warm kernel run for the times;
+    the kernel against its plain version on layer 0's real prefill inputs
+    (bf16) and in float32; a profile of prefill and decode."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, layers, steps, transformer
+
+    args = serve.build_parser().parse_args(LM_ARGV)
+    cfg = get_config(args.arch)
+    fa.launches = 0
+    res = serve.serve_lm(args)
+    launches = fa.launches
+    check(launches == cfg.n_layers == res["flash_launches"],
+          f"the prefill launched the flash kernel {launches} times for "
+          f"{cfg.n_layers} layers")
+    B, P = args.batch_size, args.seq_len // 2
+    logits, toks = res["prefill_logits"], res["tokens"]
+    check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    check(toks.shape == (B, args.new_tokens + 1), f"tokens {tuple(toks.shape)}")
+
+    # the plain route: the same serve with the kernel's plain version in place
+    kernel_fn = fa.flash_forward
+    fa.flash_forward = fa.flash_forward_plain
+    try:
+        plain = serve.serve_lm(args)
+    finally:
+        fa.flash_forward = kernel_fn
+    check(fa.launches == launches, "the plain route launched the flash kernel")
+    diff = float((logits - plain["prefill_logits"]).abs().max())
+    same_first = float((toks[:, 0] == plain["tokens"][:, 0]).float().mean())
+    same = float((toks[:, 1:] == plain["tokens"][:, 1:]).float().mean())
+    warm = serve.serve_lm(args)
+    print("LM_ROUTES " + json.dumps(dict(
+        prefill_logits_max_abs_diff=diff, logits_max_abs=float(logits.abs().max()),
+        equal_first_token_share=same_first, equal_decode_token_share=same)))
+
+    # layer 0's real prefill inputs (the same seed and device as serve_lm)
+    model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))
+    tokens = torch.from_numpy(prompts).to(dev)
+    positions = torch.arange(P, dtype=torch.int32, device=dev)[None].expand(B, P)
+    blk = model.blocks[0]
+    with torch.no_grad():
+        h = layers.rms_norm(model.embed[tokens], blk.norm1, cfg.norm_eps)
+        q, k, v = attention._project_qkv(cfg, blk.mix, h, positions)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    got, want = fa.flash_forward_cuda(q, k, v), fa.flash_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = flash_tolerance(v.float(), want.float())
+    check(err <= tol, f"flash_attention bf16 q {tuple(q.shape)}: kernel differs from "
+          f"its plain version by {err} > {tol}")
+    f32 = [t.float() for t in (q, k, v)]
+    err32 = float((fa.flash_forward_cuda(*f32) - fa.flash_forward_plain(*f32)).abs().max())
+    check(err32 <= FLASH_F32_ATOL, f"flash_attention float32: kernel differs from its "
+          f"plain version by {err32} > {FLASH_F32_ATOL}")
+    print(f"flash_attention == plain version on layer 0's prefill inputs: q "
+          f"{tuple(q.shape)} k {tuple(k.shape)} bf16 max_abs_err {err} (tolerance "
+          f"{tol}); float32 {err32} (tolerance {FLASH_F32_ATOL})")
+
+    kern = lambda: fa.flash_forward_cuda(q, k, v)
+    row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(
+        lambda: fa.flash_forward_plain(q, k, v), reps=3, warmup=1))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"] = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True))
+    row["device_ms"], per = profile_device(kern)
+    print(f"flash_attention device work per call: {json.dumps(per)}")
+    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
+    # QK^T and PV over the S(S+1)/2 causal (query, key) pairs, 2 FLOPs each
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v) + nbytes(got),
+                                             flops / BF16_FLOPS_PER_S * 1e3)
+
+    # where prefill and decode time goes (warm): the steps under the profiler
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    caches = model.init_caches(B, args.seq_len)
+    prof_rows = {}
+    for label in ("prefill", "decode"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "prefill":
+                out, caches = prefill(model, {"tokens": tokens}, caches)
+                n = 1
+            else:
+                tok = out.argmax(-1)[:, None]
+                n = 16
+                for i in range(n):
+                    out, caches = decode(model, caches, {"tokens": tok}, P + i)
+                    tok = out.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        us = device_us(prof)
+        busy_s = sum(u for u, _ in us.values()) / 1e6
+        top = sorted(us.items(), key=lambda kv: -kv[1][0])[:8]
+        prof_rows[label] = dict(
+            steps=n, wall_ms=wall_s * 1e3, device_busy_ms=busy_s * 1e3,
+            device_launches=sum(c for _, c in us.values()),
+            idle_share=1 - busy_s / wall_s if us else None,
+            split_ms={kk: u / 1e3 for kk, u in split_device_time(us).items()},
+            top=[dict(name=kk[:60], us=u, count=c) for kk, (u, c) in top])
+        print(f"LM_PROFILE_{label.upper()} " + json.dumps(prof_rows[label]))
+    print("LM_TIMES " + json.dumps(dict(
+        row, shape=dict(q=list(q.shape), k=list(k.shape)), flops=flops,
+        serve_prefill_ms=[r["prefill_s"] * 1e3 for r in (res, plain, warm)],
+        serve_decode_ms_per_step=[r["decode_s"] / args.new_tokens * 1e3
+                                  for r in (res, plain, warm)],
+        runs="kernel route (main path), plain route, kernel route (warm)",
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
+    return dict(row, launches=launches, max_abs_err=err, tolerance=tol,
+                f32_max_abs_err=err32, f32_tolerance=FLASH_F32_ATOL)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -462,6 +736,9 @@ def main() -> None:
             "term_infer": term_infer}
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    # float32 products in full float32 (the plain versions' and the BNN's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -634,7 +911,11 @@ def main() -> None:
         max_err[name] = 0
     train_times, train_work = train_phases(dev, max_err, launches)
 
-    # 8. the kernels line.  Bound: the bytes the function must move (each
+    # 8. the BNN baseline and the LM serving path
+    extra_rows = {"xnor_popcount": (BNN_KERNEL, bnn_phase(dev)),
+                  "flash_attention": (FLASH_KERNEL, lm_phase(dev))}
+
+    # 9. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the
     # chain ids this run's walk needs, not the padded tables) over the
     # memory rate, against its integer operations over the issue rate
@@ -681,7 +962,8 @@ def main() -> None:
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=None,
-                   library_note="no single PyTorch call computes this function")
+                   library_note="no single PyTorch call computes this function",
+                   tolerance=0)
         for extra in ("device_ms", "early_exit_ms"):
             if extra in times[name][B]:
                 row[extra] = times[name][B][extra]
@@ -695,12 +977,17 @@ def main() -> None:
                    max_abs_err=max_err[name], ms=tt["ms"], plain_ms=tt["plain_ms"],
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=tt.get("library_ms"), device_ms=tt["device_ms"])
+                   library_ms=tt.get("library_ms"), device_ms=tt["device_ms"],
+                   tolerance=0)
         if row["library_ms"] is None:
             row["library_note"] = "no single PyTorch call computes this function"
         rows.append(row)
-    check(len(rows) == 7 and all(r["launches"] > 0 and r["max_abs_err"] == 0
+    for name, (meta, r) in extra_rows.items():
+        rows.append(dict(name=name, route="cuda", source=meta["source"],
+                         replaces=meta["replaces"], **r))
+    check(len(rows) == 9 and all(r["launches"] > 0 and r["max_abs_err"] <= r["tolerance"]
                                  for r in rows), "kernels line incomplete")
+    print(f"chip_smoke ran {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

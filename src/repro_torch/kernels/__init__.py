@@ -5,7 +5,9 @@ Inference kernels: fused_infer (dense clause chain + vote fold),
 sparse_infer (block-sparse chain schedule), term_infer (two-stage
 shared-term schedule), clause_eval and class_sum (the unfused dense
 pipeline).  Training kernels: fused_train (fire -> feedback -> delta in one
-pass) and ta_update (the unfused delta).
+pass) and ta_update (the unfused delta).  xnor_popcount is the BNN
+baseline's binarized matmul, flash_attention the LM substrate's causal
+attention forward.
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors; ``_build`` compiles the sources at first CUDA use.
 """

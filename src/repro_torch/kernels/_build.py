@@ -31,7 +31,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_infer", "sparse_infer", "term_infer", "clause_eval",
-           "class_sum", "ta_update", "fused_train")
+           "class_sum", "ta_update", "fused_train", "xnor_popcount",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"

@@ -1,0 +1,104 @@
+"""Causal flash attention forward, the LM substrate's attention kernel:
+q (B, S, H, hd) x k, v (B, T, KH, hd) -> (B, S, H, hd) in q's dtype, with
+grouped-query heads (query head h reads kv head h // (H / KH)).
+
+:func:`flash_forward` runs ``csrc/flash_attention.cu`` for CUDA tensors and
+:func:`flash_forward_plain` for CPU tensors.  ``models/attention.py``
+routes a prefill that starts at position 0 here on the card.  Both
+versions compute the reference kernel's function
+(``repro/kernels/flash_attention.py``): scores and softmax in float32, the
+unnormalized probabilities cast to v's dtype before the product with v,
+the sum in float32, and the output ``acc / max(l, 1e-30)``.  The causal
+mask compares row indices: key t is visible to query s iff t <= s.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches through flash_forward on CUDA tensors
+launches = 0
+
+
+def _check(q, k, v):
+    for name, t in dict(q=q, k=k, v=v).items():
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, seq, heads, dim), got "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is {q.dtype} "
+                             f"on {q.device}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{k.shape[2]} kv heads do not divide {H} query heads")
+    if k.shape[1] < 1:
+        raise ValueError("attention over an empty key sequence")
+
+
+def flash_forward_plain(q, k, v, *, causal: bool = True):
+    """Plain PyTorch version (any device): one masked softmax over all
+    keys in float32 -> (B, S, H, dv)."""
+    _check(q, k, v)
+    B, S, H, hd = q.shape
+    T, G = k.shape[1], H // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32), kf) * hd ** -0.5
+    if causal:
+        mask = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None])
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)                                             # (B, H, S)
+    acc = torch.einsum("bhqt,bthv->bqhv", p.to(v.dtype).to(torch.float32),
+                       vf.to(torch.float32))
+    return (acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def flash_forward_cuda(q, k, v, *, causal: bool = True):
+    """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd)."""
+    global launches
+    _check(q, k, v)
+    if not q.is_cuda:
+        raise ValueError("flash_forward_cuda takes CUDA tensors")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, t in dict(q=q, k=k, v=v).items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, S, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    if v.shape[3] != hd or hd > MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes dv == hd <= {MAX_HEAD_DIM}, got "
+                         f"hd {hd}, dv {v.shape[3]}")
+    out = torch.empty_like(q)
+    P, I = _build.P, _build.I
+    fn = _build.entry("flash_attention", "flash_forward_launch",
+                      [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P])
+    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+             B, S, T, H, KH, hd, _DTYPES[q.dtype], int(causal), hd ** -0.5,
+             _build.stream_ptr(q.device))
+    _build.check("flash_attention", err)
+    launches += 1
+    return out
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """Attention forward == ``repro.kernels.ref.flash_ref`` (kv heads
+    grouped, not expanded)."""
+    if q.is_cuda:
+        return flash_forward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal)
+    return flash_forward_plain(q, k, v, causal=causal)

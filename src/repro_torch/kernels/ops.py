@@ -29,6 +29,7 @@ from repro_torch.kernels import fused_train as _fused_train_kernel
 from repro_torch.kernels import sparse_infer as _sparse_infer_kernel
 from repro_torch.kernels import ta_update as _ta_update_kernel
 from repro_torch.kernels import term_infer as _term_infer_kernel
+from repro_torch.kernels import xnor_popcount as _xnor_popcount_kernel
 from repro_torch.kernels.ref import M32
 from repro_torch.runtime import faults
 
@@ -266,6 +267,8 @@ class EngineLadder:
 clause_fire = _clause_eval_kernel.clause_fire
 class_sums = _class_sum_kernel.class_sum
 ta_delta = _ta_update_kernel.ta_delta
+# the BNN baseline's binarized matmul: (B, W) x (O, W) packed words -> (B, O)
+xnor_dot = _xnor_popcount_kernel.xnor_popcount
 
 
 def tm_forward_packed(

@@ -130,3 +130,32 @@ def ta_delta_ref(
             d2 = fire_b[rows, None] & ~lit_on[None, :] & excl[rows]
             delta[rows] += d2.to(torch.int32)
     return delta
+
+
+# -- xnor_popcount: the BNN baseline's binarized matmul
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int32 bit patterns or int64 values) ->
+    int64.  torch has no popcount: a SWAR count in int64, masked to 32 bits."""
+    v = x.to(torch.int64) & M32
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & M32) >> 24
+
+
+def xnor_popcount_ref(a_words: torch.Tensor, w_words: torch.Tensor,
+                      n_bits: int) -> torch.Tensor:
+    """(B, W) x (O, W) int32 bit patterns -> (B, O) int32 of +1/-1 dots.
+
+    Bits encode {-1: 0, +1: 1}; dot = matches - mismatches
+    = 2 * popcount(~(a ^ w)) - n_bits, where the W * 32 - n_bits padding
+    bits (zero in both) match and are taken out again.  Loops over words,
+    so it holds (B, O) int64, never the (B, O, W) field.
+    """
+    pop = torch.zeros((a_words.shape[0], w_words.shape[0]), dtype=torch.int64,
+                      device=a_words.device)
+    for i in range(a_words.shape[1]):
+        pop += popcount32(~(a_words[:, i, None] ^ w_words[None, :, i]))
+    matches = pop - (a_words.shape[1] * 32 - n_bits)
+    return (2 * matches - n_bits).to(torch.int32)

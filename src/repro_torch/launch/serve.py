@@ -1,14 +1,17 @@
 """Serving entry point: batched TM inference of a compiled artifact on the
-port's kernels.
+port's kernels, and the LM substrate's prefill + decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tm-mnist \\
         --artifact src/repro_torch/assets/tm_mnist_e1.npz --requests 4096 --bucket 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+        --batch-size 16 --seq-len 2048 --new-tokens 64
 
-The loop mirrors the MATADOR runtime: load a compiled artifact, packetize
+The TM loop mirrors the MATADOR runtime: load a compiled artifact, packetize
 requests, stream them through the clause datapath in fixed-size buckets
 behind the async gateway, argmax.  Serving without an artifact trains
 first, as the reference does, with the per-sample ``jax.random`` trainer
-(``engine="jnp"``), which a later slice of the port brings.
+(``engine="jnp"``), which a later slice of the port brings.  Any other
+``--arch`` serves a language model with random weights (``serve_lm``).
 """
 
 from __future__ import annotations
@@ -250,9 +253,10 @@ def serve_tm(args) -> tuple[dict, dict]:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True,
-                    help="a TM config of configs/matador_tm.py, e.g. tm-mnist")
+                    help="a TM config of configs/matador_tm.py (e.g. tm-mnist) "
+                         "or an LM of configs.ARCH_IDS (e.g. tinyllama-1.1b)")
     ap.add_argument("--artifact", default=None,
-                    help="compiled-artifact .npz to serve (required)")
+                    help="TM: compiled-artifact .npz to serve (required)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                          "(the kernels' plain PyTorch versions)")
@@ -296,15 +300,82 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, what in _LATER.items():
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True,
                         help=f"not yet ported ({what}); exits with a message")
+    ap.add_argument("--batch-size", type=int, default=4, help="LM: prompts")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="LM: KV-cache length; the prompts take half of it")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="LM: greedy decode steps")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the architecture's reduced smoke config")
     return ap
+
+
+def serve_lm(args) -> dict:
+    """Prefill a batch of random prompts (half of ``--seq-len``) and decode
+    ``--new-tokens`` greedy tokens, on random weights from seed 0.
+
+    The prefill runs the flash kernel once per layer on the card.  Prints
+    the reference's ``prefill ... ms; decode ... ms/step (... tok/s)`` line
+    and the prefill's flash-kernel launches; returns the prefill logits,
+    the greedy tokens (B, new_tokens + 1), the times and the launch count.
+    """
+    from repro_torch import device as _device
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.models import steps, transformer
+
+    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    transformer.check_servable(cfg)
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda":
+        _build.build()                 # compile outside the timed prefill
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    B, S_max = args.batch_size, args.seq_len
+    caches = model.init_caches(B, S_max)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    prompt_len = S_max // 2
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt_len))
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+
+    n0 = flash_kernel.launches
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, batch, caches)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    n_flash = flash_kernel.launches - n0
+    prefill_logits = logits
+    toks = [torch.argmax(logits, -1)[:, None]]
+
+    n_new = args.new_tokens
+    t0 = time.perf_counter()
+    for i in range(n_new):
+        logits, caches = decode(model, caches, {"tokens": toks[-1]}, prompt_len + i)
+        toks.append(torch.argmax(logits, -1)[:, None])
+    sync()
+    t_decode = time.perf_counter() - t0
+    print(f"prefill {prompt_len} tok x {B}: {t_prefill * 1e3:.1f} ms; "
+          f"decode {n_new} steps: {t_decode / max(n_new, 1) * 1e3:.2f} ms/step "
+          f"({B * n_new / max(t_decode, 1e-9):,.0f} tok/s)")
+    print(f"flash kernel launches in the prefill: {n_flash} "
+          f"({cfg.n_layers} layers, {cfg.name}, {cfg.dtype}, {dev})")
+    return dict(prefill_logits=prefill_logits, tokens=torch.cat(toks, dim=1),
+                prefill_s=t_prefill, decode_s=t_decode, flash_launches=n_flash)
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if not args.arch.startswith("tm-"):
-        raise SystemExit(f"--arch {args.arch}: the port serves the TM configs "
-                         "only; the LM substrate arrives with a later slice")
-    serve_tm(args)
+    if args.arch.startswith("tm-"):
+        serve_tm(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

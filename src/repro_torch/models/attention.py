@@ -1,0 +1,179 @@
+"""Attention: GQA (+ qk-norm, RoPE), the flash kernel for a prefill from
+position 0, a chunked online softmax otherwise, and dense single-step
+attention for decode.  Forward only: training (the recomputing custom
+VJP) is a later slice of the port.
+
+Parameters live in an ``nn.ParameterDict`` with the reference's names and
+shapes (``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
+``q_norm``/``k_norm`` (hd,) with qk-norm).  A KV cache is a dict of
+``k``/``v`` (B, S_max, K, hd) tensors and the host int ``pos``; it is
+written in place.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+def init_attention(generator, cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
+    """Random weights from ``generator`` (None: zeros, to be loaded)."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def dense(d_in, d_out, shape):
+        if generator is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return layers.init_dense(generator, d_in, d_out, dtype).reshape(shape).to(device)
+
+    p = {"wq": dense(d, H * hd, (d, H, hd)), "wk": dense(d, K * hd, (d, K, hd)),
+         "wv": dense(d, K * hd, (d, K, hd)), "wo": dense(H * hd, d, (H, hd, d))}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+    return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+
+def _project_qkv(cfg: ModelConfig, params, x, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(x: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, T, K, d) -> (B, T, H, d), each kv head repeated H // K times."""
+    K = x.shape[2]
+    return x if K == H else x.repeat_interleave(H // K, dim=2)
+
+
+def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
+    """The reference's jnp route (``attention.py:_flash_fwd``): online
+    softmax over (q_chunk x kv_chunk) tiles with explicit positions, kv
+    expanded to H heads -> (B, S, H, dv)."""
+    B, S, H, hd = q.shape
+    T, dv = k.shape[1], v.shape[-1]
+    scale = hd ** -0.5
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        qc = q[:, q0:q0 + q_chunk].to(torch.float32)
+        qpc = q_pos[:, q0:q0 + q_chunk]
+        n = qc.shape[1]
+        m = torch.full((B, n, H), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, n, H), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, n, H, dv), dtype=torch.float32, device=q.device)
+        for k0 in range(0, T, kv_chunk):
+            kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
+            kpc = kv_pos[:, k0:k0 + kv_chunk]
+            s = torch.einsum("bqhd,bthd->bqht", qc, kc.to(torch.float32)) * scale
+            mask = kpc[:, None, :] <= qpc[:, :, None]
+            if window:
+                mask &= kpc[:, None, :] > qpc[:, :, None] - window
+            s = torch.where(mask[:, :, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqht,bthv->bqhv", p.to(vc.dtype), vc).to(torch.float32)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _is_arange(q_pos, kv_pos) -> bool:
+    """Whether both position tensors are 0..S-1 in every row, so the
+    kernel's row-index causal mask is the position mask (one device sync)."""
+    ar = torch.arange(q_pos.shape[1], device=q_pos.device, dtype=q_pos.dtype)
+    return bool(((q_pos == ar) & (kv_pos == ar)).all())
+
+
+def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
+                    q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Causal (optionally windowed) attention forward: q (B, S, H, hd), k
+    and v (B, T, K, hd) with K dividing H, positions (B, S) and (B, T).
+
+    On the card with ``window == 0`` and S == T at positions 0..S-1 it
+    launches the flash kernel on the grouped kv heads; otherwise it runs
+    the chunked online softmax of the reference's jnp route.
+    """
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    if q.is_cuda and window == 0 and S == T and _is_arange(q_pos, kv_pos):
+        return _flash_kernel.flash_forward(q, k, v, causal=True)
+    q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, T)
+    while S % q_chunk:
+        q_chunk //= 2
+    while T % kv_chunk:
+        kv_chunk //= 2
+    return _flash_fwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
+                      window, q_chunk, kv_chunk)
+
+
+def _decode_attention(cfg: ModelConfig, q, k, v, positions, kv_pos, window):
+    """q (B, 1, H, hd) against a cache (B, T, K, hd) with explicit kv_pos;
+    the query heads of one kv head are grouped instead of expanding kv."""
+    B, _, H, hd = q.shape
+    T, K, dv = k.shape[1], k.shape[2], v.shape[-1]
+    qg = q[:, 0].to(torch.float32).reshape(B, K, H // K, hd)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k.to(torch.float32)) * hd ** -0.5
+    mask = (kv_pos >= 0) & (kv_pos <= positions[:, :1])       # (B, T)
+    if window:
+        mask &= kv_pos > positions[:, :1] - window
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkv->bkgv", p.to(v.dtype), v)
+    return out.reshape(B, 1, H, dv).to(q.dtype)
+
+
+def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = None):
+    """Global self-attention with an optional KV cache -> (y (B, S, d), cache).
+
+    With a cache, k and v are written at ``cache["pos"]`` in place.  A
+    prefill from position 0 attends over its own q, k and v (empty cache
+    slots would get weight 0 anyway); one token decodes against the cache;
+    a later chunk attends over the cache with its empty slots masked.
+    """
+    q, k, v = _project_qkv(cfg, params, x, positions)
+    S = x.shape[1]
+    if cache is None:
+        out = flash_attention(q, k, v, positions, positions)
+    else:
+        pos, ck, cv = cache["pos"], cache["k"], cache["v"]
+        S_max = ck.shape[1]
+        if pos + S > S_max:
+            raise ValueError(f"cache of {S_max} slots cannot take {S} tokens at {pos}")
+        ck[:, pos:pos + S] = k
+        cv[:, pos:pos + S] = v
+        cache["pos"] = pos + S
+        kv_pos = torch.arange(S_max, dtype=positions.dtype,
+                              device=x.device)[None, :].expand(x.shape[0], S_max)
+        if S == 1:
+            out = _decode_attention(cfg, q, ck, cv, positions, kv_pos, 0)
+        elif pos == 0:
+            out = flash_attention(q, k, v, positions, positions)
+        else:
+            kv_pos = torch.where(kv_pos < pos + S, kv_pos, 2 ** 30)  # mask empties
+            out = flash_attention(q, ck, cv, positions, kv_pos)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device) -> dict:
+    K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {"k": torch.zeros((batch, s_max, K, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, s_max, K, hd), dtype=dtype, device=device),
+            "pos": 0}

@@ -1,0 +1,46 @@
+"""Shared LM building blocks: RMS norm, RoPE, the SwiGLU or GELU MLP and
+the dense initializer.  Each computes as the reference does: norms and
+rotations in float32, cast back to the input's type."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + scale.to(torch.float32))).to(x.dtype)
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int, dtype) -> torch.Tensor:
+    """(d_in, d_out) N(0, 1/d_in) in ``dtype``, drawn in float32 on the
+    generator's device."""
+    w = torch.randn((d_in, d_out), generator=generator, device=generator.device)
+    return (w * d_in ** -0.5).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  Rotates the two halves."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)                 # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs       # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU when ``params`` has a ``gate``, else GELU (tanh form, the
+    reference's ``jax.nn.gelu`` default) over two matrices."""
+    if "gate" in params:
+        return (F.silu(x @ params["gate"]) * (x @ params["up"])) @ params["down"]
+    return F.gelu(x @ params["up"], approximate="tanh") @ params["down"]

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, bit for
-bit, on an NVIDIA GPU.  No JAX needed: run on the card with
+"""The port's CUDA kernels against their plain PyTorch versions on an
+NVIDIA GPU: bit for bit for the integer kernels, to a stated tolerance for
+flash attention.  No JAX needed: run on the card with
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -142,3 +143,96 @@ def test_cuda_train_step_equals_cpu(cuda_device, fuse, chunk):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
     assert int(want[1].abs().sum()) > 0
+
+
+# -- the BNN baseline's and the LM substrate's kernels ----------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,O,W,pad", [(4, 6, 2, 0), (33, 65, 4, 13), (128, 256, 8, 31),
+                                       (1000, 256, 25, 16), (3, 10, 8, 0)])
+def test_cuda_xnor_popcount_equals_plain(cuda_device, B, O, W, pad):
+    from repro_torch.kernels import xnor_popcount
+    rng = np.random.default_rng(B)
+    n_bits = W * 32 - pad
+    a = packetizer.pack_bits(torch.from_numpy(rng.integers(0, 2, (B, n_bits), dtype=np.uint8)))
+    w = packetizer.pack_bits(torch.from_numpy(rng.integers(0, 2, (O, n_bits), dtype=np.uint8)))
+    want = xnor_popcount.xnor_popcount_plain(a, w, n_bits)
+    got = xnor_popcount.xnor_popcount_cuda(a.to(cuda_device), w.to(cuda_device), n_bits)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_bnn_predict_equals_cpu(cuda_device):
+    from repro_torch.baselines import bnn
+    cfg = bnn.BNNConfig()
+    params = bnn.bnn_init(cfg, torch.Generator().manual_seed(3), "cpu")
+    packed = bnn.bnn_pack(params)
+    x = torch.from_numpy(np.random.default_rng(4).integers(0, 2, (300, 784), dtype=np.uint8))
+    want = bnn.bnn_layer_dots(packed, x)
+    got = bnn.bnn_layer_dots([(w.to(cuda_device), n) for w, n in packed], x.to(cuda_device))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+def flash_bf16_tolerance(v, want):
+    """The two versions round the unnormalized probabilities to bf16 against
+    different running maxima (each rounding <= 2^-8 relative, so the
+    weights differ by <= 2^-7 of the row's sum, times at most max|v|), and
+    round the output to bf16 (one unit in the last place <= 2^-7 x |out|)."""
+    return 2 ** -7 * (float(v.abs().max()) + float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
+    (2, 64, 64, 3, 3, 16, True), (1, 128, 128, 2, 2, 32, False),
+    (2, 100, 100, 4, 2, 20, True), (1, 64, 130, 4, 1, 64, True),
+    (2, 256, 256, 8, 2, 64, True), (1, 192, 192, 4, 4, 128, True),
+    (1, 70, 40, 2, 1, 64, False)])
+def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, causal):
+    """Float32: atol 2e-5, as the reference holds its kernel to flash_ref
+    (tests/test_kernels.py); bf16: flash_bf16_tolerance."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(S + T + hd)
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(np.float32)).to(dt)
+    k = torch.from_numpy(rng.normal(size=(B, T, K, hd)).astype(np.float32)).to(dt)
+    v = torch.from_numpy(rng.normal(size=(B, T, K, hd)).astype(np.float32)).to(dt)
+    g = [t.to(cuda_device) for t in (q, k, v)]
+    want = fa.flash_forward_plain(*g, causal=causal).float()
+    got = fa.flash_forward_cuda(*g, causal=causal).float()
+    tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want)
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m"])
+def test_cuda_lm_prefill_decode_equal_cpu(cuda_device, arch):
+    """The smoke LM on the card (flash kernel in the prefill) against the
+    CPU (chunked online softmax), float32, atol 1e-4 on the logits: the
+    same function with sums in other orders; greedy tokens identical."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import steps, transformer
+    cfg = get_smoke_config(arch)
+    model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 20)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        m = model.to(dev)
+        n0 = fa.launches
+        caches = m.init_caches(3, 32)
+        logits, caches = prefill(m, {"tokens": toks.to(dev)}, caches)
+        seq = [logits.cpu()]
+        tok = logits.argmax(-1)[:, None]
+        for i in range(6):
+            logits, caches = decode(m, caches, {"tokens": tok}, 20 + i)
+            seq.append(logits.cpu())
+            tok = logits.argmax(-1)[:, None]
+        outs.append((seq, fa.launches - n0))
+    (cpu, n_cpu), (gpu, n_gpu) = outs
+    assert n_cpu == 0 and n_gpu == cfg.n_layers
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(a.argmax(-1).numpy(), b.argmax(-1).numpy())
