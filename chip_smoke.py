@@ -14,9 +14,9 @@ tm-mnist, 40 steps of 64) fused, unfused and batch-chunked, the BNN
 baseline (784-256-256-256-10 trained one epoch, packed, 10,000
 predictions through ``xnor_popcount``) and the LM serving path
 (``serve_lm`` on tinyllama-1.1b at full width in bf16, batch 16, 1024
-prompt tokens, 64 decode steps, the flash kernel in every layer's
-prefill), with the kernels' launch counts set to 0 just before each run
-and read just after.  The three trained banks must equal each other and a
+prompt tokens, 64 decode steps, the flash kernel's tensor-core variant in
+every layer's prefill), with the kernels' launch counts set to 0 just
+before each run and read just after.  The three trained banks must equal each other and a
 run of the plain versions; a resumed run must equal an uninterrupted one;
 the trained bank must compile and serve equal to the oracle on every
 engine.  Prints the card's name and power limit, a ``kernels`` JSON line
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -427,6 +428,7 @@ def train_phases(dev, max_err, launches):
         print(f"{name} device work per call at B={TRAIN_BATCH}: {json.dumps(per)}")
     f32 = (fire.to(torch.float32), tr.votes.to(torch.float32))
     times["class_sum"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(*f32))
+    times["class_sum"]["library_device_ms"] = profile_device(lambda: torch.matmul(*f32))[0]
     work, draws = tr.work(t, fire, ftype)
     print("TRAIN_BOUND_WORK " + json.dumps(dict(
         draws=draws, **{k: dict(bytes=b, ops=o) for k, (b, o) in work.items()})))
@@ -555,7 +557,8 @@ def bnn_phase(dev) -> dict:
     pm_a = 2.0 * x.to(torch.float32) - 1.0
     pm_w = torch.sign(torch.where(params[0] == 0, 1.0, params[0]))
     row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5),
-               library_ms=cuda_time_ms(lambda: torch.matmul(pm_a, pm_w)))
+               library_ms=cuda_time_ms(lambda: torch.matmul(pm_a, pm_w)),
+               library_device_ms=profile_device(lambda: torch.matmul(pm_a, pm_w))[0])
     row["device_ms"], per = profile_device(kern)
     print(f"xnor_popcount device work per call at B={B} W={W} O={O}: {json.dumps(per)}")
     n_words = B * O * W
@@ -578,18 +581,39 @@ def flash_tolerance(v, want) -> float:
 
 
 def split_device_time(us) -> dict:
-    """Device microseconds by kind: the flash kernel, GEMMs, the rest."""
+    """Device microseconds by kind: the flash kernels (``flash_fwd_mma_kernel``
+    for bf16, ``flash_fwd_simt_kernel`` for float32), GEMMs, the rest."""
     import re
 
     out = dict(flash=0.0, gemm=0.0, rest=0.0)
     for name, (u, _) in us.items():
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd_" in name:
             out["flash"] += u
         elif re.search(r"gemm|nvjet|xmma|cutlass|cublas|matmul", name, re.I):
             out["gemm"] += u
         else:
             out["rest"] += u
     return out
+
+
+def sass_hmma(lib) -> dict:
+    """{kernel function: HMMA (tensor-core) instructions} in the SASS of a
+    built library, from ``cuobjdump -sass``."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    check(tool is not None, "cuobjdump not found: cannot read the flash kernel's SASS")
+    res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump -sass {lib} failed: {res.stderr[-2000:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def lm_phase(dev) -> dict:
@@ -602,18 +626,32 @@ def lm_phase(dev) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve
     from repro_torch.models import attention, layers, steps, transformer
 
+    # the bf16 kernel runs on the tensor cores: its SASS holds HMMA
+    hmma = {fn: n for fn, n in sass_hmma(_build._lib_path("flash_attention")).items()
+            if "flash_fwd" in fn}
+    mma_fns = [fn for fn in hmma if "mma_kernel" in fn]
+    check(mma_fns and all(hmma[fn] > 0 for fn in mma_fns),
+          f"flash_fwd_mma_kernel has no HMMA instruction in its SASS: {hmma}")
+    print("flash_attention SASS HMMA instructions: " + json.dumps(hmma))
+
     args = serve.build_parser().parse_args(LM_ARGV)
     cfg = get_config(args.arch)
-    fa.launches = 0
+    fa.launches = fa.launches_mma = fa.launches_simt = 0
     res = serve.serve_lm(args)
-    launches = fa.launches
+    launches, launches_mma, launches_simt = fa.launches, fa.launches_mma, fa.launches_simt
     check(launches == cfg.n_layers == res["flash_launches"],
           f"the prefill launched the flash kernel {launches} times for "
           f"{cfg.n_layers} layers")
+    check(launches_mma == launches and launches_simt == 0,
+          f"the bf16 prefill launched the tensor-core kernel {launches_mma} times "
+          f"and the CUDA-core kernel {launches_simt} times, of {launches}")
+    print(f"flash launches in the prefill: {launches_mma} tensor-core (bf16), "
+          f"{launches_simt} CUDA-core (float32)")
     B, P = args.batch_size, args.seq_len // 2
     logits, toks = res["prefill_logits"], res["tokens"]
     check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -665,8 +703,10 @@ def lm_phase(dev) -> dict:
         lambda: fa.flash_forward_plain(q, k, v), reps=3, warmup=1))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    row["library_ms"] = cuda_time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True))
+    library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    row["library_ms"] = cuda_time_ms(library)
+    row["library_device_ms"], per = profile_device(library)
+    print(f"scaled_dot_product_attention device work per call: {json.dumps(per)}")
     row["device_ms"], per = profile_device(kern)
     print(f"flash_attention device work per call: {json.dumps(per)}")
     S, H, hd = q.shape[1], q.shape[2], q.shape[3]
@@ -711,8 +751,9 @@ def lm_phase(dev) -> dict:
                                   for r in (res, plain, warm)],
         runs="kernel route (main path), plain route, kernel route (warm)",
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
-    return dict(row, launches=launches, max_abs_err=err, tolerance=tol,
-                f32_max_abs_err=err32, f32_tolerance=FLASH_F32_ATOL)
+    return dict(row, launches=launches, launches_mma=launches_mma,
+                sass_hmma=sum(hmma[fn] for fn in mma_fns), max_abs_err=err,
+                tolerance=tol, f32_max_abs_err=err32, f32_tolerance=FLASH_F32_ATOL)
 
 
 def main() -> None:
@@ -961,7 +1002,7 @@ def main() -> None:
                    plain_ms=times[name][B]["plain_ms"],
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=None,
+                   library_ms=None, library_device_ms=None,
                    library_note="no single PyTorch call computes this function",
                    tolerance=0)
         for extra in ("device_ms", "early_exit_ms"):
@@ -977,8 +1018,9 @@ def main() -> None:
                    max_abs_err=max_err[name], ms=tt["ms"], plain_ms=tt["plain_ms"],
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=tt.get("library_ms"), device_ms=tt["device_ms"],
-                   tolerance=0)
+                   library_ms=tt.get("library_ms"),
+                   library_device_ms=tt.get("library_device_ms"),
+                   device_ms=tt["device_ms"], tolerance=0)
         if row["library_ms"] is None:
             row["library_note"] = "no single PyTorch call computes this function"
         rows.append(row)

@@ -1,29 +1,55 @@
 // Causal flash attention forward for Hopper (sm_90a), the LM substrate's
-// attention: q (B, S, H, hd) x k, v (B, T, KH, hd) -> o (B, S, H, hd),
-// float32 or bfloat16 in and out, float32 inside.
+// attention: q (B, S, H, hd) x k, v (B, T, KH, hd) -> o (B, S, H, hd).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
-// _flash_kernel (launched by flash_forward).  Same function: scores
-// s = (q . k) * hd^-0.5 in float32, the mask t <= s on row indices, the
-// online softmax with running max m, sum l and accumulator acc in float32,
-// p = exp(s - m) cast to the input type before the product with v, and
+// _flash_kernel (pallas_call in flash_forward, :104).  Same function:
+// scores s = (q . k) in float32 from the input values, scaled by hd^-0.5;
+// the mask t <= s on row indices; the online softmax with running max m,
+// sum l and accumulator acc in float32; p = exp(s - m) in float32, added to
+// l before it is cast to the input type for the product with v;
 // o = acc / max(l, 1e-30).  The TPU kernel takes kv expanded to H heads;
 // here query head h reads kv head h / (H / KH), the same function with
 // H / KH times less kv traffic.  The TPU grid's sequential kv axis is the
 // loop over kv tiles inside one CUDA block.
 //
 // Bounds on the H100: at the tinyllama prefill (B 16, S = T 1024, H 32,
-// hd 64) the causal products are ~69 GFLOP against ~151 MB of q, k, v and
-// o, so the dense bf16 tensor-core rate bounds it.  This first version
-// stays off the tensor cores (mma.sync / wgmma and TMA are later work):
-// one CUDA block per (batch * head, 64-row q tile), 256 threads, four
-// threads per query row.  Each 64-row k/v tile is staged in shared memory
-// as float32 (rows padded by one word, so the lanes of a warp hit distinct
-// banks); a thread scores 16 keys of its row, the row's four threads meet
-// in two shuffles for the max and the sum, the probabilities go through
-// shared memory, and each thread keeps a quarter of the row's output
-// dimensions in registers.  Tiles wholly above the diagonal are skipped,
-// and the q tiles with the most kv tiles are scheduled first.
+// hd 64) the causal products are 68.8 GFLOP against ~151 MB of q, k, v and
+// o, so the dense bf16 tensor-core rate (989 TFLOP/s) bounds it: 0.070 ms.
+// At hd 64 the exponentials cost as much again: one MUFU.EX2 per score at
+// 16 per SM per clock takes as long as the score's 256 FLOPs at that rate.
+//
+// Two kernels, chosen by the input type:
+//
+// * bfloat16: flash_fwd_mma_kernel, on the tensor cores.  One block of 4
+//   warps owns one (batch * head, BQ-row q tile); a warp owns 32 query rows
+//   (two m16 row tiles; 16 at HDP 128), so every k and v fragment it loads
+//   serves two products.  It walks 64-key kv tiles, the q tiles with the
+//   most kv tiles first.  The q tile and a two-stage ring of k/v tiles sit
+//   in shared memory as bf16, filled by 16-byte cp.async; the copy of tile
+//   j + 1 is issued before the products of tile j.  Rows are padded by 16
+//   bytes, so the eight row addresses of an ldmatrix fall in eight
+//   distinct bank groups.  A warp's q rows are loaded once into A
+//   fragments (ldmatrix) and stay in registers.  S = Q K^T and O += P V are
+//   mma.sync.m16n8k16 bf16 products with float32 accumulators; K fragments
+//   come from ldmatrix, V fragments from ldmatrix.trans.  The softmax runs
+//   on the accumulator fragments: a thread holds two rows' values per row
+//   tile, a row's max and sum meet over the four lanes of a quad in two
+//   shuffles, and the float32 C fragments of two adjacent n8 score tiles,
+//   packed to bf16x2, are the A fragment of the PV product, so P never
+//   touches shared memory.  p = 2^(s * scale * log2(e) - m * scale *
+//   log2(e)) in one FFMA and one ex2.approx (relative error under 2^-22,
+//   far below the 2^-9 of p's bf16 rounding).  Masks are applied only on
+//   tiles that cross the diagonal or the t_len edge; a warp skips kv tiles
+//   wholly above its rows.  The output is staged in the warp's own q rows
+//   of shared memory and written with 16-byte stores.  Head widths are
+//   padded with zeros to HDP in {16, 32, 64, 128}; where hd is not a
+//   multiple of 8 (or a pointer is not 16-byte aligned) the tiles are
+//   staged with 2-byte loads instead of cp.async, the products unchanged.
+// * float32: flash_fwd_simt_kernel, the first version on the CUDA cores
+//   (tensor cores take float32 only as TF32, which would not keep the
+//   reference's 2e-5 tolerance).  One block per (batch * head, 64-row q
+//   tile), four threads per query row, 64-key k/v tiles staged in shared
+//   memory as float32, probabilities through shared memory.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -31,35 +57,28 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core kernel
+
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per kv tile
 constexpr int kThreads = 256;    // four per query row
 constexpr int kKeysPerThread = kBK / 4;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HDP>
-constexpr size_t smem_bytes() {
+constexpr size_t simt_smem_bytes() {
   return sizeof(float) * (kBQ * (HDP + 1) + 2 * kBK * (HDP + 1) + kBQ * (kBK + 1));
 }
 
 // HDP: head dimension padded to a power of two (>= hd); the padding is zero.
-template <typename T, int HDP>
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int s_len, int t_len,
-                 int n_heads, int n_kv_heads, int hd, int causal, float scale) {
+flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int s_len,
+                      int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                      float scale) {
   constexpr int LD = HDP + 1;
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
@@ -76,14 +95,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qrow = q0 + r;
   const size_t q_step = static_cast<size_t>(n_heads) * hd;
   const size_t kv_step = static_cast<size_t>(n_kv_heads) * hd;
-  const T* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
-  const T* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
-  const T* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const float* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
+  const float* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const float* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
 
   for (int i = tid; i < kBQ * HDP; i += kThreads) {
     const int rr = i / HDP, d = i % HDP;
     float x = 0.f;
-    if (q0 + rr < s_len && d < hd) x = to_f(qb[(q0 + rr) * q_step + d]);
+    if (q0 + rr < s_len && d < hd) x = qb[(q0 + rr) * q_step + d];
     qs[rr * LD + d] = x;
   }
 
@@ -101,8 +120,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int rr = i / HDP, d = i % HDP;
       float kx = 0.f, vx = 0.f;
       if (k0 + rr < t_len && d < hd) {
-        kx = to_f(kb[(k0 + rr) * kv_step + d]);
-        vx = to_f(vb[(k0 + rr) * kv_step + d]);
+        kx = kb[(k0 + rr) * kv_step + d];
+        vx = vb[(k0 + rr) * kv_step + d];
       }
       ks[rr * LD + d] = kx;
       vs[rr * LD + d] = vx;
@@ -137,7 +156,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kKeysPerThread; ++i) {
       const float p = expf(s[i] - m_new);
       psum += p;
-      ps[r * LP + quad + 4 * i] = to_f(from_f<T>(p));  // p in v's type
+      ps[r * LP + quad + 4 * i] = p;
     }
     psum += __shfl_xor_sync(0xffffffffu, psum, 1);
     psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -158,65 +177,424 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (qrow < s_len) {
-    T* ob = o + (static_cast<size_t>(b) * s_len + qrow) * q_step + static_cast<size_t>(h) * hd;
+    float* ob = o + (static_cast<size_t>(b) * s_len + qrow) * q_step + static_cast<size_t>(h) * hd;
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < HDP / 4; ++j) {
       const int d = quad + 4 * j;
-      if (d < hd) ob[d] = from_f<T>(acc[j] / denom);
+      if (d < hd) ob[d] = acc[j] / denom;
     }
   }
 }
 
-template <typename T, int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, dim3 grid,
-           int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-           float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HDP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, HDP>,
+template <int HDP>
+int launch_simt(const void* q, const void* k, const void* v, void* o, dim3 grid,
+                int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr size_t smem = simt_smem_bytes<HDP>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_simt_kernel<HDP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s_len, t_len, n_heads, n_kv_heads, hd, causal, scale);
+  flash_fwd_simt_kernel<HDP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, t_len, n_heads,
+      n_kv_heads, hd, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, dim3 grid,
-              int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-              float scale, cudaStream_t stream) {
-  if (hd <= 32)
-    return launch<T, 32>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                         causal, scale, stream);
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                         causal, scale, stream);
-  return launch<T, 128>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                        causal, scale, stream);
+// ---------------------------------------------------------------------------
+// bfloat16: tensor-core kernel
+
+using bf16 = __nv_bfloat16;
+
+// Warps per block and m16 row tiles per warp (at HDP <= 64; one at HDP
+// 128, where two would not fit in registers): compile-time constants, 4
+// and 2 measured fastest at the tinyllama prefill; the alternatives build
+// from these macros (scripts/flash_block_sweep.py)
+#ifndef FLASH_WARPS
+#define FLASH_WARPS 4
+#endif
+#ifndef FLASH_ROW_TILES
+#define FLASH_ROW_TILES 2
+#endif
+
+// tile shape of the bf16 kernel at padded head width HDP
+template <int HDP>
+struct MmaTile {
+  static constexpr int MT = HDP <= 64 ? FLASH_ROW_TILES : 1;  // m16 row tiles a warp
+  static constexpr int WARPS = FLASH_WARPS;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int MIN_BLOCKS = WARPS < 8 ? 2 : 1;   // resident per SM
+  static constexpr int BQ = 16 * MT * WARPS;   // query rows per block
+  static constexpr int BK = 64;                // keys per kv tile
+  static constexpr int LDS = HDP + 8;          // shared row stride: a 16-byte pad
+  static constexpr size_t SMEM = sizeof(bf16) * LDS * (BQ + 4 * BK);  // q, 2 x (k, v)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d (16 x 8, float32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// 2^x in one MUFU.EX2 (relative error under 2^-22); results under 2^-126
+// flush to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows [r0, r0 + n_rows) of a (rows, hd) matrix with row stride `step`
+// elements -> n_rows x HDP in shared memory, zero past `rows` and `hd`
+template <int HDP>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t step,
+                                           int r0, int rows, int n_rows, int hd,
+                                           bool vec16) {
+  using C = MmaTile<HDP>;
+  if (vec16) {
+    constexpr int CPR = HDP / 8;  // 16-byte chunks per row
+    for (int i = threadIdx.x; i < n_rows * CPR; i += C::THREADS) {
+      const int r = i / CPR, d = (i % CPR) * 8;
+      const bool ok = r0 + r < rows && d < hd;
+      const bf16* p = ok ? src + static_cast<size_t>(r0 + r) * step + d : src;
+      cp_async16(dst + r * C::LDS + d, p, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_rows * HDP; i += C::THREADS) {
+      const int r = i / HDP, d = i % HDP;
+      bf16 x = __float2bfloat16(0.f);
+      if (r0 + r < rows && d < hd) x = src[static_cast<size_t>(r0 + r) * step + d];
+      dst[r * C::LDS + d] = x;
+    }
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(MmaTile<HDP>::THREADS, MmaTile<HDP>::MIN_BLOCKS)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int s_len,
+                     int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                     float scale, int vec16) {
+  using C = MmaTile<HDP>;
+  constexpr int MT = C::MT, BQ = C::BQ, BK = C::BK, LDS = C::LDS;
+  constexpr int KSTEPS = HDP / 16;    // k16 steps over the head dim (QK^T)
+  constexpr int NS = BK / 8;          // n8 score tiles per kv tile
+  constexpr int NO = HDP / 8;         // n8 output tiles over the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ x LDS
+  bf16* ks = qs + BQ * LDS;                        // 2 stages x BK x LDS
+  bf16* vs = ks + 2 * BK * LDS;                    // 2 stages x BK x LDS
+
+  const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
+  const int hk = h / (n_heads / n_kv_heads);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;      // fragment row group, lane in quad
+  const int wrow = warp * 16 * MT;             // the warp's first row in the tile
+  const int row_lo = q0 + wrow, row_hi = row_lo + 16 * MT - 1;
+  const size_t q_step = static_cast<size_t>(n_heads) * hd;
+  const size_t kv_step = static_cast<size_t>(n_kv_heads) * hd;
+  const bf16* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
+  const bf16* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const bf16* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const bool vec = vec16 != 0;
+  // p = exp((s - m) * scale) = 2^(s * sl2 - m * sl2), m the running max of
+  // the unscaled scores: one FFMA and one ex2 per score
+  const float sl2 = scale * 1.4426950408889634f;
+
+  int n_tiles = (t_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+
+  stage_tile<HDP>(qs, qb, q_step, q0, s_len, BQ, hd, vec);
+  stage_tile<HDP>(ks, kb, kv_step, 0, t_len, BK, hd, vec);
+  stage_tile<HDP>(vs, vb, kv_step, 0, t_len, BK, hd, vec);
+  cp_async_commit();
+
+  uint32_t qf[MT][KSTEPS][4];
+  float acc[MT][NO][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  // ldmatrix row addresses: lane l feeds row (l & 7) of matrix l / 8
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {   // next tile's copy overlaps this tile's products
+      const int nst = st ^ 1;
+      stage_tile<HDP>(ks + nst * BK * LDS, kb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
+      stage_tile<HDP>(vs + nst * BK * LDS, vb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk)
+          ldmatrix_x4(qf[mt][kk], qs + (wrow + mt * 16 + a_row) * LDS + kk * 16 + a_col);
+    }
+    const int k0 = t * BK;
+    if (!causal || k0 <= row_hi) {   // else wholly above this warp's rows
+      const bf16* kt = ks + st * BK * LDS;
+      const bf16* vt = vs + st * BK * LDS;
+
+      // S = Q K^T: 16 MT rows x 64 keys per warp, float32; each K fragment
+      // serves the warp's MT row tiles
+      float s[MT][NS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NS; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, kt + (np * 16 + b_row) * LDS + kk * 16 + b_col);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], qf[mt][kk], bf[0], bf[1]);
+            mma_bf16(s[mt][2 * np + 1], qf[mt][kk], bf[2], bf[3]);
+          }
+        }
+      }
+
+      // online softmax on the fragments; mask only where the tile crosses
+      // the diagonal or t_len.  p in float32 is added to l, then packed to
+      // bf16: the C fragments of score tiles 2j and 2j + 1 are the A
+      // fragment j of P
+      const bool masked = (causal && k0 + BK - 1 > row_lo) || k0 + BK > t_len;
+      uint32_t pf[MT][NS / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int row0 = row_lo + mt * 16 + g, row1 = row0 + 8;
+        float mx0 = m[mt][0], mx1 = m[mt][1];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[mt][n][e];
+            if (masked) {
+              const int key = k0 + n * 8 + 2 * tq + (e & 1);
+              if (key >= t_len || (causal && key > (e < 2 ? row0 : row1))) x = kNegInf;
+            }
+            s[mt][n][e] = x;
+          }
+          mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
+        }
+        mx0 = quad_max(mx0);
+        mx1 = quad_max(mx1);
+        const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
+        const float corr0 = exp2_ftz(fmaf(m[mt][0], sl2, -mb0));
+        const float corr1 = exp2_ftz(fmaf(m[mt][1], sl2, -mb1));
+        m[mt][0] = mx0;
+        m[mt][1] = mx1;
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float p0 = exp2_ftz(fmaf(s[mt][n][0], sl2, -mb0));
+          const float p1 = exp2_ftz(fmaf(s[mt][n][1], sl2, -mb0));
+          const float p2 = exp2_ftz(fmaf(s[mt][n][2], sl2, -mb1));
+          const float p3 = exp2_ftz(fmaf(s[mt][n][3], sl2, -mb1));
+          ps0 += p0 + p1;
+          ps1 += p2 + p3;
+          pf[mt][n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
+          pf[mt][n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+        l[mt][0] = l[mt][0] * corr0 + quad_sum(ps0);
+        l[mt][1] = l[mt][1] * corr1 + quad_sum(ps1);
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[mt][n][0] *= corr0;
+          acc[mt][n][1] *= corr0;
+          acc[mt][n][2] *= corr1;
+          acc[mt][n][3] *= corr1;
+        }
+      }
+
+      // O += P V; each V fragment serves the warp's MT row tiles
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, vt + (j * 16 + a_row) * LDS + dp * 16 + a_col);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * dp], pf[mt][j], bf[0], bf[1]);
+            mma_bf16(acc[mt][2 * dp + 1], pf[mt][j], bf[2], bf[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage before its refill
+  }
+
+  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own q rows
+  bf16* os = qs + wrow * LDS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float d0 = fmaxf(l[mt][0], 1e-30f), d1 = fmaxf(l[mt][1], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(os + (mt * 16 + g) * LDS + n * 8 + 2 * tq) =
+          pack_bf16(acc[mt][n][0] / d0, acc[mt][n][1] / d0);
+      *reinterpret_cast<uint32_t*>(os + (mt * 16 + g + 8) * LDS + n * 8 + 2 * tq) =
+          pack_bf16(acc[mt][n][2] / d1, acc[mt][n][3] / d1);
+    }
+  }
+  __syncwarp();
+  bf16* ob = o + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
+  if (vec) {
+    constexpr int CPR = HDP / 8;
+    for (int i = lane; i < 16 * MT * CPR; i += 32) {
+      const int r = i / CPR, d = (i % CPR) * 8;
+      if (row_lo + r < s_len && d < hd)
+        *reinterpret_cast<uint4*>(ob + (row_lo + r) * q_step + d) =
+            *reinterpret_cast<const uint4*>(os + r * LDS + d);
+    }
+  } else {
+    for (int i = lane; i < 16 * MT * HDP; i += 32) {
+      const int r = i / HDP, d = i % HDP;
+      if (row_lo + r < s_len && d < hd) ob[(row_lo + r) * q_step + d] = os[r * LDS + d];
+    }
+  }
+}
+
+template <int HDP>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int b_total,
+               int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+               float scale, int vec16, cudaStream_t stream) {
+  using C = MmaTile<HDP>;
+  const dim3 grid(b_total * n_heads, (s_len + C::BQ - 1) / C::BQ);
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<HDP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(C::SMEM));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_mma_kernel<HDP><<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), s_len, t_len, n_heads,
+      n_kv_heads, hd, causal, scale, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_shape(int hd, int t_len, int n_heads, int n_kv_heads) {
+  return hd <= 0 || hd > 128 || t_len <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16
-extern "C" int flash_forward_launch(const void* q, const void* k, const void* v,
-                                    void* o, int b_total, int s_len, int t_len,
-                                    int n_heads, int n_kv_heads, int hd, int dtype,
-                                    int causal, float scale, void* stream) {
+// float32 on the CUDA cores
+extern "C" int flash_forward_simt_launch(const void* q, const void* k, const void* v,
+                                         void* o, int b_total, int s_len, int t_len,
+                                         int n_heads, int n_kv_heads, int hd,
+                                         int causal, float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
-  if (hd <= 0 || hd > 128 || t_len <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads)
+  if (bad_shape(hd, t_len, n_heads, n_kv_heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b_total * n_heads, (s_len + kBQ - 1) / kBQ);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                            causal, scale, st);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, grid, s_len, t_len, n_heads,
-                                    n_kv_heads, hd, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 32)
+    return launch_simt<32>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                           causal, scale, st);
+  if (hd <= 64)
+    return launch_simt<64>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                           causal, scale, st);
+  return launch_simt<128>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                          causal, scale, st);
+}
+
+// bfloat16 on the tensor cores
+extern "C" int flash_forward_mma_launch(const void* q, const void* k, const void* v,
+                                        void* o, int b_total, int s_len, int t_len,
+                                        int n_heads, int n_kv_heads, int hd, int causal,
+                                        float scale, void* stream) {
+  if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_shape(hd, t_len, n_heads, n_kv_heads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                              reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const int vec16 = hd % 8 == 0 && addr_bits % 16 == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd <= 16)
+    return launch_mma<16>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                          causal, scale, vec16, st);
+  if (hd <= 32)
+    return launch_mma<32>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                          causal, scale, vec16, st);
+  if (hd <= 64)
+    return launch_mma<64>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                          causal, scale, vec16, st);
+  return launch_mma<128>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                         causal, scale, vec16, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -3,7 +3,11 @@ q (B, S, H, hd) x k, v (B, T, KH, hd) -> (B, S, H, hd) in q's dtype, with
 grouped-query heads (query head h reads kv head h // (H / KH)).
 
 :func:`flash_forward` runs ``csrc/flash_attention.cu`` for CUDA tensors and
-:func:`flash_forward_plain` for CPU tensors.  ``models/attention.py``
+:func:`flash_forward_plain` for CPU tensors.  On the card the input type
+picks the kernel: bf16 goes to the tensor-core kernel (``mma.sync``),
+float32 to the CUDA-core one (the tensor cores take float32 only as TF32,
+which would not keep the reference's 2e-5 tolerance); any other type
+raises.  ``models/attention.py``
 routes a prefill that starts at position 0 here on the card.  Both
 versions compute the reference kernel's function
 (``repro/kernels/flash_attention.py``): scores and softmax in float32, the
@@ -22,10 +26,15 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# C entry point of each input type's kernel
+_ENTRY = {torch.bfloat16: "flash_forward_mma_launch",
+          torch.float32: "flash_forward_simt_launch"}
 
-# kernel launches through flash_forward on CUDA tensors
+# kernel launches through flash_forward on CUDA tensors: all of them, the
+# bf16 tensor-core kernel's and the float32 CUDA-core kernel's
 launches = 0
+launches_mma = 0
+launches_simt = 0
 
 
 def _check(q, k, v):
@@ -67,13 +76,14 @@ def flash_forward_plain(q, k, v, *, causal: bool = True):
 
 
 def flash_forward_cuda(q, k, v, *, causal: bool = True):
-    """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd)."""
-    global launches
+    """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd):
+    the tensor-core kernel for bf16, the CUDA-core kernel for float32."""
+    global launches, launches_mma, launches_simt
     _check(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_forward_cuda takes CUDA tensors")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"the kernels take bfloat16 or float32, got {q.dtype}")
     for name, t in dict(q=q, k=k, v=v).items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -84,13 +94,16 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True):
                          f"hd {hd}, dv {v.shape[3]}")
     out = torch.empty_like(q)
     P, I = _build.P, _build.I
-    fn = _build.entry("flash_attention", "flash_forward_launch",
-                      [P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P])
+    fn = _build.entry("flash_attention", _ENTRY[q.dtype],
+                      [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-             B, S, T, H, KH, hd, _DTYPES[q.dtype], int(causal), hd ** -0.5,
-             _build.stream_ptr(q.device))
+             B, S, T, H, KH, hd, int(causal), hd ** -0.5, _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        launches_mma += 1
+    else:
+        launches_simt += 1
     return out
 
 

@@ -188,10 +188,16 @@ def flash_bf16_tolerance(v, want):
     (2, 64, 64, 3, 3, 16, True), (1, 128, 128, 2, 2, 32, False),
     (2, 100, 100, 4, 2, 20, True), (1, 64, 130, 4, 1, 64, True),
     (2, 256, 256, 8, 2, 64, True), (1, 192, 192, 4, 4, 128, True),
-    (1, 70, 40, 2, 1, 64, False)])
+    (1, 70, 40, 2, 1, 64, False),
+    (2, 1024, 1024, 32, 4, 64, True),      # tinyllama's grouping
+    (1, 512, 512, 16, 2, 128, True),       # hd 128, 8 query heads per kv head
+    (1, 1000, 1000, 4, 2, 64, True),       # ragged: neither tile divides S
+    (2, 1, 1, 4, 2, 64, True), (1, 17, 17, 4, 4, 32, True),   # under one tile
+    (1, 48, 48, 2, 1, 12, True), (1, 80, 80, 4, 2, 20, False)])   # padded hd
 def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, causal):
-    """Float32: atol 2e-5, as the reference holds its kernel to flash_ref
-    (tests/test_kernels.py); bf16: flash_bf16_tolerance."""
+    """Float32 (the CUDA-core kernel): atol 2e-5, as the reference holds its
+    kernel to flash_ref (tests/test_kernels.py); bf16 (the tensor-core
+    kernel): flash_bf16_tolerance."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(S + T + hd)
     dt = getattr(torch, dtype)
@@ -203,6 +209,30 @@ def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, 
     got = fa.flash_forward_cuda(*g, causal=causal).float()
     tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want)
     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_forward_counts_each_kernel(cuda_device):
+    """bf16 goes to the tensor-core kernel and float32 to the CUDA-core one,
+    each counted; other types and head widths over 128 raise."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(0)
+    shapes = ((1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32))
+    base = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
+            for s in shapes]
+    names = ("launches", "launches_mma", "launches_simt")
+    for dtype, counter in ((torch.bfloat16, "launches_mma"),
+                           (torch.float32, "launches_simt")):
+        before = {n: getattr(fa, n) for n in names}
+        fa.flash_forward(*(t.to(dtype) for t in base))
+        torch.cuda.synchronize()
+        moved = {n: getattr(fa, n) - before[n] for n in names}
+        assert moved == {n: int(n in ("launches", counter)) for n in names}
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_forward(*(t.to(torch.float16) for t in base))
+    wide = [torch.zeros(1, 8, 2, 160, dtype=torch.bfloat16, device=cuda_device)] * 3
+    with pytest.raises(ValueError, match="hd <= 128"):
+        fa.flash_forward(*wide)
 
 
 @pytest.mark.cuda

@@ -116,6 +116,28 @@ def test_flash_forward_plain_groups_kv_heads():
                                  _t(v[:, :, :1]).repeat(1, 1, 4, 1))
 
 
+@pytest.mark.parametrize("B,S,H,KH,hd,blk", [(2, 128, 8, 2, 64, 32), (2, 64, 6, 2, 16, 16)])
+def test_flash_forward_plain_bf16_equals_reference(B, S, H, KH, hd, blk):
+    """bf16, grouped kv heads: the plain version (the yardstick the card's
+    tensor-core kernel is held to) against the reference's Pallas kernel in
+    interpret mode on kv repeated to H heads, at the bf16 tolerance
+    2^-7 x (max|v| + max|out|): the two round p to bf16 against different
+    running maxima and round the output to bf16."""
+    rng = np.random.default_rng(S + hd)
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, KH, hd)).astype(np.float32) for _ in range(2))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    G = H // KH
+    want = np.asarray(r_flash_forward(jq, jnp.repeat(jk, G, axis=2), jnp.repeat(jv, G, axis=2),
+                                      causal=True, block_q=blk, block_kv=blk,
+                                      interpret=True).astype(jnp.float32))
+    tq, tk, tv = (_t(a).to(torch.bfloat16) for a in (q, k, v))
+    got = t_fa.flash_forward_plain(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    tol = 2 ** -7 * (float(tv.float().abs().max()) + float(np.abs(want).max()))
+    assert float(np.abs(got.float().numpy() - want).max()) <= tol
+
+
 @pytest.mark.parametrize("S,T,pos,window", [(8, 32, 10, 0), (16, 64, 16, 0), (8, 8, 0, 0),
                                             (32, 32, 0, 6)])
 def test_flash_attention_routes_equal_reference(S, T, pos, window):
