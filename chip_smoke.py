@@ -14,14 +14,16 @@ tm-mnist, 40 steps of 64) fused, unfused and batch-chunked, the BNN
 baseline (784-256-256-256-10 trained one epoch, packed, 10,000
 predictions through ``xnor_popcount``) and the LM serving path
 (``serve_lm`` on tinyllama-1.1b at full width in bf16, batch 16, 1024
-prompt tokens, 64 decode steps, the flash kernel's tensor-core variant in
-every layer's prefill), with the kernels' launch counts set to 0 just
-before each run and read just after.  The three trained banks must equal each other and a
-run of the plain versions; a resumed run must equal an uninterrupted one;
-the trained bank must compile and serve equal to the oracle on every
-engine.  Prints the card's name and power limit, a ``kernels`` JSON line
-with each kernel's launches, error and tolerance, time, plain-version
-time, library time and bound, and as its last line
+prompt tokens, 64 decode steps, the flash kernel's tensor-core (wgmma)
+variant in every layer's prefill), with the kernels' launch counts set to
+0 just before each run and read just after.  The three trained banks must
+equal each other and a run of the plain versions; a resumed run must
+equal an uninterrupted one; the trained bank must compile and serve equal
+to the oracle on every engine.  Checks that the flash library's SASS holds
+tensor-core MMA instructions.  Prints the card's name and power limit, a
+``kernels`` JSON line with each kernel's launches, error and tolerance,
+time, plain-version time, library time (event and device) and bound, and
+as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, when the port's sources are missing, or when
 any phase fails.  Imports nothing of JAX or of the reference package.
@@ -581,7 +583,7 @@ def flash_tolerance(v, want) -> float:
 
 
 def split_device_time(us) -> dict:
-    """Device microseconds by kind: the flash kernels (``flash_fwd_mma_kernel``
+    """Device microseconds by kind: the flash kernels (``flash_fwd_wgmma_kernel``
     for bf16, ``flash_fwd_simt_kernel`` for float32), GEMMs, the rest."""
     import re
 
@@ -596,9 +598,10 @@ def split_device_time(us) -> dict:
     return out
 
 
-def sass_hmma(lib) -> dict:
-    """{kernel function: HMMA (tensor-core) instructions} in the SASS of a
-    built library, from ``cuobjdump -sass``."""
+def sass_mma(lib) -> dict:
+    """{kernel function: tensor-core MMA instructions (HGMMA, Hopper's
+    warpgroup MMA, and HMMA)} in the SASS of a built library, from
+    ``cuobjdump -sass``."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
@@ -611,7 +614,7 @@ def sass_hmma(lib) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
             counts[fn] += 1
     return counts
 
@@ -631,26 +634,27 @@ def lm_phase(dev) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import attention, layers, steps, transformer
 
-    # the bf16 kernel runs on the tensor cores: its SASS holds HMMA
-    hmma = {fn: n for fn, n in sass_hmma(_build._lib_path("flash_attention")).items()
-            if "flash_fwd" in fn}
-    mma_fns = [fn for fn in hmma if "mma_kernel" in fn]
-    check(mma_fns and all(hmma[fn] > 0 for fn in mma_fns),
-          f"flash_fwd_mma_kernel has no HMMA instruction in its SASS: {hmma}")
-    print("flash_attention SASS HMMA instructions: " + json.dumps(hmma))
+    # the bf16 kernel runs on the tensor cores: its SASS holds HGMMA
+    mma = {fn: n for fn, n in sass_mma(_build._lib_path("flash_attention")).items()
+           if "flash_fwd" in fn}
+    tc_fns = [fn for fn in mma if "wgmma_kernel" in fn]
+    check(tc_fns and all(mma[fn] > 0 for fn in tc_fns),
+          f"flash_fwd_wgmma_kernel has no tensor-core MMA in its SASS: {mma}")
+    print("flash_attention SASS tensor-core MMA (HGMMA, HMMA) instructions: "
+          + json.dumps(mma))
 
     args = serve.build_parser().parse_args(LM_ARGV)
     cfg = get_config(args.arch)
-    fa.launches = fa.launches_mma = fa.launches_simt = 0
+    fa.launches = fa.launches_wgmma = fa.launches_simt = 0
     res = serve.serve_lm(args)
-    launches, launches_mma, launches_simt = fa.launches, fa.launches_mma, fa.launches_simt
+    launches, launches_wgmma, launches_simt = fa.launches, fa.launches_wgmma, fa.launches_simt
     check(launches == cfg.n_layers == res["flash_launches"],
           f"the prefill launched the flash kernel {launches} times for "
           f"{cfg.n_layers} layers")
-    check(launches_mma == launches and launches_simt == 0,
-          f"the bf16 prefill launched the tensor-core kernel {launches_mma} times "
+    check(launches_wgmma == launches and launches_simt == 0,
+          f"the bf16 prefill launched the tensor-core kernel {launches_wgmma} times "
           f"and the CUDA-core kernel {launches_simt} times, of {launches}")
-    print(f"flash launches in the prefill: {launches_mma} tensor-core (bf16), "
+    print(f"flash launches in the prefill: {launches_wgmma} tensor-core (bf16), "
           f"{launches_simt} CUDA-core (float32)")
     B, P = args.batch_size, args.seq_len // 2
     logits, toks = res["prefill_logits"], res["tokens"]
@@ -751,8 +755,8 @@ def lm_phase(dev) -> dict:
                                   for r in (res, plain, warm)],
         runs="kernel route (main path), plain route, kernel route (warm)",
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
-    return dict(row, launches=launches, launches_mma=launches_mma,
-                sass_hmma=sum(hmma[fn] for fn in mma_fns), max_abs_err=err,
+    return dict(row, launches=launches, launches_wgmma=launches_wgmma,
+                sass_tensor_mma=sum(mma[fn] for fn in tc_fns), max_abs_err=err,
                 tolerance=tol, f32_max_abs_err=err32, f32_tolerance=FLASH_F32_ATOL)
 
 

@@ -1,14 +1,14 @@
-"""Time the bf16 flash-attention kernel at each query-block shape.
+"""Time the bf16 flash-attention kernel at both query-block heights.
 
     python3 scripts/flash_block_sweep.py
 
-Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` three times, all
-with nvcc at once, into ``build/flash_block_sweep/``: 64 query rows a block
-as 4 warps of 16 rows, 128 rows as 8 warps of 16, and 128 rows as 4 warps
-of 32 (the source's default; ``FLASH_WARPS`` and ``FLASH_ROW_TILES``).  Holds
-each against the plain PyTorch version and times each at the tinyllama-1.1b
-prefill shape (q (16, 1024, 32, 64), k and v (16, 1024, 4, 64), bf16,
-causal, normal inputs from seed 0) in turns a, b, c, c, b, a: CUDA events
+Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` twice, both with
+nvcc at once, into ``build/flash_block_sweep/``: 64 query rows a block as one
+warpgroup (4 warps) and 128 rows as two warpgroups (8 warps, the source's
+default; ``FLASH_WARPGROUPS``).  Holds each against the plain PyTorch
+version and times each at the tinyllama-1.1b prefill shape (q (16, 1024,
+32, 64), k and v (16, 1024, 4, 64), bf16, causal, normal inputs from seed
+0) in turns a, b, b, a: CUDA events
 (median of 20 calls) and the profiler's device time (mean of 20 calls),
 with ``F.scaled_dot_product_attention`` timed the same way beside them.
 Prints the card's name and power limit and, last, one JSON line.  Needs
@@ -28,19 +28,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 SHAPE = dict(B=16, S=1024, H=32, KH=4, hd=64)
-# name: (warps a block, m16 row tiles a warp)
-BLOCKS = {"64 rows: 4 warps x 16": (4, 1), "128 rows: 8 warps x 16": (8, 1),
-          "128 rows: 4 warps x 32": (4, 2)}
+# name: warpgroups a block
+BLOCKS = {"64 rows: 1 warpgroup": 1, "128 rows: 2 warpgroups": 2}
 
 
 def build(name: str, out_dir: str):
     from repro_torch.kernels import _build
 
-    warps, tiles = BLOCKS[name]
-    lib = os.path.join(out_dir, f"flash_w{warps}_t{tiles}.so")
+    lib = os.path.join(out_dir, f"flash_wg{BLOCKS[name]}.so")
     return lib, subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, f"-DFLASH_WARPS={warps}",
-         f"-DFLASH_ROW_TILES={tiles}", "-o", lib, str(_build.CSRC / "flash_attention.cu")],
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-DFLASH_WARPGROUPS={BLOCKS[name]}", "-o",
+         lib, str(_build.CSRC / "flash_attention.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -68,10 +66,10 @@ def main() -> None:
             sys.exit(f"nvcc ({bq}) failed:\n{log}")
         lines = log.splitlines()
         # ptxas reports each kernel's registers and spills after its name
-        at = next(i for i, ln in enumerate(lines) if "flash_fwd_mma_kernelILi64E" in ln)
+        at = next(i for i, ln in enumerate(lines) if "flash_fwd_wgmma_kernelILi64E" in ln)
         print(f"{bq}, HDP 64: " + " | ".join(
             ln.strip() for ln in lines[at + 1:at + 4] if "registers" in ln or "spill" in ln))
-        fn = ctypes.CDLL(lib).flash_forward_mma_launch
+        fn = ctypes.CDLL(lib).flash_forward_wgmma_launch
         fn.argtypes = [_build.P] * 4 + [_build.I] * 7 + [ctypes.c_float, _build.P]
         fn.restype = ctypes.c_int
         fns[bq] = fn

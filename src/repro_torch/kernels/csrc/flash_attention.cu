@@ -15,39 +15,40 @@
 // Bounds on the H100: at the tinyllama prefill (B 16, S = T 1024, H 32,
 // hd 64) the causal products are 68.8 GFLOP against ~151 MB of q, k, v and
 // o, so the dense bf16 tensor-core rate (989 TFLOP/s) bounds it: 0.070 ms.
-// At hd 64 the exponentials cost as much again: one MUFU.EX2 per score at
-// 16 per SM per clock takes as long as the score's 256 FLOPs at that rate.
+// At hd 64 the exponentials cost about as much again: one MUFU.EX2 per
+// score at 16 per SM per clock takes as long as the score's 256 FLOPs at
+// that rate.
 //
 // Two kernels, chosen by the input type:
 //
-// * bfloat16: flash_fwd_mma_kernel, on the tensor cores.  One block of 4
-//   warps owns one (batch * head, BQ-row q tile); a warp owns 32 query rows
-//   (two m16 row tiles; 16 at HDP 128), so every k and v fragment it loads
-//   serves two products.  It walks 64-key kv tiles, the q tiles with the
-//   most kv tiles first.  The q tile and a two-stage ring of k/v tiles sit
-//   in shared memory as bf16, filled by 16-byte cp.async; the copy of tile
-//   j + 1 is issued before the products of tile j.  Rows are padded by 16
-//   bytes, so the eight row addresses of an ldmatrix fall in eight
-//   distinct bank groups.  A warp's q rows are loaded once into A
-//   fragments (ldmatrix) and stay in registers.  S = Q K^T and O += P V are
-//   mma.sync.m16n8k16 bf16 products with float32 accumulators; K fragments
-//   come from ldmatrix, V fragments from ldmatrix.trans.  The softmax runs
-//   on the accumulator fragments: a thread holds two rows' values per row
-//   tile, a row's max and sum meet over the four lanes of a quad in two
-//   shuffles, and the float32 C fragments of two adjacent n8 score tiles,
-//   packed to bf16x2, are the A fragment of the PV product, so P never
-//   touches shared memory.  p = 2^(s * scale * log2(e) - m * scale *
-//   log2(e)) in one FFMA and one ex2.approx (relative error under 2^-22,
-//   far below the 2^-9 of p's bf16 rounding).  Masks are applied only on
-//   tiles that cross the diagonal or the t_len edge; a warp skips kv tiles
-//   wholly above its rows.  The output is staged in the warp's own q rows
-//   of shared memory and written with 16-byte stores.  Head widths are
-//   padded with zeros to HDP in {16, 32, 64, 128}; where hd is not a
-//   multiple of 8 (or a pointer is not 16-byte aligned) the tiles are
-//   staged with 2-byte loads instead of cp.async, the products unchanged.
-// * float32: flash_fwd_simt_kernel, the first version on the CUDA cores
-//   (tensor cores take float32 only as TF32, which would not keep the
-//   reference's 2e-5 tolerance).  One block per (batch * head, 64-row q
+// * bfloat16: flash_fwd_wgmma_kernel, on the tensor cores through
+//   Hopper's warpgroup MMA.  A block of two warpgroups (8 warps) owns one
+//   (batch * head, 128-row q tile); a warpgroup owns 64 query rows, a warp
+//   16 of them.  The block walks 64-key kv tiles, the q tiles with the most
+//   kv tiles first.  k and v tiles arrive in two-stage rings in shared
+//   memory by 16-byte cp.async, stored in the swizzled layout wgmma reads
+//   without bank conflicts (128-byte swizzle at hd 64).  A warp's q rows
+//   are loaded once into A fragments (ldmatrix) and stay in registers.
+//   S = Q K^T is wgmma.m64n64k16 with Q from registers and K from shared
+//   memory; O += P V is wgmma.m64nHDPk16 with P from registers and V read
+//   transposed (MN-major) from shared memory; both accumulate in float32.
+//   Each step issues S of tile j + 1 and P V of tile j asynchronously, then
+//   runs the softmax of tile j + 1 on its accumulator fragments while the
+//   PV product runs: a thread holds two rows' values, a row's max and sum
+//   meet over the four lanes of a quad in two shuffles, and the float32 C
+//   fragments of two adjacent n8 score columns, packed to bf16x2, are the
+//   A fragment of the PV product, so P never touches shared memory.
+//   p = 2^(s * scale * log2(e) - m * scale * log2(e)) in one FFMA and one
+//   ex2.approx (relative error under 2^-22, far below the 2^-9 of p's bf16
+//   rounding).  Masks are applied only on tiles that cross the diagonal or
+//   the t_len edge.  The output is staged in the warp's own slice of the q
+//   tile and written with 16-byte stores.  Head widths are padded with
+//   zeros to HDP in {16, 32, 64, 128}; where hd is not a multiple of 8 (or
+//   a pointer is not 16-byte aligned) tiles are staged with 2-byte loads
+//   instead of cp.async, the products unchanged.
+// * float32: flash_fwd_simt_kernel, on the CUDA cores (tensor cores take
+//   float32 only as TF32, which would not keep the reference's 2e-5
+//   tolerance).  One block per (batch * head, 64-row q
 //   tile), four threads per query row, 64-key k/v tiles staged in shared
 //   memory as float32, probabilities through shared memory.
 
@@ -204,32 +205,45 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, dim3 grid,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core kernel
+// bfloat16: tensor-core kernel (wgmma)
 
 using bf16 = __nv_bfloat16;
 
-// Warps per block and m16 row tiles per warp (at HDP <= 64; one at HDP
-// 128, where two would not fit in registers): compile-time constants, 4
-// and 2 measured fastest at the tinyllama prefill; the alternatives build
-// from these macros (scripts/flash_block_sweep.py)
-#ifndef FLASH_WARPS
-#define FLASH_WARPS 4
-#endif
-#ifndef FLASH_ROW_TILES
-#define FLASH_ROW_TILES 2
+// Warpgroups per block, 64 query rows each: a compile-time constant, 2
+// measured faster than 1 at the tinyllama prefill; the other builds from
+// this macro (scripts/flash_block_sweep.py)
+#ifndef FLASH_WARPGROUPS
+#define FLASH_WARPGROUPS 2
 #endif
 
-// tile shape of the bf16 kernel at padded head width HDP
+constexpr int kWarpgroups = FLASH_WARPGROUPS;
+constexpr int kTcThreads = 128 * kWarpgroups;
+constexpr int kTcBQ = 64 * kWarpgroups;     // query rows per block
+constexpr int kTcBK = 64;                   // keys per kv tile
+
+// Shared tiles hold rows of HDP bf16 in swizzle atoms of AW = min(HDP, 64)
+// elements (32, 64 or 128 bytes): the 16-byte chunk c of row r sits at
+// chunk c ^ ((r * AW * 2 / 128) % (AW / 8)) of its atom row, the layout
+// wgmma reads without bank conflicts; at HDP 128 a tile is two atoms wide,
+// stored one after the other.
 template <int HDP>
-struct MmaTile {
-  static constexpr int MT = HDP <= 64 ? FLASH_ROW_TILES : 1;  // m16 row tiles a warp
-  static constexpr int WARPS = FLASH_WARPS;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int MIN_BLOCKS = WARPS < 8 ? 2 : 1;   // resident per SM
-  static constexpr int BQ = 16 * MT * WARPS;   // query rows per block
-  static constexpr int BK = 64;                // keys per kv tile
-  static constexpr int LDS = HDP + 8;          // shared row stride: a 16-byte pad
-  static constexpr size_t SMEM = sizeof(bf16) * LDS * (BQ + 4 * BK);  // q, 2 x (k, v)
+struct TcTile {
+  static constexpr int AW = HDP < 64 ? HDP : 64;
+  static constexpr int ACH = AW / 8;                  // 16-byte chunks per atom row
+  static constexpr uint32_t SBO = 8 * AW * 2;         // bytes between 8-row groups
+  // descriptor layout type: 128-, 64- or 32-byte swizzle
+  static constexpr uint64_t SWIZZLE = static_cast<uint64_t>(AW == 64 ? 1 : AW == 32 ? 2 : 3) << 62;
+  static constexpr int KV = kTcBK * HDP;              // elements of a k or v tile
+  static constexpr size_t SMEM = sizeof(bf16) * HDP * (kTcBQ + 4 * kTcBK);  // q, 2 x (k, v)
+  // resident blocks per SM the registers are budgeted for (at most 128 a
+  // thread for two blocks of two warpgroups); HDP 128 needs more
+  static constexpr int MIN_BLOCKS = HDP > 64 ? 1 : kWarpgroups == 1 ? 3 : 2;
+
+  // element offset of chunk c of row r in a tile of `rows` rows
+  static __device__ __forceinline__ int at(int r, int c, int rows) {
+    const int cc = c % ACH;
+    return (c / ACH) * rows * AW + r * AW + ((cc ^ ((r * AW * 2 >> 7) & (ACH - 1))) * 8);
+  }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -247,9 +261,51 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// shared-memory writes of the generic proxy (cp.async, stores) become
+// visible to wgmma, which reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from touching registers that an in-flight wgmma owns
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (in 16-byte units), swizzle mode
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p, uint32_t lbo, uint32_t sbo,
+                                              uint64_t swizzle) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         swizzle;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
@@ -257,22 +313,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
                : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -298,247 +338,306 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// d (64 x 64, float32) (+)= a (64 x 16, registers) b (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_n64_k(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16, float32) += a (64 x 16, registers) b (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_n16_mn(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 32, float32) += a (64 x 16, registers) b (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_n32_mn(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 64, float32) += a (64 x 16, registers) b (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_n64_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 128, float32) += a (64 x 16, registers) b (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_n128_mn(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_n16_mn(d, a, b);
+  else if constexpr (N == 32) wgmma_n32_mn(d, a, b);
+  else if constexpr (N == 64) wgmma_n64_mn(d, a, b);
+  else wgmma_n128_mn(d, a, b);
+}
+
 // rows [r0, r0 + n_rows) of a (rows, hd) matrix with row stride `step`
-// elements -> n_rows x HDP in shared memory, zero past `rows` and `hd`
+// elements -> a swizzled tile, zero past `rows` and `hd`
 template <int HDP>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t step,
-                                           int r0, int rows, int n_rows, int hd,
-                                           bool vec16) {
-  using C = MmaTile<HDP>;
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t step, int r0,
+                                           int rows, int n_rows, int hd, bool vec16) {
+  using T = TcTile<HDP>;
   if (vec16) {
     constexpr int CPR = HDP / 8;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < n_rows * CPR; i += C::THREADS) {
-      const int r = i / CPR, d = (i % CPR) * 8;
-      const bool ok = r0 + r < rows && d < hd;
-      const bf16* p = ok ? src + static_cast<size_t>(r0 + r) * step + d : src;
-      cp_async16(dst + r * C::LDS + d, p, ok ? 16 : 0);
+    for (int i = threadIdx.x; i < n_rows * CPR; i += kTcThreads) {
+      const int r = i / CPR, c = i % CPR;
+      const bool ok = r0 + r < rows && c * 8 < hd;
+      const bf16* p = ok ? src + static_cast<size_t>(r0 + r) * step + c * 8 : src;
+      cp_async16(dst + T::at(r, c, n_rows), p, ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < n_rows * HDP; i += C::THREADS) {
+    for (int i = threadIdx.x; i < n_rows * HDP; i += kTcThreads) {
       const int r = i / HDP, d = i % HDP;
       bf16 x = __float2bfloat16(0.f);
       if (r0 + r < rows && d < hd) x = src[static_cast<size_t>(r0 + r) * step + d];
-      dst[r * C::LDS + d] = x;
+      dst[T::at(r, d / 8, n_rows) + d % 8] = x;
     }
   }
 }
 
+// S (64 x 64 per warpgroup) = Q K^T, Q from registers, K (64 keys) K-major
 template <int HDP>
-__global__ void __launch_bounds__(MmaTile<HDP>::THREADS, MmaTile<HDP>::MIN_BLOCKS)
-flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int s_len,
-                     int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-                     float scale, int vec16) {
-  using C = MmaTile<HDP>;
-  constexpr int MT = C::MT, BQ = C::BQ, BK = C::BK, LDS = C::LDS;
-  constexpr int KSTEPS = HDP / 16;    // k16 steps over the head dim (QK^T)
-  constexpr int NS = BK / 8;          // n8 score tiles per kv tile
-  constexpr int NO = HDP / 8;         // n8 output tiles over the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ x LDS
-  bf16* ks = qs + BQ * LDS;                        // 2 stages x BK x LDS
-  bf16* vs = ks + 2 * BK * LDS;                    // 2 stages x BK x LDS
+__device__ __forceinline__ void qk_issue(float (&s)[32], const uint32_t (&qf)[HDP / 16][4],
+                                         const bf16* kt) {
+  using T = TcTile<HDP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const bf16* p = kt + (kk * 16 / T::AW) * kTcBK * T::AW + kk * 16 % T::AW;
+    wgmma_n64_k(s, qf[kk], smem_desc(p, 16, T::SBO, T::SWIZZLE), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O (64 x HDP per warpgroup) += P V, P from registers, V (64 keys) MN-major
+template <int HDP>
+__device__ __forceinline__ void pv_issue(float (&acc)[HDP / 2], const uint32_t (&pf)[4][4],
+                                         const bf16* vt) {
+  using T = TcTile<HDP>;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kTcBK / 16; ++j)
+    wgmma_pv<HDP>(acc, pf[j], smem_desc(vt + j * 16 * T::AW, kTcBK * T::AW * 2, T::SBO,
+                                        T::SWIZZLE));
+  wgmma_commit();
+}
+
+// The online softmax step on one tile's score fragments: a thread holds
+// rows row0 and row0 + 8, 16 keys each.  Masks only where the tile crosses
+// the diagonal or t_len.  p = exp(s * scale - m * scale) = 2^(s * sl2 -
+// m * sl2), with m the running max of the unscaled scores, in float32,
+// summed into l; s is overwritten by p; corr = exp(m_old - m_new) per row.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], bool masked, int k0, int row0,
+                                             int t_len, int causal, float sl2, int tq) {
+  float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (masked) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * tq + (e & 1);
+        if (key >= t_len || (causal && key > row0 + (e >> 1) * 8)) s[4 * n + e] = kNegInf;
+      }
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+  }
+  mx0 = quad_max(mx0);
+  mx1 = quad_max(mx1);
+  const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
+  corr[0] = exp2_ftz(fmaf(m[0], sl2, -mb0));
+  corr[1] = exp2_ftz(fmaf(m[1], sl2, -mb1));
+  m[0] = mx0;
+  m[1] = mx1;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[4 * n] = exp2_ftz(fmaf(s[4 * n], sl2, -mb0));
+    s[4 * n + 1] = exp2_ftz(fmaf(s[4 * n + 1], sl2, -mb0));
+    s[4 * n + 2] = exp2_ftz(fmaf(s[4 * n + 2], sl2, -mb1));
+    s[4 * n + 3] = exp2_ftz(fmaf(s[4 * n + 3], sl2, -mb1));
+    ps0 += s[4 * n] + s[4 * n + 1];
+    ps1 += s[4 * n + 2] + s[4 * n + 3];
+  }
+  l[0] = l[0] * corr[0] + quad_sum(ps0);
+  l[1] = l[1] * corr[1] + quad_sum(ps1);
+}
+
+// p packed to bf16: the C fragments of score tiles 2j and 2j + 1 are the A
+// fragment j of P
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pf[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= corr[(i >> 1) & 1];
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kTcThreads, TcTile<HDP>::MIN_BLOCKS)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, int s_len,
+                       int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                       float scale, int vec16) {
+  using T = TcTile<HDP>;
+  constexpr int BQ = kTcBQ, BK = kTcBK, CPR = HDP / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ rows
+  bf16* ks = qs + BQ * HDP;                        // 2 stages of BK rows
+  bf16* vs = ks + 2 * T::KV;                       // 2 stages of BK rows
 
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int hk = h / (n_heads / n_kv_heads);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;      // fragment row group, lane in quad
-  const int wrow = warp * 16 * MT;             // the warp's first row in the tile
-  const int row_lo = q0 + wrow, row_hi = row_lo + 16 * MT - 1;
+  const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first row in the q tile
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int row_lo = q0 + wrow, row0 = row_lo + g;
   const size_t q_step = static_cast<size_t>(n_heads) * hd;
   const size_t kv_step = static_cast<size_t>(n_kv_heads) * hd;
   const bf16* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
   const bf16* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
   const bf16* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
   const bool vec = vec16 != 0;
-  // p = exp((s - m) * scale) = 2^(s * sl2 - m * sl2), m the running max of
-  // the unscaled scores: one FFMA and one ex2 per score
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = scale * 1.4426950408889634f;   // scale * log2(e)
 
   int n_tiles = (t_len + BK - 1) / BK;
   if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  auto masked = [&](int t) {
+    return (causal && t * BK + BK - 1 > row_lo) || t * BK + BK > t_len;
+  };
 
+  // q and k of tile 0, then k of tile 1 and v of tile 0
   stage_tile<HDP>(qs, qb, q_step, q0, s_len, BQ, hd, vec);
   stage_tile<HDP>(ks, kb, kv_step, 0, t_len, BK, hd, vec);
+  cp_async_commit();
+  if (n_tiles > 1) stage_tile<HDP>(ks + T::KV, kb, kv_step, BK, t_len, BK, hd, vec);
   stage_tile<HDP>(vs, vb, kv_step, 0, t_len, BK, hd, vec);
   cp_async_commit();
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  fence_proxy_async();
+  __syncthreads();
 
-  uint32_t qf[MT][KSTEPS][4];
-  float acc[MT][NO][4];
-  float m[MT][2], l[MT][2];
+  // the warp's 16 q rows as A fragments, in registers for the whole loop
+  uint32_t qf[HDP / 16][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int n = 0; n < NO; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-    m[mt][0] = m[mt][1] = kNegInf;
-    l[mt][0] = l[mt][1] = 0.f;
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int r = wrow + (lane & 7) + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(qf[kk], qs + T::at(r, 2 * kk + (lane >> 4), BQ));
   }
 
-  // ldmatrix row addresses: lane l feeds row (l & 7) of matrix l / 8
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + (lane >> 4) * 8, b_col = ((lane >> 3) & 1) * 8;
+  float acc[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+  float s[32];
+  uint32_t pf[4][4];
+  qk_issue<HDP>(s, qf, ks);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax_tile(s, m, l, corr, masked(0), 0, row0, t_len, causal, sl2, tq);
+  pack_p(pf, s);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {   // next tile's copy overlaps this tile's products
-      const int nst = st ^ 1;
-      stage_tile<HDP>(ks + nst * BK * LDS, kb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
-      stage_tile<HDP>(vs + nst * BK * LDS, vb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk)
-          ldmatrix_x4(qf[mt][kk], qs + (wrow + mt * 16 + a_row) * LDS + kk * 16 + a_col);
-    }
-    const int k0 = t * BK;
-    if (!causal || k0 <= row_hi) {   // else wholly above this warp's rows
-      const bf16* kt = ks + st * BK * LDS;
-      const bf16* vt = vs + st * BK * LDS;
-
-      // S = Q K^T: 16 MT rows x 64 keys per warp, float32; each K fragment
-      // serves the warp's MT row tiles
-      float s[MT][NS][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < NS; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-        for (int np = 0; np < NS / 2; ++np) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, kt + (np * 16 + b_row) * LDS + kk * 16 + b_col);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(s[mt][2 * np], qf[mt][kk], bf[0], bf[1]);
-            mma_bf16(s[mt][2 * np + 1], qf[mt][kk], bf[2], bf[3]);
-          }
-        }
-      }
-
-      // online softmax on the fragments; mask only where the tile crosses
-      // the diagonal or t_len.  p in float32 is added to l, then packed to
-      // bf16: the C fragments of score tiles 2j and 2j + 1 are the A
-      // fragment j of P
-      const bool masked = (causal && k0 + BK - 1 > row_lo) || k0 + BK > t_len;
-      uint32_t pf[MT][NS / 2][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row0 = row_lo + mt * 16 + g, row1 = row0 + 8;
-        float mx0 = m[mt][0], mx1 = m[mt][1];
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x = s[mt][n][e];
-            if (masked) {
-              const int key = k0 + n * 8 + 2 * tq + (e & 1);
-              if (key >= t_len || (causal && key > (e < 2 ? row0 : row1))) x = kNegInf;
-            }
-            s[mt][n][e] = x;
-          }
-          mx0 = fmaxf(mx0, fmaxf(s[mt][n][0], s[mt][n][1]));
-          mx1 = fmaxf(mx1, fmaxf(s[mt][n][2], s[mt][n][3]));
-        }
-        mx0 = quad_max(mx0);
-        mx1 = quad_max(mx1);
-        const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
-        const float corr0 = exp2_ftz(fmaf(m[mt][0], sl2, -mb0));
-        const float corr1 = exp2_ftz(fmaf(m[mt][1], sl2, -mb1));
-        m[mt][0] = mx0;
-        m[mt][1] = mx1;
-        float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          const float p0 = exp2_ftz(fmaf(s[mt][n][0], sl2, -mb0));
-          const float p1 = exp2_ftz(fmaf(s[mt][n][1], sl2, -mb0));
-          const float p2 = exp2_ftz(fmaf(s[mt][n][2], sl2, -mb1));
-          const float p3 = exp2_ftz(fmaf(s[mt][n][3], sl2, -mb1));
-          ps0 += p0 + p1;
-          ps1 += p2 + p3;
-          pf[mt][n / 2][(n & 1) * 2] = pack_bf16(p0, p1);
-          pf[mt][n / 2][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-        }
-        l[mt][0] = l[mt][0] * corr0 + quad_sum(ps0);
-        l[mt][1] = l[mt][1] * corr1 + quad_sum(ps1);
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          acc[mt][n][0] *= corr0;
-          acc[mt][n][1] *= corr0;
-          acc[mt][n][2] *= corr1;
-          acc[mt][n][3] *= corr1;
-        }
-      }
-
-      // O += P V; each V fragment serves the warp's MT row tiles
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-        for (int dp = 0; dp < NO / 2; ++dp) {
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, vt + (j * 16 + a_row) * LDS + dp * 16 + a_col);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma_bf16(acc[mt][2 * dp], pf[mt][j], bf[0], bf[1]);
-            mma_bf16(acc[mt][2 * dp + 1], pf[mt][j], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // every warp is done with this stage before its refill
+  // Tile t: issue S of tile t + 1 and O += P V of tile t on the tensor
+  // cores; the softmax of tile t + 1 runs while the PV product does.  The
+  // copies of k of tile t + 2 and v of tile t + 1 overlap the whole step.
+  for (int t = 0; t + 1 < n_tiles; ++t) {
+    cp_async_wait_all();   // k of tile t + 1 and v of tile t
+    fence_proxy_async();
+    __syncthreads();       // and every warp is done with the stages refilled now
+    if (t + 2 < n_tiles)
+      stage_tile<HDP>(ks + (t & 1) * T::KV, kb, kv_step, (t + 2) * BK, t_len, BK, hd, vec);
+    stage_tile<HDP>(vs + ((t + 1) & 1) * T::KV, vb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
+    cp_async_commit();
+    qk_issue<HDP>(s, qf, ks + ((t + 1) & 1) * T::KV);
+    rescale(acc, corr);
+    pv_issue<HDP>(acc, pf, vs + (t & 1) * T::KV);
+    wgmma_wait<1>();       // S of tile t + 1
+    fence_regs(s);
+    softmax_tile(s, m, l, corr, masked(t + 1), (t + 1) * BK, row0, t_len, causal, sl2, tq);
+    wgmma_wait<0>();       // PV of tile t
+    fence_regs(acc);
+    fence_regs(pf);
+    pack_p(pf, s);
   }
+  cp_async_wait_all();     // v of the last tile
+  fence_proxy_async();
+  __syncthreads();
+  rescale(acc, corr);
+  pv_issue<HDP>(acc, pf, vs + ((n_tiles - 1) & 1) * T::KV);
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(pf);
 
-  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own q rows
-  bf16* os = qs + wrow * LDS;
+  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own 16 x HDP
+  // slice of the q tile (chunk c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8)
+  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  bf16* os = qs + wrow * HDP;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const float d0 = fmaxf(l[mt][0], 1e-30f), d1 = fmaxf(l[mt][1], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      *reinterpret_cast<uint32_t*>(os + (mt * 16 + g) * LDS + n * 8 + 2 * tq) =
-          pack_bf16(acc[mt][n][0] / d0, acc[mt][n][1] / d0);
-      *reinterpret_cast<uint32_t*>(os + (mt * 16 + g + 8) * LDS + n * 8 + 2 * tq) =
-          pack_bf16(acc[mt][n][2] / d1, acc[mt][n][3] / d1);
-    }
+  for (int n = 0; n < HDP / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(os + n * 64 + g * 8 + 2 * tq) =
+        pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+    *reinterpret_cast<uint32_t*>(os + (CPR + n) * 64 + g * 8 + 2 * tq) =
+        pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
   }
   __syncwarp();
   bf16* ob = o + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
   if (vec) {
-    constexpr int CPR = HDP / 8;
-    for (int i = lane; i < 16 * MT * CPR; i += 32) {
-      const int r = i / CPR, d = (i % CPR) * 8;
-      if (row_lo + r < s_len && d < hd)
-        *reinterpret_cast<uint4*>(ob + (row_lo + r) * q_step + d) =
-            *reinterpret_cast<const uint4*>(os + r * LDS + d);
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int r = i / CPR, c = i % CPR;
+      if (row_lo + r < s_len && c * 8 < hd)
+        *reinterpret_cast<uint4*>(ob + (row_lo + r) * q_step + c * 8) =
+            *reinterpret_cast<const uint4*>(os + ((r >> 3) * CPR + c) * 64 + (r & 7) * 8);
     }
   } else {
-    for (int i = lane; i < 16 * MT * HDP; i += 32) {
+    for (int i = lane; i < 16 * HDP; i += 32) {
       const int r = i / HDP, d = i % HDP;
-      if (row_lo + r < s_len && d < hd) ob[(row_lo + r) * q_step + d] = os[r * LDS + d];
+      if (row_lo + r < s_len && d < hd)
+        ob[(row_lo + r) * q_step + d] =
+            os[((r >> 3) * CPR + (d >> 3)) * 64 + (r & 7) * 8 + (d & 7)];
     }
   }
 }
 
 template <int HDP>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b_total,
-               int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-               float scale, int vec16, cudaStream_t stream) {
-  using C = MmaTile<HDP>;
-  const dim3 grid(b_total * n_heads, (s_len + C::BQ - 1) / C::BQ);
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b_total,
+                 int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                 float scale, int vec16, cudaStream_t stream) {
+  using T = TcTile<HDP>;
+  const dim3 grid(b_total * n_heads, (s_len + kTcBQ - 1) / kTcBQ);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<HDP>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HDP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(C::SMEM));
+                                       static_cast<int>(T::SMEM));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_mma_kernel<HDP><<<grid, C::THREADS, C::SMEM, stream>>>(
+  flash_fwd_wgmma_kernel<HDP><<<grid, kTcThreads, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), s_len, t_len, n_heads,
       n_kv_heads, hd, causal, scale, vec16);
@@ -573,10 +672,10 @@ extern "C" int flash_forward_simt_launch(const void* q, const void* k, const voi
 }
 
 // bfloat16 on the tensor cores
-extern "C" int flash_forward_mma_launch(const void* q, const void* k, const void* v,
-                                        void* o, int b_total, int s_len, int t_len,
-                                        int n_heads, int n_kv_heads, int hd, int causal,
-                                        float scale, void* stream) {
+extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const void* v,
+                                          void* o, int b_total, int s_len, int t_len,
+                                          int n_heads, int n_kv_heads, int hd, int causal,
+                                          float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
   if (bad_shape(hd, t_len, n_heads, n_kv_heads))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -585,16 +684,16 @@ extern "C" int flash_forward_mma_launch(const void* q, const void* k, const void
   const int vec16 = hd % 8 == 0 && addr_bits % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 16)
-    return launch_mma<16>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                          causal, scale, vec16, st);
+    return launch_wgmma<16>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                            causal, scale, vec16, st);
   if (hd <= 32)
-    return launch_mma<32>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                          causal, scale, vec16, st);
+    return launch_wgmma<32>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                            causal, scale, vec16, st);
   if (hd <= 64)
-    return launch_mma<64>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                          causal, scale, vec16, st);
-  return launch_mma<128>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                         causal, scale, vec16, st);
+    return launch_wgmma<64>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                            causal, scale, vec16, st);
+  return launch_wgmma<128>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                           causal, scale, vec16, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

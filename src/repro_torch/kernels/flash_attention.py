@@ -4,12 +4,11 @@ grouped-query heads (query head h reads kv head h // (H / KH)).
 
 :func:`flash_forward` runs ``csrc/flash_attention.cu`` for CUDA tensors and
 :func:`flash_forward_plain` for CPU tensors.  On the card the input type
-picks the kernel: bf16 goes to the tensor-core kernel (``mma.sync``),
+picks the kernel: bf16 goes to the tensor-core kernel (Hopper's ``wgmma``),
 float32 to the CUDA-core one (the tensor cores take float32 only as TF32,
 which would not keep the reference's 2e-5 tolerance); any other type
-raises.  ``models/attention.py``
-routes a prefill that starts at position 0 here on the card.  Both
-versions compute the reference kernel's function
+raises.  ``models/attention.py`` routes a prefill that starts at position 0
+here on the card.  Both versions compute the reference kernel's function
 (``repro/kernels/flash_attention.py``): scores and softmax in float32, the
 unnormalized probabilities cast to v's dtype before the product with v,
 the sum in float32, and the output ``acc / max(l, 1e-30)``.  The causal
@@ -27,13 +26,13 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 # C entry point of each input type's kernel
-_ENTRY = {torch.bfloat16: "flash_forward_mma_launch",
+_ENTRY = {torch.bfloat16: "flash_forward_wgmma_launch",
           torch.float32: "flash_forward_simt_launch"}
 
 # kernel launches through flash_forward on CUDA tensors: all of them, the
 # bf16 tensor-core kernel's and the float32 CUDA-core kernel's
 launches = 0
-launches_mma = 0
+launches_wgmma = 0
 launches_simt = 0
 
 
@@ -78,7 +77,7 @@ def flash_forward_plain(q, k, v, *, causal: bool = True):
 def flash_forward_cuda(q, k, v, *, causal: bool = True):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd):
     the tensor-core kernel for bf16, the CUDA-core kernel for float32."""
-    global launches, launches_mma, launches_simt
+    global launches, launches_wgmma, launches_simt
     _check(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_forward_cuda takes CUDA tensors")
@@ -101,7 +100,7 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True):
     _build.check("flash_attention", err)
     launches += 1
     if q.dtype == torch.bfloat16:
-        launches_mma += 1
+        launches_wgmma += 1
     else:
         launches_simt += 1
     return out

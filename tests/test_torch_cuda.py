@@ -220,8 +220,8 @@ def test_cuda_flash_forward_counts_each_kernel(cuda_device):
     shapes = ((1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32))
     base = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda_device)
             for s in shapes]
-    names = ("launches", "launches_mma", "launches_simt")
-    for dtype, counter in ((torch.bfloat16, "launches_mma"),
+    names = ("launches", "launches_wgmma", "launches_simt")
+    for dtype, counter in ((torch.bfloat16, "launches_wgmma"),
                            (torch.float32, "launches_simt")):
         before = {n: getattr(fa, n) for n in names}
         fa.flash_forward(*(t.to(dtype) for t in base))
