@@ -20,7 +20,9 @@ variant in every layer's prefill), with the kernels' launch counts set to
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
 to the oracle on every engine.  Checks that the flash library's SASS holds
-tensor-core MMA instructions.  Prints the card's name and power limit, a
+tensor-core MMA instructions, and holds and times the bf16 flash kernel at
+hd 128 (qwen3-32b's attention) beside ``scaled_dot_product_attention``.
+Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound, and
 as its last line
@@ -100,6 +102,9 @@ FLASH_KERNEL = dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
 # float32: the reference holds its own flash kernel to flash_ref at this
 # absolute tolerance (tests/test_kernels.py)
 FLASH_F32_ATOL = 2e-5
+# the bf16 kernel at hd 128, the head width of qwen3-32b and starcoder2-7b:
+# qwen3-32b's attention (64 query heads over 8 kv heads), 4 prompts of 2048
+FLASH_HD128 = dict(B=4, S=2048, H=64, KH=8, hd=128)
 
 
 def fail(msg: str) -> None:
@@ -582,6 +587,63 @@ def flash_tolerance(v, want) -> float:
     return 2 ** -7 * (float(v.abs().max()) + float(want.abs().max()))
 
 
+def flash_elem_tolerance(fa, q, k, v, want):
+    """bf16, per output element: the output's bf16 rounding on both sides
+    (<= 2^-7 x |out| together) and p's (each <= 2^-8 relative, so <= 2^-7 of
+    the p-weighted mean of |v|: the plain version's attention over |v| in
+    float32), with 2^-6 of that for the float32 sums and ex2.approx."""
+    w = fa.flash_forward_plain(q.float(), k.float(), v.float().abs())
+    return 2 ** -7 * (1 + 2 ** -6) * (want.float().abs() + w)
+
+
+def flash_errors(fa, q, k, v) -> dict:
+    """The bf16 kernel against its plain version: the largest error, the
+    tolerance ``flash_tolerance`` states, and the largest share of its
+    per-element tolerance (``flash_elem_tolerance``) an element uses."""
+    import torch
+
+    got, want = fa.flash_forward_cuda(q, k, v).float(), fa.flash_forward_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    share = diff / flash_elem_tolerance(fa, q, k, v, want).clamp(min=1e-30)
+    return dict(max_abs_err=float(diff.max()), tolerance=flash_tolerance(v.float(), want),
+                max_elem_tolerance_share=float(share.max()))
+
+
+def flash_times(fa, q, k, v):
+    """The bf16 kernel on causal self-attention q, k, v: event and device
+    ms, FLOPs and bound, ``scaled_dot_product_attention``'s event and device
+    ms; and each one's device work per call by name."""
+    import torch
+
+    kern = lambda: fa.flash_forward_cuda(q, k, v)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    row, per = dict(ms=cuda_time_ms(kern), library_ms=cuda_time_ms(library)), {}
+    row["device_ms"], per["kernel"] = profile_device(kern)
+    row["library_device_ms"], per["library"] = profile_device(library)
+    B, S, H, hd = q.shape
+    # QK^T and PV over the S(S+1)/2 causal (query, key) pairs, 2 FLOPs each
+    row["flops"] = 4 * B * H * hd * S * (S + 1) // 2
+    # q, k, v read once, the output (q's size) written once
+    row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v) + nbytes(q),
+                                             row["flops"] / BF16_FLOPS_PER_S * 1e3)
+    return row, per
+
+
+def flash_bf16_row(fa, dev, *, B, S, H, KH, hd) -> dict:
+    """The bf16 kernel at one causal self-attention shape on normal inputs
+    from seed 0: ``flash_errors`` and ``flash_times``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(B, S, h, hd, generator=gen, device=dev).to(torch.bfloat16)
+               for h in (H, KH, KH))
+    return dict(shape=dict(B=B, S=S, H=H, KH=KH, hd=hd), **flash_errors(fa, q, k, v),
+                **flash_times(fa, q, k, v)[0])
+
+
 def split_device_time(us) -> dict:
     """Device microseconds by kind: the flash kernels (``flash_fwd_wgmma_kernel``
     for bf16, ``flash_fwd_simt_kernel`` for float32), GEMMs, the rest."""
@@ -688,36 +750,30 @@ def lm_phase(dev) -> dict:
         h = layers.rms_norm(model.embed[tokens], blk.norm1, cfg.norm_eps)
         q, k, v = attention._project_qkv(cfg, blk.mix, h, positions)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    got, want = fa.flash_forward_cuda(q, k, v), fa.flash_forward_plain(q, k, v)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    tol = flash_tolerance(v.float(), want.float())
-    check(err <= tol, f"flash_attention bf16 q {tuple(q.shape)}: kernel differs from "
-          f"its plain version by {err} > {tol}")
+    errs = flash_errors(fa, q, k, v)
+    err, tol, share = errs["max_abs_err"], errs["tolerance"], errs["max_elem_tolerance_share"]
+    check(err <= tol and share <= 1, f"flash_attention bf16 q {tuple(q.shape)}: kernel "
+          f"differs from its plain version by {err} (tolerance {tol}); largest share of "
+          f"the per-element tolerance {share}")
     f32 = [t.float() for t in (q, k, v)]
     err32 = float((fa.flash_forward_cuda(*f32) - fa.flash_forward_plain(*f32)).abs().max())
     check(err32 <= FLASH_F32_ATOL, f"flash_attention float32: kernel differs from its "
           f"plain version by {err32} > {FLASH_F32_ATOL}")
     print(f"flash_attention == plain version on layer 0's prefill inputs: q "
           f"{tuple(q.shape)} k {tuple(k.shape)} bf16 max_abs_err {err} (tolerance "
-          f"{tol}); float32 {err32} (tolerance {FLASH_F32_ATOL})")
+          f"{tol}; largest share of the per-element tolerance {share}); float32 "
+          f"{err32} (tolerance {FLASH_F32_ATOL})")
 
-    kern = lambda: fa.flash_forward_cuda(q, k, v)
-    row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(
-        lambda: fa.flash_forward_plain(q, k, v), reps=3, warmup=1))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    row["library_ms"] = cuda_time_ms(library)
-    row["library_device_ms"], per = profile_device(library)
-    print(f"scaled_dot_product_attention device work per call: {json.dumps(per)}")
-    row["device_ms"], per = profile_device(kern)
-    print(f"flash_attention device work per call: {json.dumps(per)}")
-    S, H, hd = q.shape[1], q.shape[2], q.shape[3]
-    # QK^T and PV over the S(S+1)/2 causal (query, key) pairs, 2 FLOPs each
-    flops = 4 * B * H * hd * S * (S + 1) // 2
-    row["bound_ms"], row["bound_by"] = bound(nbytes(q, k, v) + nbytes(got),
-                                             flops / BF16_FLOPS_PER_S * 1e3)
+    # the bf16 kernel at hd 128 (qwen3-32b's attention), beside the library
+    hd128 = flash_bf16_row(fa, dev, **FLASH_HD128)
+    check(hd128["max_abs_err"] <= hd128["tolerance"] and hd128["max_elem_tolerance_share"] <= 1,
+          f"flash_attention bf16 at hd 128: kernel differs from its plain version: {hd128}")
+    print("FLASH_HD128 " + json.dumps(hd128))
+
+    row, per = flash_times(fa, q, k, v)
+    row["plain_ms"] = cuda_time_ms(lambda: fa.flash_forward_plain(q, k, v), reps=3, warmup=1)
+    print(f"scaled_dot_product_attention device work per call: {json.dumps(per['library'])}")
+    print(f"flash_attention device work per call: {json.dumps(per['kernel'])}")
 
     # where prefill and decode time goes (warm): the steps under the profiler
     prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
@@ -749,7 +805,7 @@ def lm_phase(dev) -> dict:
             top=[dict(name=kk[:60], us=u, count=c) for kk, (u, c) in top])
         print(f"LM_PROFILE_{label.upper()} " + json.dumps(prof_rows[label]))
     print("LM_TIMES " + json.dumps(dict(
-        row, shape=dict(q=list(q.shape), k=list(k.shape)), flops=flops,
+        row, shape=dict(q=list(q.shape), k=list(k.shape)),
         serve_prefill_ms=[r["prefill_s"] * 1e3 for r in (res, plain, warm)],
         serve_decode_ms_per_step=[r["decode_s"] / args.new_tokens * 1e3
                                   for r in (res, plain, warm)],
@@ -757,7 +813,8 @@ def lm_phase(dev) -> dict:
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)))
     return dict(row, launches=launches, launches_wgmma=launches_wgmma,
                 sass_tensor_mma=sum(mma[fn] for fn in tc_fns), max_abs_err=err,
-                tolerance=tol, f32_max_abs_err=err32, f32_tolerance=FLASH_F32_ATOL)
+                tolerance=tol, max_elem_tolerance_share=share, f32_max_abs_err=err32,
+                f32_tolerance=FLASH_F32_ATOL)
 
 
 def main() -> None:

@@ -209,14 +209,9 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, dim3 grid,
 
 using bf16 = __nv_bfloat16;
 
-// Warpgroups per block, 64 query rows each: a compile-time constant, 2
-// measured faster than 1 at the tinyllama prefill; the other builds from
-// this macro (scripts/flash_block_sweep.py)
-#ifndef FLASH_WARPGROUPS
-#define FLASH_WARPGROUPS 2
-#endif
-
-constexpr int kWarpgroups = FLASH_WARPGROUPS;
+// Warpgroups per block, 64 query rows each: two measured faster than one
+// at the tinyllama prefill
+constexpr int kWarpgroups = 2;
 constexpr int kTcThreads = 128 * kWarpgroups;
 constexpr int kTcBQ = 64 * kWarpgroups;     // query rows per block
 constexpr int kTcBK = 64;                   // keys per kv tile
@@ -236,8 +231,8 @@ struct TcTile {
   static constexpr int KV = kTcBK * HDP;              // elements of a k or v tile
   static constexpr size_t SMEM = sizeof(bf16) * HDP * (kTcBQ + 4 * kTcBK);  // q, 2 x (k, v)
   // resident blocks per SM the registers are budgeted for (at most 128 a
-  // thread for two blocks of two warpgroups); HDP 128 needs more
-  static constexpr int MIN_BLOCKS = HDP > 64 ? 1 : kWarpgroups == 1 ? 3 : 2;
+  // thread for two blocks); HDP 128 needs more
+  static constexpr int MIN_BLOCKS = HDP > 64 ? 1 : 2;
 
   // element offset of chunk c of row r in a tile of `rows` rows
   static __device__ __forceinline__ int at(int r, int c, int rows) {

@@ -182,6 +182,15 @@ def flash_bf16_tolerance(v, want):
     return 2 ** -7 * (float(v.abs().max()) + float(want.abs().max()))
 
 
+def flash_bf16_elem_tolerance(fa, q, k, v, want, causal):
+    """Per output element: the output's bf16 rounding on both sides (<= 2^-7
+    x |out| together) and p's (<= 2^-7 of the p-weighted mean of |v|, the
+    plain version's attention over |v| in float32), with 2^-6 of that for
+    the float32 sums and the kernel's ex2.approx."""
+    w = fa.flash_forward_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    return 2 ** -7 * (1 + 2 ** -6) * (want.abs() + w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,T,H,K,hd,causal", [
@@ -197,7 +206,8 @@ def flash_bf16_tolerance(v, want):
 def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, causal):
     """Float32 (the CUDA-core kernel): atol 2e-5, as the reference holds its
     kernel to flash_ref (tests/test_kernels.py); bf16 (the tensor-core
-    kernel): flash_bf16_tolerance."""
+    kernel): flash_bf16_tolerance on the whole tensor and
+    flash_bf16_elem_tolerance on each element."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(S + T + hd)
     dt = getattr(torch, dtype)
@@ -209,6 +219,9 @@ def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, 
     got = fa.flash_forward_cuda(*g, causal=causal).float()
     tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want)
     assert float((got - want).abs().max()) <= tol
+    if dtype == "bfloat16":
+        elem_tol = flash_bf16_elem_tolerance(fa, *g, want, causal)
+        assert bool(((got - want).abs() <= elem_tol).all())
 
 
 @pytest.mark.cuda

@@ -122,7 +122,9 @@ def test_flash_forward_plain_bf16_equals_reference(B, S, H, KH, hd, blk):
     tensor-core kernel is held to) against the reference's Pallas kernel in
     interpret mode on kv repeated to H heads, at the bf16 tolerance
     2^-7 x (max|v| + max|out|): the two round p to bf16 against different
-    running maxima and round the output to bf16."""
+    running maxima and round the output to bf16.  Per element: 2^-7 x
+    (|out| + the p-weighted mean of |v|), with 2^-6 of that for the float32
+    sums."""
     rng = np.random.default_rng(S + hd)
     q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
     k, v = (rng.normal(size=(B, S, KH, hd)).astype(np.float32) for _ in range(2))
@@ -135,7 +137,10 @@ def test_flash_forward_plain_bf16_equals_reference(B, S, H, KH, hd, blk):
     got = t_fa.flash_forward_plain(tq, tk, tv, causal=True)
     assert got.dtype == torch.bfloat16
     tol = 2 ** -7 * (float(tv.float().abs().max()) + float(np.abs(want).max()))
-    assert float(np.abs(got.float().numpy() - want).max()) <= tol
+    diff = np.abs(got.float().numpy() - want)
+    assert float(diff.max()) <= tol
+    w = t_fa.flash_forward_plain(tq.float(), tk.float(), tv.float().abs(), causal=True)
+    assert (diff <= 2 ** -7 * (1 + 2 ** -6) * (np.abs(want) + w.numpy())).all()
 
 
 @pytest.mark.parametrize("S,T,pos,window", [(8, 32, 10, 0), (16, 64, 16, 0), (8, 8, 0, 0),
