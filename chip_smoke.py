@@ -16,7 +16,11 @@ predictions through ``xnor_popcount``) and the LM serving path
 (``serve_lm`` on tinyllama-1.1b at full width in bf16, batch 16, 1024
 prompt tokens, 64 decode steps, the flash kernel's tensor-core (wgmma)
 variant in every layer's prefill), with the kernels' launch counts set to
-0 just before each run and read just after.  The three trained banks must
+0 just before each run and read just after.  The training kernels are
+held to their plain versions on the initial and trained banks at every
+batch size, with offsets, a half-bank shard and saturated feedback
+(p_t = p_n = 1), and their occupancy is printed (``TRAIN_OCCUPANCY``).
+The three trained banks must
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
 to the oracle on every engine.  Checks that the flash library's SASS holds
@@ -301,10 +305,11 @@ class Training:
         a = (fire.to(self.torch.int8), self.votes[sl])
         return lambda: m.class_sum_cuda(*a), lambda: m.class_sum_plain(*a)
 
-    def batch(self, bank, B, seed, b_off, c_off=0, c_total=None):
+    def batch(self, bank, B, seed, b_off, c_off=0, c_total=None, p=None):
         """(t, fire, ftype, kw) for a batch of B test samples on the rows
         [c_off, c_off + n_loc) of ``bank``: all of them, or half a bank
-        when ``c_total`` is set."""
+        when ``c_total`` is set.  ``p`` sets every sample's selection
+        probabilities (1.0: every target and negative pair has feedback)."""
         from repro_torch.core import packetizer
         from repro_torch.kernels import fused_train, ops, ref
 
@@ -312,6 +317,8 @@ class Training:
         x = torch.from_numpy(self.Xte[:B]).to(self.dev)
         y = torch.from_numpy(self.yte[:B]).to(self.dev)
         t = self.inputs(bank, x, y, seed, b_off)
+        if p is not None:
+            t["p_t"] = t["p_n"] = torch.full_like(t["p_t"], p)
         n_loc = bank.shape[0] if c_total is None else bank.shape[0] // 2
         sl = slice(c_off, c_off + n_loc)
         for k in ("ta", "inc_words", "clause_class", "clause_pol"):
@@ -326,14 +333,19 @@ class Training:
         return t, fire, ftype, kw
 
     def check_kernels(self, banks, max_err):
-        """Every training kernel against its plain version, tolerance 0."""
+        """Every training kernel against its plain version, tolerance 0, on
+        each batch size with offsets and a half-bank shard, and on the
+        saturated-feedback batch (p_t = p_n = 1 for every sample)."""
         torch = self.torch
         C = self.config.n_clauses_total
+        cases = [(b_off, c_off, c_total, p)
+                 for p in (None, 1.0)
+                 for b_off, c_off, c_total in ((0, 0, None), (12345, 0, None),
+                                               (2 ** 32 - 5, C // 2, C))]
         for label, bank in banks.items():
             for B in TRAIN_BATCHES:
-                for b_off, c_off, c_total in ((0, 0, None), (12345, 0, None),
-                                              (2 ** 32 - 5, C // 2, C)):
-                    t, fire, ftype, kw = self.batch(bank, B, 7, b_off, c_off, c_total)
+                for b_off, c_off, c_total, p in cases:
+                    t, fire, ftype, kw = self.batch(bank, B, 7, b_off, c_off, c_total, p)
                     for name in TRAIN_KERNELS:
                         kern, plain = self.calls(name, t, fire, ftype, kw, 7)
                         a, b = kern(), plain()
@@ -341,10 +353,11 @@ class Training:
                         err = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                         max_err[name] = max(max_err[name], err)
                         check(err == 0, f"{name} {label} B={B} b_offset={b_off} "
-                              f"c_offset={c_off} c_total={c_total}: kernel differs "
-                              f"from its plain version by {err}")
+                              f"c_offset={c_off} c_total={c_total} p={p}: kernel "
+                              f"differs from its plain version by {err}")
             print(f"training kernels == plain versions on the {label} bank at "
-                  f"B={TRAIN_BATCHES}, with offsets and a half-bank shard")
+                  f"B={TRAIN_BATCHES}, with offsets and a half-bank shard, "
+                  "with the selection's probabilities and saturated (p = 1)")
 
     def work(self, t, fire, ftype):
         """(bytes, operations) each training kernel needs on these inputs."""
@@ -372,7 +385,7 @@ def train_phases(dev, max_err, launches):
     import torch
 
     from repro_torch.core import compiler, packetizer
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import fused_train, ops, ta_update
 
     tr = Training(dev)
     runs = {"fused": (), "--no-fuse": ("--no-fuse",),
@@ -436,6 +449,12 @@ def train_phases(dev, max_err, launches):
     f32 = (fire.to(torch.float32), tr.votes.to(torch.float32))
     times["class_sum"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(*f32))
     times["class_sum"]["library_device_ms"] = profile_device(lambda: torch.matmul(*f32))[0]
+    C, L = t["ta"].shape
+    W = t["lit_words"].shape[1]
+    print("TRAIN_OCCUPANCY " + json.dumps(dict(
+        B=TRAIN_BATCH, C=C, L=L, W=W,
+        fused_train=fused_train.occupancy(TRAIN_BATCH, L, W),
+        ta_update=ta_update.occupancy(TRAIN_BATCH, L))))
     work, draws = tr.work(t, fire, ftype)
     print("TRAIN_BOUND_WORK " + json.dumps(dict(
         draws=draws, **{k: dict(bytes=b, ops=o) for k, (b, o) in work.items()})))

@@ -134,6 +134,17 @@ def check(name: str, err: int) -> None:
                            f"({es(err).decode()})")
 
 
+def occupancy(name: str, *shape: int) -> dict:
+    """What ``<name>_occupancy(*shape, info)`` reports of the kernel's launch
+    at that shape: registers a thread, threads a block, resident blocks per
+    SM, shared bytes a block and local (spill) bytes a thread."""
+    keys = ("registers", "threads", "blocks_per_sm", "shared_bytes", "local_bytes")
+    info = (ctypes.c_int * len(keys))()
+    f = entry(name, f"{name}_occupancy", [I] * len(shape) + [P])
+    check(name, f(*shape, ctypes.cast(info, P)))
+    return dict(zip(keys, info))
+
+
 def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 

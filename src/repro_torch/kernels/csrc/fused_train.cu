@@ -14,175 +14,238 @@
 //     + l), seed), where c_base is 0 (local clause ids) unless the caller
 //     passed c_total (then c_base = c_off, c_dim = c_total: global ids).
 //
-// Bounds on the H100: the bank in, the (C, L) int32 delta out, and about
-// ten integer operations per automaton draw actually made (one per sample,
-// Type I clause and literal).  The TPU kernel keeps a resident (256 x 1664)
-// int32 delta per clause block (1.7 MB), far beyond shared memory, so here
-// the delta is tiled in L as well: a CUDA block owns 16 clauses x 256
-// literals, one literal per thread, and keeps its 16 sums in registers.
-// It stages its 16 include rows in shared memory (one contiguous range of
-// the bank), then per segment of up to 512 samples:
-//   phase 1: one warp per sample, lanes over the packed words (coalesced),
-//     a ballot per clause for the fire bit, then lane c computes clause
-//     c's feedback type; the (sample, clause) codes go to shared memory and
-//     a sample with any feedback in the tile to a list.  The chain is
-//     repeated once per literal tile: cheap beside the draws.
-//   phase 2: every thread walks the listed samples only.  Skipping a
-//     (sample, clause tile) pair whose types are all 0 is bit-exact, and
-//     the list's order does not matter: int32 sums commute.
-// A (sample, clause) code is the same for the whole block, so the Type I /
-// Type II branches never diverge within a warp.
+// Bounds on the H100: the automaton draws' integer operations, as for
+// ta_update (ta_delta.cuh), plus one three-input logic op per (sample,
+// clause, word) of the clause chain (6.3 M at tm-mnist, batch 64: 0.4 us).
+// The TPU kernel keeps a resident (256 x 1664) int32 delta per clause
+// block, far beyond shared memory; here the delta stays in registers, one
+// clause at a time, and the walk is ta_delta.cuh's.  This file is its
+// front end, per block of ta_delta::kCT clauses and segment of samples:
+//   * cp.async stages the tile's include rows and the segment's packed
+//     literal rows (double-buffered: the next segment's copy runs during
+//     this one's walk; L1-allocating, so the blocks on one SM share the
+//     rows every block reads);
+//   * while the rows are in flight, a thread per (sample, clause) draws the
+//     selection from the per-sample scalars in global memory;
+//   * only the samples with a feedback type in the tile (about 1 in 5 at
+//     tm-mnist: their target or negative class) evaluate the chain, one
+//     warp a sample, lanes over the staged words, the clauses' fire bits
+//     OR-reduced across the warp in one instruction.
+// Each code is made once in the grid (a grid tiled in L as well would make
+// it once per literal tile, for every sample), and the walk reads its literals
+// from the same staged rows: no global load inside it, and the uint8
+// literals are not read at all.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "hash_rng.cuh"
+#include "ta_delta.cuh"
 
 namespace {
 
-constexpr int kCT = 16;                  // clauses per CUDA block
-constexpr int kThreads = 256;            // = literals per CUDA block
-constexpr int kWarps = kThreads / 32;
-constexpr int kSeg = 512;                // samples per shared-memory segment
+using ta_delta::kCT;
 
-__global__ void fused_train_kernel(
-    const int8_t* __restrict__ ta, const uint8_t* __restrict__ lits,
-    const uint32_t* __restrict__ lit_words,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// n words global -> shared by the whole block: 16-byte copies where both
+// ends are 16-byte aligned, else 4-byte ones.
+__device__ __forceinline__ void copy_words(uint32_t* dst, const uint32_t* s, int n) {
+  int i0 = 0;
+  if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(dst)) & 15u) == 0) {
+    for (int i = threadIdx.x; i < n / 4; i += blockDim.x) cp_async16(dst + 4 * i, s + 4 * i);
+    i0 = n / 4 * 4;
+  }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) cp_async4(dst + i, s + i);
+}
+
+__host__ __device__ inline int round4(int n) { return (n + 3) / 4 * 4; }
+
+// words of one segment buffer: seg packed literal rows and one word the
+// walk may read past the last of them
+__host__ __device__ inline int buffer_words(int seg, int w_total) {
+  return round4(seg * w_total + 1);
+}
+
+__global__ void __launch_bounds__(ta_delta::kMaxThreads) fused_train_kernel(
+    const int8_t* __restrict__ ta, const uint32_t* __restrict__ lit_words,
     const uint32_t* __restrict__ inc_words, const int32_t* __restrict__ y,
     const int32_t* __restrict__ kn, const float* __restrict__ p_t,
     const float* __restrict__ p_n, const int32_t* __restrict__ cls,
     const int32_t* __restrict__ pol, int32_t* __restrict__ out, int b_total,
-    int c_total, int l_total, int w_total, uint32_t c_dim, uint32_t c_base,
-    uint32_t seed, uint32_t b_off, uint32_t c_off, uint32_t t_act,
-    uint32_t t_inact) {
-  // code of a (sample, clause) pair: bits 0-1 feedback type, bit 2 fire
-  __shared__ uint8_t code_s[kSeg][kCT];
-  __shared__ int active_s[kSeg];         // samples with feedback in the tile
+    int c_total, int w_total, int seg, uint32_t c_base, uint32_t b_off,
+    uint32_t c_off, ta_delta::Draw d) {
+  __shared__ ta_delta::Tile t;
+  __shared__ uint8_t active_s[ta_delta::kSegMax];   // samples with feedback in the tile
   __shared__ int n_active;
-  extern __shared__ uint32_t inc_s[];    // [kCT][w_total] include words
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  extern __shared__ __align__(16) uint32_t dyn_s[];  // row buffers, then includes
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, n_warps = blockDim.x / 32;
+  const int W = w_total;
   const int c0 = blockIdx.x * kCT;
   const int n_c = min(kCT, c_total - c0);
-  const int l = blockIdx.y * kThreads + tid;
-  const bool l_ok = l < l_total;
+  const int n_seg = b_total > seg ? (b_total + seg - 1) / seg : 1;
+  const int buf_words = buffer_words(seg, W);
+  uint32_t* inc_s = dyn_s + (n_seg > 1 ? 2 : 1) * buf_words;
 
-  for (int i = tid; i < n_c * w_total; i += kThreads) {
-    inc_s[i] = inc_words[static_cast<size_t>(c0) * w_total + i];
-  }
-  uint32_t excl = 0u;                    // bit c: automaton (c0 + c, l) excludes
-  for (int c = 0; c < n_c; ++c) {
-    if (l_ok && ta[static_cast<size_t>(c0 + c) * l_total + l] < 0) excl |= 1u << c;
-  }
-  int32_t acc[kCT];
-#pragma unroll
-  for (int c = 0; c < kCT; ++c) acc[c] = 0;
+  auto stage = [&](int k) {
+    const int s0 = k * seg, ns = min(seg, b_total - s0);
+    copy_words(dyn_s + (k & 1) * buf_words, lit_words + static_cast<size_t>(s0) * W, ns * W);
+  };
+  copy_words(inc_s, inc_words + static_cast<size_t>(c0) * W, n_c * W);
+  stage(0);
+  cp_async_commit();
+  const uint32_t ex0 = ta_delta::exclude_bits(ta, c0, n_c, threadIdx.x * ta_delta::kV,
+                                              static_cast<int>(d.l_total));
 
-  for (int s0 = 0; s0 < b_total; s0 += kSeg) {
-    const int ns = min(kSeg, b_total - s0);
-    if (tid == 0) n_active = 0;
-    __syncthreads();                     // also: inc_s is staged
-    for (int b = warp; b < ns; b += kWarps) {
-      const int sb = s0 + b;
-      const uint32_t* lw = lit_words + static_cast<size_t>(sb) * w_total;
-      uint32_t viol[kCT];
-#pragma unroll
-      for (int c = 0; c < kCT; ++c) viol[c] = 0u;
-      for (int w = lane; w < w_total; w += 32) {
-        const uint32_t unlit = ~__ldg(lw + w);
-#pragma unroll
-        for (int c = 0; c < kCT; ++c) {
-          if (c < n_c) viol[c] |= inc_s[c * w_total + w] & unlit;
-        }
-      }
-      uint32_t fired = 0u;
-#pragma unroll
-      for (int c = 0; c < kCT; ++c) {
-        if (!__any_sync(0xffffffffu, viol[c] != 0u)) fired |= 1u << c;
-      }
-      uint8_t code = 0;
-      if (lane < n_c) {
-        const int cc = c0 + lane;
+  for (int k = 0; k < n_seg; ++k) {
+    const int s0 = k * seg, ns = min(seg, b_total - s0);
+    if (k + 1 < n_seg) stage(k + 1);
+    cp_async_commit();
+
+    // feedback types while the rows are in flight: a thread per pair
+    for (int i = threadIdx.x; i < ns * kCT; i += blockDim.x) {
+      const int s = i / kCT, c = i % kCT;
+      uint32_t ft = 0u;
+      if (c < n_c) {
+        const int sb = s0 + s, cc = c0 + c;
         const uint32_t r = tm_rng::hash_u32(
-            (b_off + static_cast<uint32_t>(sb)) * tm_rng::kSelMix
-                + c_off + static_cast<uint32_t>(cc),
-            seed ^ tm_rng::kSelXor);
+            (b_off + static_cast<uint32_t>(sb)) * tm_rng::kSelMix + c_off
+                + static_cast<uint32_t>(cc),
+            d.seed ^ tm_rng::kSelXor);
         const float r_sel = __uint2float_rn(r) * 0x1p-32f;
-        const int cl = cls[cc], pl = pol[cc];
-        const bool is_t = cl == y[sb], is_n = cl == kn[sb];
-        const float p = is_t ? p_t[sb] : (is_n ? p_n[sb] : 0.0f);
-        int ft = 0;
+        const int cl = __ldg(cls + cc), pl = __ldg(pol + cc);
+        const bool is_t = cl == __ldg(y + sb), is_n = cl == __ldg(kn + sb);
+        const float p = is_t ? __ldg(p_t + sb) : (is_n ? __ldg(p_n + sb) : 0.0f);
         if (r_sel < p) {
-          ft = (is_t && pl > 0) ? 1 : (is_t && pl < 0) ? 2
-             : (is_n && pl > 0) ? 2 : (is_n && pl < 0) ? 1 : 0;
+          ft = (is_t && pl > 0) ? 1u : (is_t && pl < 0) ? 2u
+             : (is_n && pl > 0) ? 2u : (is_n && pl < 0) ? 1u : 0u;
         }
-        code = static_cast<uint8_t>(ft | (((fired >> lane) & 1u) ? 4 : 0));
       }
-      if (lane < kCT) code_s[b][lane] = code;
-      if (__any_sync(0xffffffffu, (code & 3) != 0) && lane == 0) {
-        active_s[atomicAdd(&n_active, 1)] = b;
+      t.code[s][c] = static_cast<uint8_t>(ft);
+    }
+    cp_async_wait_all_but_last();
+    __syncthreads();                     // segment k, the includes and the types
+    if (warp == 0) {                     // the samples with a type in the tile
+      int n = 0;
+      for (int base = 0; base < ns; base += 32) {
+        const int s = base + lane;
+        uint32_t any = 0u;
+#pragma unroll
+        for (int c = 0; c < kCT; ++c) any |= s < ns ? t.code[s][c] : 0u;
+        const uint32_t b = __ballot_sync(0xffffffffu, any != 0u);
+        if (any) active_s[n + __popc(b & ((1u << lane) - 1u))] = static_cast<uint8_t>(s);
+        n += __popc(b);
       }
+      if (lane == 0) n_active = n;
     }
     __syncthreads();
 
-    const int na = n_active;
-    if (l_ok) {
-      for (int i = 0; i < na; ++i) {
-        const int b = active_s[i];
-        const uint32_t bg = b_off + static_cast<uint32_t>(s0 + b);
-        const bool lit_on = lits[static_cast<size_t>(s0 + b) * l_total + l] == 1;
-        const uint32_t row = bg * c_dim + c_base + static_cast<uint32_t>(c0);
+    // fire bits of those samples only: a warp a sample, lanes over words
+    const uint32_t* rows = dyn_s + (k & 1) * buf_words;
+    for (int i = warp; i < n_active; i += n_warps) {
+      const int s = active_s[i];
+      uint32_t viol[kCT];
+#pragma unroll
+      for (int c = 0; c < kCT; ++c) viol[c] = 0u;
+      for (int w = lane; w < W; w += 32) {
+        const uint32_t unlit = ~rows[s * W + w];
 #pragma unroll
         for (int c = 0; c < kCT; ++c) {
-          const uint8_t code = code_s[b][c];
-          const int ft = code & 3;
-          if (ft == 0) continue;
-          const bool fired = (code & 4) != 0;
-          if (ft == 1) {
-            const uint32_t gidx = (row + static_cast<uint32_t>(c)) *
-                static_cast<uint32_t>(l_total) + static_cast<uint32_t>(l);
-            const uint32_t r = tm_rng::hash_u32(gidx, seed);
-            acc[c] += (fired && lit_on) ? static_cast<int32_t>(r < t_act)
-                                        : -static_cast<int32_t>(r < t_inact);
-          } else {
-            acc[c] += (fired && !lit_on && ((excl >> c) & 1u)) ? 1 : 0;
-          }
+          if (c < n_c) viol[c] |= inc_s[c * W + w] & unlit;
         }
       }
-    }
-    __syncthreads();                     // the next segment rewrites code_s
-  }
-
-  if (l_ok) {
+      uint32_t bits = 0u;                // bit c: clause c0 + c does not fire
 #pragma unroll
-    for (int c = 0; c < kCT; ++c) {
-      if (c < n_c) out[static_cast<size_t>(c0 + c) * l_total + l] = acc[c];
+      for (int c = 0; c < kCT; ++c) bits |= (viol[c] != 0u ? 1u : 0u) << c;
+      bits = __reduce_or_sync(0xffffffffu, bits);
+      if (lane < kCT && !((bits >> lane) & 1u)) t.code[s][lane] |= 4u;
     }
+    __syncthreads();
+    if (warp == 0) ta_delta::build_lists<false>(t, ns, lane);
+    __syncthreads();
+    const uint32_t g_row0 = (b_off + static_cast<uint32_t>(s0)) * d.c_dim + c_base
+                            + static_cast<uint32_t>(c0);
+    ta_delta::walk_tile(t, rows, W, ta, out, c0, n_c, ex0, g_row0, d, k == 0);
+    __syncthreads();                     // the next segment rewrites the lists
   }
+}
+
+struct Config {
+  int threads, seg, smem;
+};
+
+Config config(int b_total, int l_total, int w_total) {
+  Config k;
+  k.threads = ta_delta::block_threads(l_total);
+  k.seg = ta_delta::seg_samples(b_total, 4 * w_total);
+  const int n_buf = b_total > k.seg ? 2 : 1;
+  k.smem = (n_buf * buffer_words(k.seg, w_total) + round4(kCT * w_total)) * 4;
+  return k;
+}
+
+// with ~10 KB of static shared memory: opt in past 48 KB
+cudaError_t opt_in(int smem) {
+  if (smem <= 32 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fused_train_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
 
 extern "C" int fused_train_launch(
-    const int8_t* ta, const uint8_t* lits, const uint32_t* lit_words,
-    const uint32_t* inc_words, const int32_t* y, const int32_t* kn,
-    const float* p_t, const float* p_n, const int32_t* cls, const int32_t* pol,
-    int32_t* out, int b_total, int c_total, int l_total, int w_total,
-    uint32_t c_dim, uint32_t c_base, uint32_t seed, uint32_t b_off,
-    uint32_t c_off, uint32_t t_act, uint32_t t_inact, void* stream) {
+    const int8_t* ta, const uint32_t* lit_words, const uint32_t* inc_words,
+    const int32_t* y, const int32_t* kn, const float* p_t, const float* p_n,
+    const int32_t* cls, const int32_t* pol, int32_t* out, int b_total,
+    int c_total, int l_total, int w_total, uint32_t c_dim, uint32_t c_base,
+    uint32_t seed, uint32_t b_off, uint32_t c_off, uint32_t t_act,
+    uint32_t t_inact, void* stream) {
   if (c_total <= 0 || l_total <= 0) return static_cast<int>(cudaSuccess);
-  const size_t inc_bytes = static_cast<size_t>(kCT) * w_total * sizeof(uint32_t);
-  if (inc_bytes > 32 * 1024) {           // with ~10 KB static: opt in past 48 KB
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(inc_bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((c_total + kCT - 1) / kCT, (l_total + kThreads - 1) / kThreads);
-  fused_train_kernel<<<grid, kThreads, inc_bytes, static_cast<cudaStream_t>(stream)>>>(
-      ta, lits, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out, b_total,
-      c_total, l_total, w_total, c_dim, c_base, seed, b_off, c_off, t_act,
-      t_inact);
+  const Config k = config(b_total, l_total, w_total);
+  const cudaError_t err = opt_in(k.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ta_delta::Draw d{seed, t_act, t_inact, c_dim, static_cast<uint32_t>(l_total)};
+  fused_train_kernel<<<(c_total + kCT - 1) / kCT, k.threads, k.smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out, b_total, c_total,
+      w_total, k.seg, c_base, b_off, c_off, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// info: registers a thread, threads a block, resident blocks per SM,
+// shared bytes a block (static + dynamic), local (spill) bytes a thread
+extern "C" int fused_train_occupancy(int b_total, int l_total, int w_total, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fused_train_kernel);
+  const Config k = config(b_total, l_total, w_total);
+  if (err == cudaSuccess) err = opt_in(k.smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_train_kernel,
+                                                        k.threads, k.smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = a.numRegs;
+  info[1] = k.threads;
+  info[2] = blocks;
+  info[3] = static_cast<int>(a.sharedSizeBytes) + k.smem;
+  info[4] = static_cast<int>(a.localSizeBytes);
+  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" const char* fused_train_error_string(int err) {

@@ -8,14 +8,21 @@
 
 namespace tm_rng {
 
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x, uint32_t seed) {
-  x = x * 2654435761u + seed;
+// first multiplier: hash_u32(x, seed) = avalanche(x * kH1 + seed), so the
+// draws of x, x + 1, ... start from x * kH1 + seed stepped by kH1
+constexpr uint32_t kH1 = 2654435761u;
+
+__device__ __forceinline__ uint32_t avalanche(uint32_t x) {
   x ^= x >> 16;
   x *= 2246822519u;
   x ^= x >> 13;
   x *= 3266489917u;
   x ^= x >> 16;
   return x;
+}
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x, uint32_t seed) {
+  return avalanche(x * kH1 + seed);
 }
 
 // Feedback-selection stream: hash of the global (sample, clause) pair,

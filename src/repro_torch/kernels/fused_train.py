@@ -15,6 +15,11 @@ unfused composition the kernel must equal bit for bit::
 The per-sample scalars (``kn``, ``p_t``, ``p_n``) come from the class sums
 of a fused-inference pass (``ops.tm_train_step_kernel``), so one training
 step is two launches.
+
+The kernel reads the literals only as the packed ``lit_words``, which it
+stages in shared memory for both the clause chain and the delta walk; the
+unpacked ``lits`` stay in the signature, the reference's, and are what the
+plain version reads (they must be ``lit_words`` unpacked).
 """
 
 from __future__ import annotations
@@ -79,8 +84,9 @@ def fused_train_cuda(t: dict, seed, *, p_act, p_inact, b_offset=0, c_offset=0,
     out = torch.empty((C, L), dtype=torch.int32, device=ta.device)
     P, I, U = _build.P, _build.I, _build.U
     fn = _build.entry("fused_train", "fused_train_launch",
-                      [P] * 11 + [I] * 4 + [U] * 7 + [P])
-    err = fn(*(_build.ptr(t[k]) for k in _DTYPES), _build.ptr(out), B, C, L, W,
+                      [P] * 10 + [I] * 4 + [U] * 7 + [P])
+    err = fn(*(_build.ptr(t[k]) for k in _DTYPES if k != "lits"), _build.ptr(out),
+             B, C, L, W,
              (C if c_total is None else c_total) & M32,
              (0 if c_total is None else c_offset) & M32,
              int(seed) & M32, int(b_offset) & M32, int(c_offset) & M32,
@@ -89,6 +95,13 @@ def fused_train_cuda(t: dict, seed, *, p_act, p_inact, b_offset=0, c_offset=0,
     _build.check("fused_train", err)
     launches += 1
     return out
+
+
+def occupancy(B: int, L: int, W: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, shared bytes a block and spill bytes a thread at batch ``B``, ``L``
+    literals in ``W`` words (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _build.occupancy("fused_train", B, L, W)
 
 
 def fused_tm_train_delta(

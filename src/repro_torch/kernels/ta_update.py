@@ -6,6 +6,11 @@ training step's last dispatch).
 :func:`ta_delta_plain` (``ref.ta_delta_ref``) for CPU tensors.  The
 randomness is the counter hash ``ref.hash_u32`` of global (sample, clause,
 literal) ids, generated inside the kernel: no (B, C, L) field exists.
+
+The kernel walks, per tile of clauses, only the pairs that change the
+delta (``csrc/ta_delta.cuh``, shared with the fused training kernel),
+after packing the uint8 ``lits`` of the samples that have such a pair
+into bit rows in shared memory.
 """
 
 from __future__ import annotations
@@ -69,6 +74,13 @@ def ta_delta_cuda(ta, lits, fire, ftype, seed, *, p_act, p_inact,
     _build.check("ta_update", err)
     launches += 1
     return out
+
+
+def occupancy(B: int, L: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, shared bytes a block and spill bytes a thread at batch ``B`` and
+    ``L`` literals (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _build.occupancy("ta_update", B, L)
 
 
 def ta_delta(ta: torch.Tensor, lits: torch.Tensor, fire: torch.Tensor,

@@ -96,12 +96,23 @@ def _fused_inputs(cfg, ta, y, lits, lw, iw, seed, b_off, c_off, sl):
             tm.polarity(cfg)[sl], seed)
 
 
+def _case(B, F, K, cpc, pad, p=None, name=None):
+    """One shape; ``p`` sets every sample's selection probabilities p_t and
+    p_n (1.0: every target and negative pair has feedback; 0.0: none)."""
+    return pytest.param(B, F, K, cpc, pad, p, id=name or f"{B}-{F}-{K}-{cpc}-{pad}")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,F,K,cpc,pad", [(13, 17, 3, 7, 1), (33, 9, 2, 50, 1),
-                                          (97, 784, 10, 200, 256), (1, 40, 4, 5, 1),
-                                          (1030, 12, 3, 6, 1),
-                                          (3, 8200, 2, 8, 1)])   # W = 513 words
-def test_cuda_training_kernels_equal_plain_versions(cuda_device, B, F, K, cpc, pad):
+@pytest.mark.parametrize("B,F,K,cpc,pad,p", [
+    _case(13, 17, 3, 7, 1), _case(33, 9, 2, 50, 1), _case(97, 784, 10, 200, 256),
+    _case(1, 40, 4, 5, 1), _case(1030, 12, 3, 6, 1),
+    _case(3, 8200, 2, 8, 1),                                  # W = 513 words
+    _case(64, 784, 10, 200, 1, 1.0, "saturated-tm-mnist"),
+    _case(1030, 12, 3, 6, 1, 1.0, "saturated-1030"),         # lists span segments
+    _case(40, 21, 3, 11, 1, 0.0, "no-feedback"),
+    _case(70, 33, 3, 9, 1, 1.0, "odd-L-ragged-C"),           # L = 66, C = 27
+])
+def test_cuda_training_kernels_equal_plain_versions(cuda_device, B, F, K, cpc, pad, p):
     from repro_torch.kernels import class_sum, clause_eval, fused_train, ta_update
     cfg, ta, x, y, lits, lw, iw = _train_problem(B, F, K, cpc, B, pad)
     C = cfg.n_clauses_total
@@ -117,9 +128,13 @@ def test_cuda_training_kernels_equal_plain_versions(cuda_device, B, F, K, cpc, p
                                           (2 ** 32 - 3, C // 2, C - C // 2, C)]:
         sl = slice(c_off, c_off + n_loc)
         args = _fused_inputs(cfg, ta, y, lits, lw, iw, 55, b_off, c_off, sl)
+        if p is not None:
+            args = args[:6] + (torch.full((B,), p), torch.full((B,), p)) + args[8:]
         kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off,
                   c_total=c_total)
         want = fused_train.fused_tm_train_delta(*args, **kw)
+        if p is not None:
+            assert bool(want.any()) == (p > 0)
         got = fused_train.fused_tm_train_delta(*[g(a) if torch.is_tensor(a) else a
                                                  for a in args], **kw)
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -103,8 +103,11 @@ def test_clause_fire_and_class_sum_match_reference(B, F, cpc):
                                     ne_t), want)
 
 
-def _selection(rc, ta, x, y, seed, b_off, sl=slice(None), c_off=0):
-    """Reference fire / ftype / lits for a (possibly sliced) bank."""
+def _selection(rc, ta, x, y, seed, b_off, sl=slice(None), c_off=0, p=None):
+    """Reference fire / ftype / lits for a (possibly sliced) bank.  ``p``
+    sets every sample's selection probabilities p_t and p_n (1.0: every
+    target and negative pair has feedback; 0.0: none); ``probs`` keeps
+    ``feedback_probs``'s own (kn, p_t, p_n)."""
     T = rc.threshold
     lits = r_tm.literals(jnp.asarray(x))
     lw = r_pk.pack_bits(lits)
@@ -116,28 +119,44 @@ def _selection(rc, ta, x, y, seed, b_off, sl=slice(None), c_off=0):
     sums = jnp.clip(r_ref.clause_fire_ref(lw, iw).astype(jnp.int32) @ votes, -T, T)
     kn, p_t, p_n = r_ops.feedback_probs(sums, jnp.asarray(y), rc.n_classes, T,
                                         jnp.uint32(seed), b_offset=b_off)
+    probs = (kn, p_t, p_n)
+    if p is not None:
+        p_t = p_n = jnp.full_like(p_t, p)
     fire = r_ref.clause_fire_ref(lw, iw[sl]).astype(jnp.uint8)
     ftype = r_ops.feedback_select(jnp.asarray(y), kn, p_t, p_n, cls[sl], pol[sl],
                                   jnp.uint32(seed), b_offset=b_off, c_offset=c_off)
     return dict(lits=lits, lw=lw, iw=iw, sums=sums, kn=kn, p_t=p_t, p_n=p_n,
-                cls=cls, pol=pol, fire=fire, ftype=ftype)
+                probs=probs, cls=cls, pol=pol, fire=fire, ftype=ftype)
 
 
-@pytest.mark.parametrize("b_off,c_off,n_loc,c_total", [
-    (0, 0, None, None), (37, 0, None, None), (5, 10, 11, None),
-    (2 ** 32 - 7, 7, 12, 21),
+def _case(*values, name=None):
+    """A parametrised case whose id is its values joined by "-", or ``name``
+    after them; a trailing selection probability (see ``_selection``) is
+    left out of the id."""
+    return pytest.param(*values, id="-".join(str(v) for v in values[:-1])
+                        + (f"-{name}" if name else ""))
+
+
+@pytest.mark.parametrize("b_off,c_off,n_loc,c_total,p", [
+    _case(0, 0, None, None, None), _case(37, 0, None, None, None),
+    _case(5, 10, 11, None, None), _case(2 ** 32 - 7, 7, 12, 21, None),
+    _case(0, 0, None, None, 1.0, name="saturated"),
+    _case(2 ** 32 - 7, 7, 12, 21, 1.0, name="saturated"),
+    _case(37, 0, None, None, 0.0, name="no-feedback"),
 ])
-def test_feedback_plan_and_ta_delta_match_reference(b_off, c_off, n_loc, c_total):
+def test_feedback_plan_and_ta_delta_match_reference(b_off, c_off, n_loc, c_total, p):
     rc, tc, ta, x, y = _problem(B=11, F=23, K=3, cpc=7, seed=3)
     seed = 55
     sl = slice(c_off, None if n_loc is None else c_off + n_loc)
-    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off)
+    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off, p)
     kn, p_t, p_n = t_ops.feedback_probs(_t(np.asarray(r["sums"])), _t(y),
                                         tc.n_classes, tc.threshold, seed,
                                         b_offset=b_off)
-    _eq(kn, r["kn"])
-    _eq(p_t, r["p_t"])
-    _eq(p_n, r["p_n"])
+    _eq(kn, r["probs"][0])
+    _eq(p_t, r["probs"][1])
+    _eq(p_n, r["probs"][2])
+    if p is not None:
+        p_t = p_n = torch.full_like(p_t, p)
     _eq(t_tm.clause_class(tc), r["cls"])
     _eq(t_tm.polarity(tc), r["pol"])
     ftype = t_ops.feedback_select(_t(y), kn, p_t, p_n, t_tm.clause_class(tc)[sl],
@@ -154,7 +173,7 @@ def test_feedback_plan_and_ta_delta_match_reference(b_off, c_off, n_loc, c_total
     kw["b_offset"] = jnp.uint32(b_off)     # the jitted kernel takes uint32
     _eq(got, r_ops.ta_delta(jnp.asarray(ta[sl]), r["lits"], r["fire"], r["ftype"],
                             jnp.uint32(seed), **kw, **KW))
-    assert int(got.abs().sum()) > 0
+    assert (int(got.abs().sum()) > 0) == (p != 0.0)
 
 
 def test_feedback_plan_returns_ftype_and_clamped_sums():
@@ -179,9 +198,13 @@ def _fused_args(r, ta, y, sl):
             _t(np.asarray(r["cls"])[sl]), _t(np.asarray(r["pol"])[sl]))
 
 
-@pytest.mark.parametrize("B,F,K,cpc", [(13, 17, 3, 7), (8, 64, 4, 32), (33, 9, 2, 50)])
+@pytest.mark.parametrize("B,F,K,cpc,p", [
+    _case(13, 17, 3, 7, None), _case(8, 64, 4, 32, None), _case(33, 9, 2, 50, None),
+    _case(13, 17, 3, 7, 1.0, name="saturated"),
+    _case(33, 9, 2, 50, 0.0, name="no-feedback"),
+])
 @pytest.mark.parametrize("b_off,c_off", [(0, 0), (37, 10)])
-def test_fused_train_delta_matches_reference(B, F, K, cpc, b_off, c_off):
+def test_fused_train_delta_matches_reference(B, F, K, cpc, p, b_off, c_off):
     """The plain fused delta equals the reference's composed oracle and its
     Pallas kernel in interpret mode: selection hashed on global (sample,
     clause) ids, the automaton draw on (global sample, local clause)."""
@@ -189,7 +212,7 @@ def test_fused_train_delta_matches_reference(B, F, K, cpc, b_off, c_off):
     seed = 77
     C = rc.n_clauses_total
     sl = slice(c_off, C)
-    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off)
+    r = _selection(rc, ta, x, y, seed, b_off, sl, c_off, p)
     kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off)
     want = r_ref.ta_delta_ref(jnp.asarray(ta[sl]), r["lits"], r["fire"],
                               r["ftype"], jnp.uint32(seed), p_act=1.0,
@@ -201,7 +224,7 @@ def test_fused_train_delta_matches_reference(B, F, K, cpc, b_off, c_off):
         r["kn"], r["p_t"], r["p_n"], r["cls"][sl], r["pol"][sl],
         jnp.uint32(seed), interpret=True, **kw)
     _eq(got, pallas)
-    assert int(got.abs().sum()) > 0
+    assert (int(got.abs().sum()) > 0) == (p != 0.0)
 
 
 def test_fused_clause_shards_reassemble_full_delta():
