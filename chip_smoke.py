@@ -19,7 +19,9 @@ variant in every layer's prefill), with the kernels' launch counts set to
 0 just before each run and read just after.  The training kernels are
 held to their plain versions on the initial and trained banks at every
 batch size, with offsets, a half-bank shard and saturated feedback
-(p_t = p_n = 1), and their occupancy is printed (``TRAIN_OCCUPANCY``).
+(p_t = p_n = 1), ``fused_infer`` with them on the whole bank as a fused
+step runs it, and their occupancy is printed (``TRAIN_OCCUPANCY``; the
+serve bucket's ``fused_infer`` in ``INFER_OCCUPANCY``).
 The three trained banks must
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
@@ -28,8 +30,10 @@ tensor-core MMA instructions, and holds and times the bf16 flash kernel at
 hd 128 (qwen3-32b's attention) beside ``scaled_dot_product_attention``.
 Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
-time, plain-version time, library time (event and device) and bound, and
-as its last line
+time, plain-version time, library time (event and device) and bound
+(device times: the median of ``WINDOWS`` profiler windows, with their
+min-max spread; ``fused_infer``'s row also holds its ``train_*`` fields,
+its launch in a fused training step), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, when the port's sources are missing, or when
 any phase fails.  Imports nothing of JAX or of the reference package.
@@ -64,6 +68,9 @@ POPC_OPS_PER_S = 132 * 16 * 1.98e9
 # dense bf16 tensor-core peak (NVIDIA data sheet), the rate flash
 # attention's products could run at
 BF16_FLOPS_PER_S = 989e12
+
+# profile_device: separate profiler windows, calls in each
+WINDOWS, WINDOW_CALLS = 5, 20
 
 TRAIN_STEPS, TRAIN_BATCH = 40, 64
 TRAIN_BATCHES = (1, 33, 64, 97)
@@ -189,21 +196,50 @@ def chain_need(rows, chain, tile_jb, indptr, *, n_rows, block_c, block_j,
     return n_bytes, n_ops
 
 
-def profile_device(fn, calls: int = 20):
-    """Mean device time (ms) of everything one call of ``fn`` launches,
-    from the profiler, and the per-name breakdown in microseconds."""
+def sm_clock_mhz():
+    """The card's SM clock now (MHz), from nvidia-smi; None if it fails."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60)
+    try:
+        return int(res.stdout.split()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def profile_device(fn, calls: int = WINDOW_CALLS, windows: int = WINDOWS,
+                   key: str = "device_ms", clocks: bool = False):
+    """Device time (ms) of everything one call of ``fn`` launches, from the
+    profiler, in ``windows`` separate windows of ``calls`` calls:
+    ``{key: the median of the windows' means, key + "_spread": [min, max]}``
+    (with ``clocks``, also ``key + "_sm_clock_mhz"``: the SM clock read
+    after each window), and the median window's per-name breakdown in
+    microseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = device_us(prof)
-    per = {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()}
-    return (sum(u for u, _ in us.values()) / calls / 1e3 if us else None), per
+    reads, mhz = [], []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = device_us(prof)
+        if us:
+            reads.append((sum(u for u, _ in us.values()) / calls / 1e3, us))
+        if clocks:
+            mhz.append(sm_clock_mhz())
+    if not reads:
+        return {key: None, key + "_spread": None}, {}
+    ms = sorted(r for r, _ in reads)
+    med = statistics.median(ms)
+    us = min(reads, key=lambda r: abs(r[0] - med))[1]
+    out = {key: med, key + "_spread": [ms[0], ms[-1]]}
+    if clocks:
+        out[key + "_sm_clock_mhz"] = mhz
+    return out, {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()}
 
 
 class Training:
@@ -305,6 +341,16 @@ class Training:
         a = (fire.to(self.torch.int8), self.votes[sl])
         return lambda: m.class_sum_cuda(*a), lambda: m.class_sum_plain(*a)
 
+    def fused_infer_calls(self, t):
+        """(kernel call, plain call) of fused_infer on one batch's inputs
+        ``t`` as a fused training step runs it: the class sums of the whole
+        bank, no empty-clause mask (``nonempty=None``: all ones)."""
+        m = self.mods["fused_infer"]
+        ones = self.torch.ones(t["inc_words"].shape[0], dtype=self.torch.int32,
+                               device=self.dev)
+        a = (t["lit_words"], t["inc_words"], self.votes, ones)
+        return lambda: m.fused_forward_cuda(*a), lambda: m.fused_forward_plain(*a)
+
     def batch(self, bank, B, seed, b_off, c_off=0, c_total=None, p=None):
         """(t, fire, ftype, kw) for a batch of B test samples on the rows
         [c_off, c_off + n_loc) of ``bank``: all of them, or half a bank
@@ -344,6 +390,12 @@ class Training:
                                                (2 ** 32 - 5, C // 2, C))]
         for label, bank in banks.items():
             for B in TRAIN_BATCHES:
+                # fused_infer as a fused step runs it: the whole bank
+                kern, plain = self.fused_infer_calls(self.batch(bank, B, 7, 0)[0])
+                err = int((kern() - plain()).abs().max())
+                max_err["fused_infer"] = max(max_err["fused_infer"], err)
+                check(err == 0, f"fused_infer {label} B={B} nonempty=None: kernel "
+                      f"differs from its plain version by {err}")
                 for b_off, c_off, c_total, p in cases:
                     t, fire, ftype, kw = self.batch(bank, B, 7, b_off, c_off, c_total, p)
                     for name in TRAIN_KERNELS:
@@ -355,8 +407,8 @@ class Training:
                         check(err == 0, f"{name} {label} B={B} b_offset={b_off} "
                               f"c_offset={c_off} c_total={c_total} p={p}: kernel "
                               f"differs from its plain version by {err}")
-            print(f"training kernels == plain versions on the {label} bank at "
-                  f"B={TRAIN_BATCHES}, with offsets and a half-bank shard, "
+            print(f"training kernels and fused_infer == plain versions on the {label} "
+                  f"bank at B={TRAIN_BATCHES}, with offsets and a half-bank shard, "
                   "with the selection's probabilities and saturated (p = 1)")
 
     def work(self, t, fire, ftype):
@@ -368,7 +420,11 @@ class Training:
         bank_io = C * L + C * L * 4 + B * L          # ta in, delta out, lits in
         scal = nbytes(t["y"], t["kn"], t["p_t"], t["p_n"], t["clause_class"],
                       t["clause_pol"])
+        fired = int(fire.sum())               # the whole bank's fired pairs
         return {
+            # one LOP3 a (sample, clause, word), one add a fired pair and class
+            "fused_infer": (nbytes(t["lit_words"], t["inc_words"], self.votes)
+                            + C * 4 + B * K * 4, B * C * W + fired * K),
             "fused_train": (bank_io + nbytes(t["lit_words"], t["inc_words"]) + scal,
                             B * C * W + OPS_PER_DRAW * draws),
             "ta_update": (bank_io + 2 * B * C, OPS_PER_DRAW * draws),
@@ -385,7 +441,7 @@ def train_phases(dev, max_err, launches):
     import torch
 
     from repro_torch.core import compiler, packetizer
-    from repro_torch.kernels import fused_train, ops, ta_update
+    from repro_torch.kernels import clause_eval, fused_infer, fused_train, ops, ta_update
 
     tr = Training(dev)
     runs = {"fused": (), "--no-fuse": ("--no-fuse",),
@@ -393,9 +449,10 @@ def train_phases(dev, max_err, launches):
     expect = {"fused": ("fused_infer", "fused_train"),
               "--no-fuse": ("clause_eval", "class_sum", "ta_update"),
               "--batch-chunk 24": ("fused_infer", "fused_train")}
-    banks, walls = {}, {}
+    banks, walls, run_counts = {}, {}, {}
     for label, extra in runs.items():
         banks[label], counts, walls[label] = tr.run(label, *extra)
+        run_counts[label] = counts
         for name in expect[label]:
             check(counts[name] > 0, f"{name} was never launched in the {label} run")
             if name in TRAIN_KERNELS:   # the first run that drives it
@@ -444,18 +501,36 @@ def train_phases(dev, max_err, launches):
     for name in TRAIN_KERNELS:
         kern, plain = tr.calls(name, t, fire, ftype, kw, TRAIN_STEPS)
         times[name] = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5))
-        times[name]["device_ms"], per = profile_device(kern)
+        dev_ms, per = profile_device(kern)
+        times[name].update(dev_ms)
         print(f"{name} device work per call at B={TRAIN_BATCH}: {json.dumps(per)}")
     f32 = (fire.to(torch.float32), tr.votes.to(torch.float32))
     times["class_sum"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(*f32))
-    times["class_sum"]["library_device_ms"] = profile_device(lambda: torch.matmul(*f32))[0]
+    times["class_sum"].update(profile_device(lambda: torch.matmul(*f32),
+                                             key="library_device_ms")[0])
+    # fused_infer at the training step's shape: its launch in every fused
+    # step, on the trained bank with the training semantics (nonempty=None)
+    kern, plain = tr.fused_infer_calls(t)
+    fi = dict(shape=dict(B=TRAIN_BATCH, C=t["inc_words"].shape[0],
+                         W=t["lit_words"].shape[1], K=tr.votes.shape[1]),
+              launches=run_counts["fused"]["fused_infer"],
+              ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5))
+    dev_ms, per = profile_device(kern)
+    fi.update(dev_ms)
+    times["fused_infer"] = fi
+    print(f"fused_infer device work per call at B={TRAIN_BATCH}: {json.dumps(per)}")
     C, L = t["ta"].shape
     W = t["lit_words"].shape[1]
+    K = tr.votes.shape[1]
     print("TRAIN_OCCUPANCY " + json.dumps(dict(
-        B=TRAIN_BATCH, C=C, L=L, W=W,
+        B=TRAIN_BATCH, C=C, L=L, W=W, K=K,
         fused_train=fused_train.occupancy(TRAIN_BATCH, L, W),
-        ta_update=ta_update.occupancy(TRAIN_BATCH, L))))
+        ta_update=ta_update.occupancy(TRAIN_BATCH, L),
+        fused_infer=fused_infer.occupancy(TRAIN_BATCH, C, W, K),
+        clause_eval=clause_eval.occupancy(TRAIN_BATCH, C, W))))
     work, draws = tr.work(t, fire, ftype)
+    fi["bound_ms"], fi["bound_by"] = bound(work["fused_infer"][0],
+                                           work["fused_infer"][1] / INT32_OPS_PER_S * 1e3)
     print("TRAIN_BOUND_WORK " + json.dumps(dict(
         draws=draws, **{k: dict(bytes=b, ops=o) for k, (b, o) in work.items()})))
     print("TRAIN_TIMES " + json.dumps(dict(times, train_wall_s=walls)))
@@ -584,8 +659,9 @@ def bnn_phase(dev) -> dict:
     pm_w = torch.sign(torch.where(params[0] == 0, 1.0, params[0]))
     row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5),
                library_ms=cuda_time_ms(lambda: torch.matmul(pm_a, pm_w)),
-               library_device_ms=profile_device(lambda: torch.matmul(pm_a, pm_w))[0])
-    row["device_ms"], per = profile_device(kern)
+               **profile_device(lambda: torch.matmul(pm_a, pm_w), key="library_device_ms")[0])
+    dev_ms, per = profile_device(kern)
+    row.update(dev_ms)
     print(f"xnor_popcount device work per call at B={B} W={W} O={O}: {json.dumps(per)}")
     n_words = B * O * W
     # per word: one population count, one three-input logic op (xnor), one add
@@ -640,8 +716,11 @@ def flash_times(fa, q, k, v):
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
     row, per = dict(ms=cuda_time_ms(kern), library_ms=cuda_time_ms(library)), {}
-    row["device_ms"], per["kernel"] = profile_device(kern)
-    row["library_device_ms"], per["library"] = profile_device(library)
+    # the SM clock beside each window: two earlier runs read flash and SDPA
+    # 2.2x and 3.2x apart on the same inputs
+    dev_ms, per["kernel"] = profile_device(kern, clocks=True)
+    lib_ms, per["library"] = profile_device(library, key="library_device_ms", clocks=True)
+    row.update(dev_ms, **lib_ms)
     B, S, H, hd = q.shape
     # QK^T and PV over the S(S+1)/2 causal (query, key) pairs, 2 FLOPs each
     row["flops"] = 4 * B * H * hd * S * (S + 1) // 2
@@ -972,21 +1051,14 @@ def main() -> None:
     print("BATCH_TIMES " + json.dumps(times))
     # device time of what each wrapper launches at the bucket size, from the
     # profiler: the event times above also hold the host's launch work
-    from torch.profiler import ProfilerActivity, profile
-
     for name in KERNELS:
-        kern = calls(name, xw_all[:BUCKET].contiguous())[0]
-        kern()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                kern()
-            torch.cuda.synchronize()
-        us = device_us(prof)
-        times[name][BUCKET]["device_ms"] = (
-            sum(u for u, _ in us.values()) / 20 / 1e3 if us else None)
-        print(f"{name} device work per call at B={BUCKET}: "
-              + json.dumps({k[:50]: round(u / 20, 2) for k, (u, _) in us.items()}))
+        dev_ms, per = profile_device(calls(name, xw_all[:BUCKET].contiguous())[0])
+        times[name][BUCKET].update(dev_ms)
+        print(f"{name} device work per call at B={BUCKET}: {json.dumps(per)}")
+    print("INFER_OCCUPANCY " + json.dumps(dict(
+        B=BUCKET, C=inc.shape[0], W=inc.shape[1], K=votes.shape[1],
+        fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0], inc.shape[1],
+                                          votes.shape[1]))))
 
     # 6. the serving path, once per kernel rung, counts zeroed around each
     runs = {"term_infer": [], "sparse_infer": ["--no-factorize"],
@@ -1013,6 +1085,8 @@ def main() -> None:
 
     # where the serving time goes: the default run once more under the
     # profiler; device time against the serve call's host wall time
+    from torch.profiler import ProfilerActivity, profile
+
     argv = ["--arch", "tm-mnist", "--artifact", ASSET, "--device", "cuda",
             "--requests", "4096", "--bucket", str(BUCKET)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1083,11 +1157,14 @@ def main() -> None:
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=None, library_device_ms=None,
+                   library_device_ms_spread=None,
                    library_note="no single PyTorch call computes this function",
                    tolerance=0)
-        for extra in ("device_ms", "early_exit_ms"):
+        for extra in ("device_ms", "device_ms_spread", "early_exit_ms"):
             if extra in times[name][B]:
                 row[extra] = times[name][B][extra]
+        if name in train_times:   # fused_infer: also its launch in every fused step
+            row.update({f"train_{k}": v for k, v in train_times[name].items()})
         rows.append(row)
     for name, meta in TRAIN_KERNELS.items():
         nb, ops = train_work[name]
@@ -1100,7 +1177,9 @@ def main() -> None:
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    library_ms=tt.get("library_ms"),
                    library_device_ms=tt.get("library_device_ms"),
-                   device_ms=tt["device_ms"], tolerance=0)
+                   library_device_ms_spread=tt.get("library_device_ms_spread"),
+                   device_ms=tt["device_ms"], device_ms_spread=tt["device_ms_spread"],
+                   tolerance=0)
         if row["library_ms"] is None:
             row["library_note"] = "no single PyTorch call computes this function"
         rows.append(row)

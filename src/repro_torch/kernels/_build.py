@@ -134,11 +134,13 @@ def check(name: str, err: int) -> None:
                            f"({es(err).decode()})")
 
 
-def occupancy(name: str, *shape: int) -> dict:
+def occupancy(name: str, *shape: int, extra: tuple = ()) -> dict:
     """What ``<name>_occupancy(*shape, info)`` reports of the kernel's launch
     at that shape: registers a thread, threads a block, resident blocks per
-    SM, shared bytes a block and local (spill) bytes a thread."""
-    keys = ("registers", "threads", "blocks_per_sm", "shared_bytes", "local_bytes")
+    SM, shared bytes a block and local (spill) bytes a thread, then the
+    ``extra`` fields the entry point writes after them."""
+    keys = ("registers", "threads", "blocks_per_sm", "shared_bytes", "local_bytes",
+            *extra)
     info = (ctypes.c_int * len(keys))()
     f = entry(name, f"{name}_occupancy", [I] * len(shape) + [P])
     check(name, f(*shape, ctypes.cast(info, P)))
@@ -154,6 +156,10 @@ def stream_ptr(device) -> ctypes.c_void_p:
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
+
+# what the clause-chain kernels' occupancy entry points add: the grid and
+# the warps that split each pair's words (csrc/clause_chain.cuh)
+CHAIN_GRID = ("grid_x", "grid_y", "word_split")
 
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -1,7 +1,8 @@
 """Unfused clause evaluation: packed literals x packed includes -> the
 (B, C) int8 fire matrix (the MATADOR Hard-Coded Clause Block chain).
 
-:func:`clause_fire` runs ``csrc/clause_eval.cu`` for CUDA tensors and
+:func:`clause_fire` runs ``csrc/clause_eval.cu`` (its chain in
+``csrc/clause_chain.cuh``) for CUDA tensors and
 :func:`clause_fire_plain` (``ref.clause_fire_ref``) for CPU tensors.  It
 feeds the unfused (``fuse=False``) training step and the unfused dense
 inference pipeline (``ops.tm_forward_packed(fuse=False)``).
@@ -54,6 +55,13 @@ def clause_fire_cuda(lit_words, inc_words):
     _build.check("clause_eval", err)
     launches += 1
     return out
+
+
+def occupancy(B: int, C: int, W: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, shared and spill bytes, and the grid and word split it launches
+    with at batch ``B`` and ``C`` clauses of ``W`` words."""
+    return _build.occupancy("clause_eval", B, C, W, extra=_build.CHAIN_GRID)
 
 
 def clause_fire(lit_words: torch.Tensor, inc_words: torch.Tensor) -> torch.Tensor:

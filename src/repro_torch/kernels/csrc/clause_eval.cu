@@ -5,72 +5,70 @@
 // (inc[c, w] & ~lit[b, w]) == 0 for every packed word w; an empty clause
 // fires (vacuous AND; inference masks it in the caller).
 //
-// Bounds on the H100: B x C x W word operations against (B + C) x W x 4
-// bytes in and B x C bytes out, so integer issue rate at tm-mnist widths.
-// It is fused_infer.cu's chain without the vote fold: a 16-sample x
-// 32-word literal tile and a 64-clause x 32-word include tile staged in
-// padded shared memory (no bank conflicts), each thread carrying 4
-// (sample, clause) chains across word chunks.  A warp covers 32
-// consecutive clauses of one sample, so the int8 output row is written in
-// 32-byte runs; the TPU grid's sequential word axis is the loop over word
-// chunks inside the block.
+// Bounds on the H100: B x C x W three-input logic ops against (B + C) x W
+// x 4 bytes in and B x C bytes out, so integer issue rate at tm-mnist
+// widths (0.38 us at training's batch 64, C 2048, W 49, where the launch
+// is the floor).  It is fused_infer.cu's chain without the vote fold: the
+// register-tiled, cp.async double-buffered chain of clause_chain.cuh,
+// whose grid covers the card at batch 64 by splitting the words of each
+// pair across warps.  The epilogue turns a sample's 16-bit fire mask into
+// 16 bytes and writes them as one 16-byte store along C (byte stores at a
+// ragged edge or where rows are not 16-byte aligned), so the int8 matrix
+// leaves in full sectors.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "clause_chain.cuh"
+
 namespace {
 
-constexpr int kBB = 16;                  // samples per CUDA block
-constexpr int kBC = 64;                  // clauses per CUDA block
-constexpr int kWC = 32;                  // words per shared-memory chunk
-constexpr int kThreads = 256;
-constexpr int kPairs = kBB * kBC / kThreads;
+using namespace clause_chain;
 
-__global__ void clause_eval_kernel(
+// bits 0..3 of x as the bytes 0/1 of a little-endian word
+__device__ __forceinline__ uint32_t bytes4(uint32_t x) {
+  return ((x & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+template <int KS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) clause_eval_kernel(
     const uint32_t* __restrict__ lit, const uint32_t* __restrict__ inc,
-    int8_t* __restrict__ out, int b_total, int c_total, int w_total) {
-  __shared__ uint32_t lit_s[kBB][kWC + 1];
-  __shared__ uint32_t inc_s[kBC][kWC + 1];
-  const int b0 = blockIdx.x * kBB;
-  const int c0 = blockIdx.y * kBC;
-  const int tid = threadIdx.x;
+    int8_t* __restrict__ out, int b_total, int c_total, int w_total, int vec16) {
+  constexpr int kBC = Shape<KS>::kBC;
+  constexpr int kPieces = Shape<KS>::kPieces;
+  __shared__ Tile<KS> t;
+  const int b0 = blockIdx.x * kBB, c0 = blockIdx.y * kBC;
+  fire_tile<KS>(t, lit, inc, b0, c0, b_total, c_total, w_total, [] {});
+  __syncthreads();
 
-  bool ok[kPairs];
+  // consecutive threads take consecutive 16-clause pieces of a row
+  for (int p = threadIdx.x; p < kBB * kPieces; p += kThreads) {
+    const int b = p / kPieces, piece = p - b * kPieces;
+    const int c = c0 + piece * 16;
+    if (b0 + b >= b_total) break;        // p only grows
+    if (c >= c_total) continue;
+    uint32_t m = 0xffffu;
 #pragma unroll
-  for (int q = 0; q < kPairs; ++q) ok[q] = true;
-
-  for (int w0 = 0; w0 < w_total; w0 += kWC) {
-    const int wn = min(kWC, w_total - w0);
-    for (int i = tid; i < kBB * kWC; i += kThreads) {
-      const int b = i / kWC, w = i % kWC;
-      lit_s[b][w] = (b0 + b < b_total && w < wn)
-          ? lit[static_cast<size_t>(b0 + b) * w_total + w0 + w] : 0u;
-    }
-    for (int i = tid; i < kBC * kWC; i += kThreads) {
-      const int c = i / kWC, w = i % kWC;
-      inc_s[c][w] = (c0 + c < c_total && w < wn)
-          ? inc[static_cast<size_t>(c0 + c) * w_total + w0 + w] : 0u;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      const int p = tid + q * kThreads;
-      const int c = p % kBC, b = p / kBC;    // a warp: 32 clauses, 1 sample
-      uint32_t viol = 0u;
-      for (int w = 0; w < wn; ++w) viol |= inc_s[c][w] & ~lit_s[b][w];
-      ok[q] = ok[q] && viol == 0u;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int p = tid + q * kThreads;
-    const int c = p % kBC, b = p / kBC;
-    if (b0 + b < b_total && c0 + c < c_total) {
-      out[static_cast<size_t>(b0 + b) * c_total + c0 + c] = ok[q] ? 1 : 0;
+    for (int ks = 0; ks < KS; ++ks) m &= t.fire[ks][b][piece];
+    int8_t* dst = out + static_cast<size_t>(b0 + b) * c_total + c;
+    if (vec16 && c + 16 <= c_total) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(bytes4(m), bytes4(m >> 4), bytes4(m >> 8),
+                                                  bytes4(m >> 12));
+    } else {
+      const int n = min(16, c_total - c);
+      for (int j = 0; j < n; ++j) dst[j] = static_cast<int8_t>((m >> j) & 1u);
     }
   }
+}
+
+template <int KS>
+int launch(const uint32_t* lit, const uint32_t* inc, int8_t* out, int b_total, int c_total,
+           int w_total, cudaStream_t stream) {
+  // 16-byte stores need every row start 16-byte aligned
+  const int vec16 = c_total % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  clause_eval_kernel<KS><<<grid(b_total, c_total, KS), kThreads, 0, stream>>>(
+      lit, inc, out, b_total, c_total, w_total, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -79,10 +77,24 @@ extern "C" int clause_eval_launch(const uint32_t* lit, const uint32_t* inc,
                                   int8_t* out, int b_total, int c_total,
                                   int w_total, void* stream) {
   if (b_total <= 0 || c_total <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((b_total + kBB - 1) / kBB, (c_total + kBC - 1) / kBC);
-  clause_eval_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lit, inc, out, b_total, c_total, w_total);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (word_split(b_total, c_total)) {
+    case 1: return launch<1>(lit, inc, out, b_total, c_total, w_total, s);
+    case 2: return launch<2>(lit, inc, out, b_total, c_total, w_total, s);
+    default: return launch<4>(lit, inc, out, b_total, c_total, w_total, s);
+  }
+}
+
+// Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
+// y and word split of the launch at (B, C, W) into info[0..7].
+extern "C" int clause_eval_occupancy(int b_total, int c_total, int w_total, int* info) {
+  (void)w_total;
+  const int ks = word_split(b_total, c_total);
+  const dim3 g = grid(b_total, c_total, ks);
+  const cudaError_t err = ks == 1 ? occupancy(clause_eval_kernel<1>, g, ks, info)
+                          : ks == 2 ? occupancy(clause_eval_kernel<2>, g, ks, info)
+                                    : occupancy(clause_eval_kernel<4>, g, ks, info);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* clause_eval_error_string(int err) {

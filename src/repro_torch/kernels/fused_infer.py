@@ -4,8 +4,9 @@ The whole MATADOR inference datapath of paper Fig. 5 in one kernel: the
 Hard-Coded Clause Block chain ``ok &= (inc & ~lit) == 0`` over every
 packed word, the empty-clause mask, and the class-sum adder bank, with no
 ``(B, C)`` fired matrix in device memory.  :func:`fused_tm_forward` runs
-``csrc/fused_infer.cu`` for CUDA tensors and :func:`fused_forward_plain`
-(the ``ref`` composition) for CPU tensors.
+``csrc/fused_infer.cu`` (its chain in ``csrc/clause_chain.cuh``) for CUDA
+tensors and :func:`fused_forward_plain` (the ``ref`` composition) for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def fused_forward_cuda(lit_words, inc_words, votes, nonempty):
         raise ValueError("fused_forward_cuda takes CUDA tensors")
     B, W = lit_words.shape
     C, K = votes.shape
-    out = torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
+    # the C entry point zeroes out on the stream before the kernel adds to it
+    out = torch.empty((B, K), dtype=torch.int32, device=lit_words.device)
     P, I = _build.P, _build.I
     fn = _build.entry("fused_infer", "fused_infer_launch",
                       [P, P, P, P, P, I, I, I, I, P])
@@ -62,6 +64,13 @@ def fused_forward_cuda(lit_words, inc_words, votes, nonempty):
     _build.check("fused_infer", err)
     launches += 1
     return out
+
+
+def occupancy(B: int, C: int, W: int, K: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, shared and spill bytes, and the grid and word split it launches
+    with at batch ``B``, ``C`` clauses of ``W`` words and ``K`` classes."""
+    return _build.occupancy("fused_infer", B, C, W, K, extra=_build.CHAIN_GRID)
 
 
 def fused_tm_forward(lit_words: torch.Tensor, inc_words: torch.Tensor,

@@ -70,6 +70,103 @@ def test_cuda_all_empty_and_wide_classes(cuda_device):
             np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+# -- the dense clause chain (fused_infer, clause_eval) ----------------------------
+
+def _chain_problem(B, C, W, seed):
+    """Literals (B, W) and includes (C, W) as int32 bit patterns, with a mix
+    of firing and failing pairs: most clauses hold 0-6 include bits, every
+    5th is empty (fires on every sample), every 7th is all ones (fires only
+    on an all-ones sample); every 9th sample is all ones."""
+    rng = np.random.default_rng(seed)
+    lit = rng.integers(0, 2 ** 32, (B, W), dtype=np.uint32)
+    lit[::9] = 0xFFFFFFFF
+    inc = np.zeros((C, W), np.uint32)
+    pos = rng.integers(0, 32 * W, (C, 6))
+    keep = np.arange(6)[None, :] < rng.integers(0, 7, C)[:, None]
+    rows = np.broadcast_to(np.arange(C)[:, None], pos.shape)
+    np.bitwise_or.at(inc, (rows[keep], pos[keep] // 32),
+                     np.left_shift(np.uint32(1), (pos[keep] % 32).astype(np.uint32)))
+    inc[::5] = 0
+    inc[3::7] = 0xFFFFFFFF
+    as_t = lambda a: torch.from_numpy(a.view(np.int32).copy())
+    return as_t(lit), as_t(inc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 2000, 2048, 2049])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 512, 1030])
+def test_cuda_dense_chain_kernels_equal_plain_versions(cuda_device, B, C):
+    """Both kernels of csrc/clause_chain.cuh against their plain versions,
+    tolerance 0, at every word width and class count: every word split of
+    the grid (B 64 and C 2048 take the narrowest), ragged sample, clause
+    and word edges, more than one staged word chunk (W 49, 513), a
+    `nonempty` mask that drops empty and some other clauses (any nonzero
+    value keeps a clause), and the training semantics (`nonempty=None`)."""
+    from repro_torch.kernels import clause_eval, fused_infer
+    g = lambda t: t.to(cuda_device)
+    ones = torch.ones(C, dtype=torch.int32, device=cuda_device)
+    for W in (1, 17, 49, 513):
+        lit, inc = (g(t) for t in _chain_problem(B, C, W, B * 7 + C + W))
+        # the plain versions run on the card too (the largest case's
+        # (B, C, W) intermediate is 4.3 GB)
+        fire = clause_eval.clause_fire_plain(lit, inc)
+        if B > 1 and C > 1:   # empty rows fire, all-ones rows only on all-ones samples
+            assert 0 < int(fire.sum()) < fire.numel()
+        np.testing.assert_array_equal(clause_eval.clause_fire_cuda(lit, inc).cpu().numpy(),
+                                      fire.cpu().numpy(), err_msg=f"clause_eval W={W}")
+        rng = np.random.default_rng(W)
+        ne = g(torch.from_numpy(((inc != 0).any(1).cpu().numpy()
+                                 * rng.choice([0, 1, 5], C, p=[0.2, 0.6, 0.2])).astype(np.int32)))
+        for K in (1, 10, 32):
+            votes = g(torch.from_numpy(rng.integers(-3, 4, (C, K)).astype(np.int32)))
+            for nonempty in (ne, None):
+                want = fused_infer.fused_forward_plain(lit, inc, votes,
+                                                       ones if nonempty is None else nonempty)
+                got = fused_infer.fused_tm_forward(lit, inc, votes, nonempty)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want.cpu().numpy(),
+                    err_msg=f"fused_infer W={W} K={K} nonempty={nonempty is not None}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["zero", "ones"])
+def test_cuda_dense_chain_all_or_none_fire(cuda_device, fill):
+    """All-zero include rows: every clause fires (a masked clause adds
+    nothing); all-ones rows: none fires unless the sample is all ones."""
+    from repro_torch.kernels import clause_eval, fused_infer
+    B, C, W, K = 97, 2049, 49, 10
+    lit, _ = _chain_problem(B, C, W, 3)
+    inc = torch.full((C, W), 0 if fill == "zero" else -1, dtype=torch.int32)
+    votes = torch.from_numpy(np.random.default_rng(4).integers(-3, 4, (C, K)).astype(np.int32))
+    nonempty = torch.from_numpy(np.arange(C) % 3 != 0).to(torch.int32)
+    g = lambda t: t.to(cuda_device)
+    want = clause_eval.clause_fire_plain(lit, inc)
+    assert bool(want.all()) if fill == "zero" else int(want.sum()) == C * len(range(0, B, 9))
+    np.testing.assert_array_equal(clause_eval.clause_fire_cuda(g(lit), g(inc)).cpu().numpy(),
+                                  want.numpy())
+    for ne in (nonempty, None):
+        want = fused_infer.fused_tm_forward(lit, inc, votes, ne)
+        got = fused_infer.fused_tm_forward(g(lit), g(inc), g(votes), None if ne is None else g(ne))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_dense_chain_occupancy(cuda_device):
+    """The grid and word split each main-path shape gets: the widest block
+    (32 x 64) at the serve bucket, the word split across 4 warps at
+    training's batch 64, at least one block an SM at both."""
+    from repro_torch.kernels import clause_eval, fused_infer
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for occ, (B, C) in ((fused_infer.occupancy(512, 2000, 49, 10), (512, 2000)),
+                        (fused_infer.occupancy(64, 2048, 49, 10), (64, 2048)),
+                        (clause_eval.occupancy(64, 2048, 49), (64, 2048))):
+        assert occ["grid_x"] == -(-B // 32)
+        assert occ["grid_x"] * occ["grid_y"] >= sms, occ
+        assert occ["grid_y"] == -(-C // (64 // occ["word_split"]))
+        assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0, occ
+    assert fused_infer.occupancy(512, 2000, 49, 10)["word_split"] == 1
+
+
 # -- training kernels -----------------------------------------------------------
 
 def _train_problem(B, F, K, cpc, seed, pad=1):

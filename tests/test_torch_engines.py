@@ -246,7 +246,8 @@ def test_run_compiled_rejects_unknown_and_mismatched_tilings():
 
 # -- each kernel module against the reference's Pallas kernel (interpret) --
 
-@pytest.mark.parametrize("B, C, W, K", [(1, 5, 1, 2), (33, 40, 3, 4), (70, 130, 5, 3)])
+@pytest.mark.parametrize("B, C, W, K", [(1, 5, 1, 2), (33, 40, 3, 4), (70, 130, 5, 3),
+                                        (64, 2048, 49, 10)])   # tm-mnist's training step
 def test_fused_infer_module_matches_pallas(B, C, W, K):
     rng = np.random.default_rng(B + C)
     lit = rng.integers(0, 2 ** 32, (B, W), dtype=np.uint32)

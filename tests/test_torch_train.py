@@ -78,7 +78,8 @@ def test_hash_and_thresholds_on_edge_words():
 
 # -- the unfused kernels -------------------------------------------------------
 
-@pytest.mark.parametrize("B,F,cpc", [(13, 17, 7), (40, 70, 11), (1, 33, 3)])
+@pytest.mark.parametrize("B,F,cpc", [(13, 17, 7), (40, 70, 11), (1, 33, 3),
+                                     (64, 784, 200)])   # tm-mnist's width, batch 64
 def test_clause_fire_and_class_sum_match_reference(B, F, cpc):
     rc, tc, ta, x, y = _problem(B=B, F=F, cpc=cpc, seed=B)
     ta[::5] = -1                              # empty clauses fire in training
