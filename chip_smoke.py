@@ -196,31 +196,18 @@ def chain_need(rows, chain, tile_jb, indptr, *, n_rows, block_c, block_j,
     return n_bytes, n_ops
 
 
-def sm_clock_mhz():
-    """The card's SM clock now (MHz), from nvidia-smi; None if it fails."""
-    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True,
-                         text=True, timeout=60)
-    try:
-        return int(res.stdout.split()[0])
-    except (IndexError, ValueError):
-        return None
-
-
 def profile_device(fn, calls: int = WINDOW_CALLS, windows: int = WINDOWS,
-                   key: str = "device_ms", clocks: bool = False):
+                   key: str = "device_ms"):
     """Device time (ms) of everything one call of ``fn`` launches, from the
     profiler, in ``windows`` separate windows of ``calls`` calls:
-    ``{key: the median of the windows' means, key + "_spread": [min, max]}``
-    (with ``clocks``, also ``key + "_sm_clock_mhz"``: the SM clock read
-    after each window), and the median window's per-name breakdown in
-    microseconds."""
+    ``{key: the median of the windows' means, key + "_spread": [min, max]}``,
+    and the median window's per-name breakdown in microseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    reads, mhz = [], []
+    reads = []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -229,17 +216,13 @@ def profile_device(fn, calls: int = WINDOW_CALLS, windows: int = WINDOWS,
         us = device_us(prof)
         if us:
             reads.append((sum(u for u, _ in us.values()) / calls / 1e3, us))
-        if clocks:
-            mhz.append(sm_clock_mhz())
     if not reads:
         return {key: None, key + "_spread": None}, {}
     ms = sorted(r for r, _ in reads)
     med = statistics.median(ms)
     us = min(reads, key=lambda r: abs(r[0] - med))[1]
-    out = {key: med, key + "_spread": [ms[0], ms[-1]]}
-    if clocks:
-        out[key + "_sm_clock_mhz"] = mhz
-    return out, {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()}
+    return ({key: med, key + "_spread": [ms[0], ms[-1]]},
+            {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()})
 
 
 class Training:
@@ -526,8 +509,8 @@ def train_phases(dev, max_err, launches):
         B=TRAIN_BATCH, C=C, L=L, W=W, K=K,
         fused_train=fused_train.occupancy(TRAIN_BATCH, L, W),
         ta_update=ta_update.occupancy(TRAIN_BATCH, L),
-        fused_infer=fused_infer.occupancy(TRAIN_BATCH, C, W, K),
-        clause_eval=clause_eval.occupancy(TRAIN_BATCH, C, W))))
+        fused_infer=fused_infer.occupancy(TRAIN_BATCH, C),
+        clause_eval=clause_eval.occupancy(TRAIN_BATCH, C))))
     work, draws = tr.work(t, fire, ftype)
     fi["bound_ms"], fi["bound_by"] = bound(work["fused_infer"][0],
                                            work["fused_infer"][1] / INT32_OPS_PER_S * 1e3)
@@ -716,10 +699,8 @@ def flash_times(fa, q, k, v):
     library = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True)
     row, per = dict(ms=cuda_time_ms(kern), library_ms=cuda_time_ms(library)), {}
-    # the SM clock beside each window: two earlier runs read flash and SDPA
-    # 2.2x and 3.2x apart on the same inputs
-    dev_ms, per["kernel"] = profile_device(kern, clocks=True)
-    lib_ms, per["library"] = profile_device(library, key="library_device_ms", clocks=True)
+    dev_ms, per["kernel"] = profile_device(kern)
+    lib_ms, per["library"] = profile_device(library, key="library_device_ms")
     row.update(dev_ms, **lib_ms)
     B, S, H, hd = q.shape
     # QK^T and PV over the S(S+1)/2 causal (query, key) pairs, 2 FLOPs each
@@ -1057,8 +1038,7 @@ def main() -> None:
         print(f"{name} device work per call at B={BUCKET}: {json.dumps(per)}")
     print("INFER_OCCUPANCY " + json.dumps(dict(
         B=BUCKET, C=inc.shape[0], W=inc.shape[1], K=votes.shape[1],
-        fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0], inc.shape[1],
-                                          votes.shape[1]))))
+        fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0]))))
 
     # 6. the serving path, once per kernel rung, counts zeroed around each
     runs = {"term_infer": [], "sparse_infer": ["--no-factorize"],

@@ -157,10 +157,6 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-# what the clause-chain kernels' occupancy entry points add: the grid and
-# the warps that split each pair's words (csrc/clause_chain.cuh)
-CHAIN_GRID = ("grid_x", "grid_y", "word_split")
-
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint32

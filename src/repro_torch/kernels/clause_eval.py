@@ -15,6 +15,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import clause_fire_ref
 
+# what the occupancy entry point writes after the common fields: the grid
+# and the warps that split each pair's words (csrc/clause_chain.cuh)
+GRID_FIELDS = ("grid_x", "grid_y", "word_split")
+
 # kernel launches through clause_fire on CUDA tensors
 launches = 0
 
@@ -57,11 +61,12 @@ def clause_fire_cuda(lit_words, inc_words):
     return out
 
 
-def occupancy(B: int, C: int, W: int) -> dict:
+def occupancy(B: int, C: int) -> dict:
     """The kernel's registers a thread, threads a block, resident blocks per
     SM, shared and spill bytes, and the grid and word split it launches
-    with at batch ``B`` and ``C`` clauses of ``W`` words."""
-    return _build.occupancy("clause_eval", B, C, W, extra=_build.CHAIN_GRID)
+    with at batch ``B`` and ``C`` clauses (nothing else changes the launch:
+    its shared memory is static)."""
+    return _build.occupancy("clause_eval", B, C, extra=GRID_FIELDS)
 
 
 def clause_fire(lit_words: torch.Tensor, inc_words: torch.Tensor) -> torch.Tensor:

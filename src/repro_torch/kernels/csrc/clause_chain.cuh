@@ -35,9 +35,10 @@
 //   * a grid that covers the card: a block is 4 warps over 32 samples and
 //     16 x (4 / KS) clauses, and KS warps split the words of each pair
 //     (their partial fire bits meet by AND; exact, AND commutes).  The
-//     host takes the widest block (KS = 1: 32 x 64) that still gives at
-//     least one block an SM, else KS = 2 (32 x 32), else KS = 4 (32 x 16):
-//     B 512, C 2000: 16 x 32 blocks at KS 1; B 64, C 2048: 2 x 128 at KS 4;
+//     host takes the wide block (KS = 1: 32 x 64) where it still gives at
+//     least one block an SM, else KS = 4 (32 x 16): B 512, C 2000: 16 x 32
+//     blocks at KS 1; B 64, C 2048: 2 x 128 at KS 4.  KS = 2 (32 x 32) is
+//     left out: at B 64 it lost to KS = 4, and no other shape was timed;
 //   * every word is ANDed, as the TPU kernel does: no early exit, so the
 //     bound's B x C x W stays the work done.
 // A block's fire bits end in shared memory as one 16-bit mask a sample
@@ -79,7 +80,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // The block's shape for KS warps splitting the words.
 template <int KS>
 struct Shape {
-  static_assert(KS == 1 || KS == 2 || KS == 4, "KS divides the 4 warps");
+  static_assert(KS == 1 || KS == 4, "one warp or all 4 split the words");
   static constexpr int kWarpsC = kWarps / KS;   // warps along the clauses
   static constexpr int kBC = 4 * kTC * kWarpsC;   // clauses a block
   static constexpr int kPieces = kBC / 16;        // 16-bit fire masks a sample
@@ -226,21 +227,19 @@ __device__ __forceinline__ uint64_t fired(const Tile<KS>& t, int b) {
   return m;
 }
 
-// Host side: the word split for a (B, C) launch, the widest block that
-// still puts a block on every SM.
+// Host side: the word split for a (B, C) launch: 1 where the wide block
+// still puts a block on every SM, else 4.
 inline int word_split(int b_total, int c_total) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   const long long bt = (b_total + kBB - 1) / kBB;
-  if (bt * ((c_total + Shape<1>::kBC - 1) / Shape<1>::kBC) >= sms) return 1;
-  if (bt * ((c_total + Shape<2>::kBC - 1) / Shape<2>::kBC) >= sms) return 2;
-  return 4;
+  return bt * ((c_total + Shape<1>::kBC - 1) / Shape<1>::kBC) >= sms ? 1 : 4;
 }
 
 inline dim3 grid(int b_total, int c_total, int ks) {
-  const int bc = ks == 1 ? Shape<1>::kBC : ks == 2 ? Shape<2>::kBC : Shape<4>::kBC;
+  const int bc = ks == 1 ? Shape<1>::kBC : Shape<4>::kBC;
   return dim3((b_total + kBB - 1) / kBB, (c_total + bc - 1) / bc);
 }
 

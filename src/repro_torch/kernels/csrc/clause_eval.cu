@@ -78,22 +78,19 @@ extern "C" int clause_eval_launch(const uint32_t* lit, const uint32_t* inc,
                                   int w_total, void* stream) {
   if (b_total <= 0 || c_total <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_split(b_total, c_total)) {
-    case 1: return launch<1>(lit, inc, out, b_total, c_total, w_total, s);
-    case 2: return launch<2>(lit, inc, out, b_total, c_total, w_total, s);
-    default: return launch<4>(lit, inc, out, b_total, c_total, w_total, s);
-  }
+  return word_split(b_total, c_total) == 1
+             ? launch<1>(lit, inc, out, b_total, c_total, w_total, s)
+             : launch<4>(lit, inc, out, b_total, c_total, w_total, s);
 }
 
 // Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
-// y and word split of the launch at (B, C, W) into info[0..7].
-extern "C" int clause_eval_occupancy(int b_total, int c_total, int w_total, int* info) {
-  (void)w_total;
+// y and word split of the launch at (B, C) into info[0..7] (W changes
+// neither the grid nor the static shared memory).
+extern "C" int clause_eval_occupancy(int b_total, int c_total, int* info) {
   const int ks = word_split(b_total, c_total);
   const dim3 g = grid(b_total, c_total, ks);
   const cudaError_t err = ks == 1 ? occupancy(clause_eval_kernel<1>, g, ks, info)
-                          : ks == 2 ? occupancy(clause_eval_kernel<2>, g, ks, info)
-                                    : occupancy(clause_eval_kernel<4>, g, ks, info);
+                                  : occupancy(clause_eval_kernel<4>, g, ks, info);
   return static_cast<int>(err);
 }
 

@@ -139,23 +139,19 @@ extern "C" int fused_infer_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(b_total) * k * sizeof(int32_t), s);
   if (err != cudaSuccess || c_total <= 0) return static_cast<int>(err);
-  switch (word_split(b_total, c_total)) {
-    case 1: return launch<1>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
-    case 2: return launch<2>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
-    default: return launch<4>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
-  }
+  return word_split(b_total, c_total) == 1
+             ? launch<1>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s)
+             : launch<4>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
 }
 
 // Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
-// y and word split of the launch at (B, C, W, K) into info[0..7].
-extern "C" int fused_infer_occupancy(int b_total, int c_total, int w_total, int k, int* info) {
-  (void)w_total;
-  (void)k;
+// y and word split of the launch at (B, C) into info[0..7] (W and K change
+// neither the grid nor the static shared memory).
+extern "C" int fused_infer_occupancy(int b_total, int c_total, int* info) {
   const int ks = word_split(b_total, c_total);
   const dim3 g = grid(b_total, c_total, ks);
   const cudaError_t err = ks == 1 ? occupancy(fused_infer_kernel<1>, g, ks, info)
-                          : ks == 2 ? occupancy(fused_infer_kernel<2>, g, ks, info)
-                                    : occupancy(fused_infer_kernel<4>, g, ks, info);
+                                  : occupancy(fused_infer_kernel<4>, g, ks, info);
   return static_cast<int>(err);
 }
 

@@ -16,6 +16,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref, clause_fire_ref
 
+# what the occupancy entry point writes after the common fields: the grid
+# and the warps that split each pair's words (csrc/clause_chain.cuh)
+GRID_FIELDS = ("grid_x", "grid_y", "word_split")
+
 # kernel launches through fused_tm_forward on CUDA tensors
 launches = 0
 
@@ -66,11 +70,12 @@ def fused_forward_cuda(lit_words, inc_words, votes, nonempty):
     return out
 
 
-def occupancy(B: int, C: int, W: int, K: int) -> dict:
+def occupancy(B: int, C: int) -> dict:
     """The kernel's registers a thread, threads a block, resident blocks per
     SM, shared and spill bytes, and the grid and word split it launches
-    with at batch ``B``, ``C`` clauses of ``W`` words and ``K`` classes."""
-    return _build.occupancy("fused_infer", B, C, W, K, extra=_build.CHAIN_GRID)
+    with at batch ``B`` and ``C`` clauses (nothing else changes the launch:
+    its shared memory is static)."""
+    return _build.occupancy("fused_infer", B, C, extra=GRID_FIELDS)
 
 
 def fused_tm_forward(lit_words: torch.Tensor, inc_words: torch.Tensor,

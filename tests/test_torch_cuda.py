@@ -157,14 +157,14 @@ def test_cuda_dense_chain_occupancy(cuda_device):
     training's batch 64, at least one block an SM at both."""
     from repro_torch.kernels import clause_eval, fused_infer
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for occ, (B, C) in ((fused_infer.occupancy(512, 2000, 49, 10), (512, 2000)),
-                        (fused_infer.occupancy(64, 2048, 49, 10), (64, 2048)),
-                        (clause_eval.occupancy(64, 2048, 49), (64, 2048))):
+    for occ, (B, C) in ((fused_infer.occupancy(512, 2000), (512, 2000)),
+                        (fused_infer.occupancy(64, 2048), (64, 2048)),
+                        (clause_eval.occupancy(64, 2048), (64, 2048))):
         assert occ["grid_x"] == -(-B // 32)
         assert occ["grid_x"] * occ["grid_y"] >= sms, occ
         assert occ["grid_y"] == -(-C // (64 // occ["word_split"]))
         assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0, occ
-    assert fused_infer.occupancy(512, 2000, 49, 10)["word_split"] == 1
+    assert fused_infer.occupancy(512, 2000)["word_split"] == 1
 
 
 # -- training kernels -----------------------------------------------------------
