@@ -21,7 +21,8 @@ held to their plain versions on the initial and trained banks at every
 batch size, with offsets, a half-bank shard and saturated feedback
 (p_t = p_n = 1), ``fused_infer`` with them on the whole bank as a fused
 step runs it, and their occupancy is printed (``TRAIN_OCCUPANCY``; the
-serve bucket's ``fused_infer`` in ``INFER_OCCUPANCY``).
+serve bucket's ``fused_infer``, ``sparse_infer`` and ``term_infer`` in
+``INFER_OCCUPANCY``).
 The three trained banks must
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
@@ -1031,14 +1032,21 @@ def main() -> None:
                 times[name][B]["early_exit_ms"] = cuda_time_ms(calls(name, xw, True)[0])
     print("BATCH_TIMES " + json.dumps(times))
     # device time of what each wrapper launches at the bucket size, from the
-    # profiler: the event times above also hold the host's launch work
+    # profiler, split by launch: the event times above also hold the host's
+    # launch work
     for name in KERNELS:
-        dev_ms, per = profile_device(calls(name, xw_all[:BUCKET].contiguous())[0])
-        times[name][BUCKET].update(dev_ms)
-        print(f"{name} device work per call at B={BUCKET}: {json.dumps(per)}")
+        for margin_on in ([False] if name == "fused_infer" else [False, True]):
+            dev_ms, per = profile_device(calls(name, xw_all[:BUCKET].contiguous(), margin_on)[0],
+                                         key="early_exit_device_ms" if margin_on else "device_ms")
+            times[name][BUCKET].update(dev_ms)
+            print(f"{name} device work per call at B={BUCKET}"
+                  f"{' (early exit)' if margin_on else ''}: {json.dumps(per)}")
+    K = votes.shape[1]
     print("INFER_OCCUPANCY " + json.dumps(dict(
-        B=BUCKET, C=inc.shape[0], W=inc.shape[1], K=votes.shape[1],
-        fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0]))))
+        B=BUCKET, C=inc.shape[0], W=inc.shape[1], K=K,
+        fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0]),
+        sparse_infer=sparse_infer.occupancy(BUCKET, sched.n_cblocks, sched.block_c, K),
+        term_infer=term_infer.occupancy(BUCKET, fsched.n_cblocks, fsched.block_c, K))))
 
     # 6. the serving path, once per kernel rung, counts zeroed around each
     runs = {"term_infer": [], "sparse_infer": ["--no-factorize"],
@@ -1140,7 +1148,8 @@ def main() -> None:
                    library_device_ms_spread=None,
                    library_note="no single PyTorch call computes this function",
                    tolerance=0)
-        for extra in ("device_ms", "device_ms_spread", "early_exit_ms"):
+        for extra in ("device_ms", "device_ms_spread", "early_exit_ms",
+                      "early_exit_device_ms", "early_exit_device_ms_spread"):
             if extra in times[name][B]:
                 row[extra] = times[name][B][extra]
         if name in train_times:   # fused_infer: also its launch in every fused step

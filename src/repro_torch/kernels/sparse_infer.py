@@ -29,6 +29,7 @@ vote rows must be zero — true for every ``compile_tm`` artifact.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -46,8 +47,17 @@ DEFAULT_BLOCK_J = 32
 # keeping top1 - second inside int32.
 _NEG_SUM = -(2 ** 28)
 
+# what the occupancy entry point writes after the common fields: the exact
+# walk's grid and the threads that walk one clause's chain for one word
+GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
+
 # kernel launches through sparse_tm_forward_tables on CUDA tensors
 launches = 0
+
+# per-clause chain lengths, derived once per chain table (chain_lengths):
+# id(chain) -> (weak reference, versions and sentinel, deps' references,
+# lengths); an entry leaves with its chain
+_chain_lens: dict = {}
 
 
 def _rup(x: int, m: int) -> int:
@@ -265,6 +275,29 @@ def chain_fold_plain(rows, chain_ids, votes, tile_jb, tile_last, indptr, *,
     return sums
 
 
+def chain_lengths(chain: torch.Tensor, sentinel, *deps: torch.Tensor) -> torch.Tensor:
+    """(rows,) int32: how many ids each row of ``chain`` holds that are not
+    ``sentinel``, which is the length of that clause's own chain: both
+    builders put a row's real ids first and the sentinel after them
+    (``tests/test_torch_compiler.py`` holds them to it).  ``sentinel`` is
+    an id, or a function of ``deps`` that gives one on their device.
+    Derived once per chain tensor, then reused while the chain and
+    ``deps`` are the same tensors at the same version, so the kernels'
+    wrappers launch nothing for it after the first call."""
+    tag = (chain._version, None if callable(sentinel) else sentinel,
+           *(d._version for d in deps))
+    key = id(chain)
+    hit = _chain_lens.get(key)
+    if (hit is not None and hit[0]() is chain and hit[1] == tag
+            and all(r() is d for r, d in zip(hit[2], deps))):
+        return hit[3]
+    value = sentinel(*deps) if callable(sentinel) else sentinel
+    lens = (chain != value).sum(1, dtype=torch.int32)
+    _chain_lens[key] = (weakref.ref(chain, lambda _: _chain_lens.pop(key, None)), tag,
+                        tuple(weakref.ref(d) for d in deps), lens)
+    return lens
+
+
 def _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, n_tile_rows):
     tensors = dict(lit_words=lit_words, chain_ids=chain_ids, votes=votes,
                    tiles=tiles, indptr=indptr)
@@ -311,23 +344,36 @@ def sparse_tables_cuda(lit_words, chain_ids, votes, tiles, indptr, *,
     B, W = lit_words.shape
     U, K = votes.shape
     Sw = packetizer.n_words(B)
-    # scratch for the kernel's own bit transpose of the literals
-    lit_t = torch.empty((W * 32 + 1, Sw), dtype=torch.int32, device=lit_words.device)
-    out = torch.zeros((Sw * 32, K), dtype=torch.int32, device=lit_words.device)
+    # scratch for the kernel's own bit transpose of the literals (the
+    # transpose launch zeroes `out` before the walk adds into it) and, with
+    # early exit, for the fired words the walk stores for the in-order fold
+    dev = lit_words.device
+    lit_t = torch.empty((W * 32 + 1, Sw), dtype=torch.int32, device=dev)
+    out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
+    fired = None if tile_margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
+    lens = chain_lengths(chain_ids, W * 32)
     jb, last = tiles[1].contiguous(), tiles[3].contiguous()
     P, I = _build.P, _build.I
     fn = _build.entry("sparse_infer", "sparse_infer_launch",
-                      [P, I, I, P, I, P, I, P, I, I, P, I, P, P, P, I, I, P, P])
+                      [P, I, I, P, I, P, P, I, P, I, I, P, I, P, P, P, I, I, P, P, P])
     err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw,
-             _build.ptr(chain_ids), chain_ids.shape[1], _build.ptr(votes), U, K,
-             _build.ptr(indptr), indptr.shape[0] - 1, _build.ptr(jb),
-             _build.ptr(last),
+             _build.ptr(chain_ids), _build.ptr(lens), chain_ids.shape[1],
+             _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
+             _build.ptr(jb), _build.ptr(last),
              None if tile_margin is None else _build.ptr(tile_margin),
              block_c, block_j, _build.ptr(out),
-             _build.stream_ptr(lit_words.device))
+             None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     _build.check("sparse_infer", err)
     launches += 1
     return out[:B]
+
+
+def occupancy(B: int, n_cblocks: int, block_c: int, K: int) -> dict:
+    """The exact walk's registers a thread, threads a block, resident blocks
+    per SM, shared and spill bytes, grid and threads a chain at batch
+    ``B`` over ``n_cblocks`` clause blocks of ``block_c`` and ``K``
+    classes (``K`` decides whether the votes are staged in shared memory)."""
+    return _build.occupancy("sparse_infer", B, n_cblocks, block_c, K, extra=GRID_FIELDS)
 
 
 def sparse_tm_forward_tables(lit_words, chain_ids, votes, tiles, indptr, *,

@@ -14,8 +14,9 @@ factorized schedule exploits it:
 Stage 1 evaluates each unique term once per sample word into a term bit
 table; stage 2 walks the clause chains over that table and folds the
 votes.  :func:`factorized_tm_forward_tables` runs the CUDA kernel
-(``csrc/term_infer.cu``: bit transpose, stage 1 and stage 2 as three
-launches on one stream) for CUDA tensors and
+(``csrc/term_infer.cu``: bit transpose, stage 1 and the stage-2 walk of
+``csrc/chain_walk.cuh`` as three launches on one stream, a fourth that
+folds in order with early exit) for CUDA tensors and
 :func:`factorized_tables_plain` for CPU tensors.  Padding terms (rows past
 ``n_terms``) have all-sentinel chains and evaluate to all ones, so
 sentinel-padded clause chains are exact.
@@ -33,13 +34,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
 from repro_torch.kernels.sparse_infer import (_check_tables, _rup, and_reduce,
                                               bit_transpose_literals,
-                                              chain_fold_plain)
+                                              chain_fold_plain, chain_lengths)
 
 # default factorized tiling (the reference's, so shipped schedules are
 # memoized under the same key); small artifacts clip
 DEFAULT_BLOCK_C = 1024
 DEFAULT_BLOCK_J = 64
 DEFAULT_BLOCK_T = 32768
+
+# what the occupancy entry point writes after the common fields: the
+# stage-2 exact walk's grid and the threads that walk one clause's chain
+# for one word
+GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 
 # kernel launches (stage 1 + stage 2 pairs) through
 # factorized_tm_forward_tables on CUDA tensors
@@ -283,7 +289,8 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
                            indptr, *, block_c, block_j, n_term_tiles,
                            tile_margin=None):
     """Launch ``csrc/term_infer.cu`` (bit transpose, stage 1 into a term
-    buffer allocated here, then stage 2) on CUDA tensors -> (B, K) int32."""
+    buffer allocated here, then the stage-2 walk) on CUDA tensors -> (B, K)
+    int32."""
     global launches
     _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
     _check_terms(lit_words, term_chain)
@@ -294,25 +301,44 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
     Tp, term_w = term_chain.shape
     Sw = packetizer.n_words(B)
     dev = lit_words.device
-    # scratch: the kernel's bit-transposed literals and stage-1 term table
-    lit_t = torch.empty((W * 32 + 1, Sw), dtype=torch.int32, device=dev)
-    term_bits = torch.empty((Tp, Sw), dtype=torch.int32, device=dev)
-    out = torch.zeros((Sw * 32, K), dtype=torch.int32, device=dev)
+    # scratch: the kernel's bit-transposed literals, stage-1 term table
+    # (rows of Sw words padded to a multiple of 4, for its 16-byte loads)
+    # and, with early exit, the fired words the walk stores for the
+    # in-order fold (the transpose launch zeroes `out` before the walk adds
+    # into it)
+    stride = _rup(Sw, 4)
+    lit_t = torch.empty((W * 32 + 1, stride), dtype=torch.int32, device=dev)
+    term_bits = torch.empty((Tp, stride), dtype=torch.int32, device=dev)
+    out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
+    fired = None if tile_margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
+    # the clause chains' sentinel is the first padding term, whose
+    # literal chain is all sentinels (real terms hold at least one bit)
+    lens = chain_lengths(clause_chain, lambda tc: (tc[:, 0] != W * 32).sum(),
+                         term_chain)
     jb, last = tiles[3].contiguous(), tiles[5].contiguous()
     P, I = _build.P, _build.I
     fn = _build.entry("term_infer", "term_infer_launch",
-                      [P, I, I, P, I, P, I, I, P, P, I, P, I, I, P, I, P, P, I,
-                       P, I, I, P, P])
-    err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw,
+                      [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
+                       I, P, I, I, P, P, P])
+    err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
              _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
-             _build.ptr(clause_chain), clause_chain.shape[1], _build.ptr(votes),
-             U, K, _build.ptr(indptr), indptr.shape[0] - 1, _build.ptr(jb),
-             _build.ptr(last), n_term_tiles,
+             _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
+             _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
+             _build.ptr(jb), _build.ptr(last), n_term_tiles,
              None if tile_margin is None else _build.ptr(tile_margin),
-             block_c, block_j, _build.ptr(out), _build.stream_ptr(dev))
+             block_c, block_j, _build.ptr(out),
+             None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     _build.check("term_infer", err)
     launches += 1
     return out[:B]
+
+
+def occupancy(B: int, n_cblocks: int, block_c: int, K: int) -> dict:
+    """The stage-2 exact walk's registers a thread, threads a block, resident blocks
+    per SM, shared and spill bytes, grid and threads a chain at batch
+    ``B`` over ``n_cblocks`` clause blocks of ``block_c`` and ``K``
+    classes (``K`` decides whether the votes are staged in shared memory)."""
+    return _build.occupancy("term_infer", B, n_cblocks, block_c, K, extra=GRID_FIELDS)
 
 
 def factorized_tm_forward_tables(lit_words, term_chain, clause_chain, votes,

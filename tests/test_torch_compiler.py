@@ -106,6 +106,66 @@ def test_nondefault_tilings_identical():
         b.factorized_schedule(block_c=8, block_j=4, block_t=16, term_w=2))
 
 
+def _assert_real_ids_first(chain, sentinel):
+    """Every row: real ids (below the sentinel) first, then the sentinel
+    only; chain_lengths counts exactly the real prefix."""
+    import torch
+
+    from repro_torch.kernels.sparse_infer import chain_lengths
+
+    real = chain != sentinel
+    assert (chain[real] < sentinel).all()
+    assert not (real[:, 1:] & ~real[:, :-1]).any(), "a sentinel between real ids"
+    lens = chain_lengths(torch.from_numpy(np.ascontiguousarray(chain)), sentinel)
+    np.testing.assert_array_equal(lens.numpy(), real.sum(1))
+
+
+@pytest.mark.parametrize("bank", ["asset", "ragged"])
+def test_schedule_chains_put_real_ids_before_the_sentinel(bank):
+    """The property the CUDA walk's own-end stop relies on
+    (csrc/chain_walk.cuh), in both builders' tables: on the committed
+    artifact and on a ragged bank (U not a multiple of any tiling) at the
+    default and the narrowest tilings."""
+    if bank == "asset":
+        comp = port_compiler.CompiledTM.load(ASSET)
+    else:
+        _, pcfg, ta = _random_tm(40, 3, 13, 0.25, 11)
+        comp = port_compiler.compile_tm(pcfg, ta, dedup=False)
+        assert comp.n_unique % 8 != 0
+    for tiling in (dict(), dict(block_c=8, block_j=4)):
+        sched = comp.schedule(**tiling)
+        _assert_real_ids_first(sched.chain_ids, sched.n_lit_bits)
+        fs = comp.factorized_schedule(**tiling)
+        _assert_real_ids_first(fs.clause_chain, fs.n_terms)
+        _assert_real_ids_first(fs.term_chain, fs.n_lit_bits)
+        # real terms hold at least one bit, padding terms none: the CUDA
+        # wrapper finds the clause chains' sentinel as the first padding term
+        assert (fs.term_chain[:fs.n_terms, 0] < fs.n_lit_bits).all()
+        assert (fs.term_chain[fs.n_terms:] == fs.n_lit_bits).all()
+
+
+def test_chain_lengths_memo_follows_the_tables():
+    """chain_lengths derives once per chain tensor and derives again when
+    the chain, or the tensor its sentinel comes from, changes."""
+    import torch
+
+    from repro_torch.kernels.sparse_infer import chain_lengths
+
+    chain = torch.tensor([[1, 2, 9, 9], [3, 9, 9, 9]], dtype=torch.int32)
+    first = chain_lengths(chain, 9)
+    assert first.tolist() == [2, 1] and chain_lengths(chain, 9) is first
+    assert chain_lengths(chain, 3).tolist() == [4, 3]          # another sentinel
+    terms = torch.tensor([[0, 64], [5, 64], [64, 64]], dtype=torch.int32)
+    n_real = lambda tc: (tc[:, 0] != 64).sum()              # noqa: E731
+    clause = torch.tensor([[0, 1, 2], [1, 2, 2]], dtype=torch.int32)
+    lens = chain_lengths(clause, n_real, terms)
+    assert lens.tolist() == [2, 1] and chain_lengths(clause, n_real, terms) is lens
+    terms[1, 0] = 64                      # in place: one real term fewer
+    assert chain_lengths(clause, n_real, terms).tolist() == [2, 2]
+    clause[0, 2] = 1
+    assert chain_lengths(clause, n_real, terms).tolist() == [1, 2]
+
+
 def test_asset_loads_identically_in_both_packages():
     a = ref_compiler.CompiledTM.load(ASSET)
     b = port_compiler.CompiledTM.load(ASSET)

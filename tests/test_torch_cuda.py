@@ -7,6 +7,8 @@ flash attention.  No JAX needed: run on the card with
 Without a card every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -165,6 +167,140 @@ def test_cuda_dense_chain_occupancy(cuda_device):
         assert occ["grid_y"] == -(-C // (64 // occ["word_split"]))
         assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0, occ
     assert fused_infer.occupancy(512, 2000)["word_split"] == 1
+
+
+# -- the schedule walks (sparse_infer, term_infer: csrc/chain_walk.cuh) -----------
+
+ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "src", "repro_torch", "assets", "tm_mnist_e1.npz")
+
+
+def _schedule_bank(case):
+    """(include words (U, Wa) uint32, votes (U, K) int32) of a synthetic
+    bank: 1-6 include bits a clause, plus what the case adds."""
+    U, Wa, K = dict(empty_clause=(150, 5, 10), long_clause=(150, 8, 10),
+                    ragged_U=(37, 3, 10), k32=(100, 4, 32))[case]
+    rng = np.random.default_rng(len(case))
+    bits = np.zeros((U, Wa * 32), np.uint8)
+    for c in range(U):
+        bits[c, rng.choice(Wa * 32, rng.integers(1, 7), replace=False)] = 1
+    if case == "empty_clause":        # they fire on every sample and carry votes
+        bits[::37] = 0
+    if case == "long_clause":         # one chain far longer than its block's others
+        bits[70, rng.choice(Wa * 32, 200, replace=False)] = 1
+    iw = packetizer.pack_bits_np(bits).view(np.uint32)
+    return iw, rng.integers(-4, 5, (U, K)).astype(np.int32)
+
+
+def _requests(kind, B, Wa, seed):
+    """(B, Wa) int32 literal words: random with 9 in 10 bits set (so short
+    chains fire), all ones (every chain fires) or all zero (only empty
+    chains fire)."""
+    if kind == "ones":
+        return torch.full((B, Wa), -1, dtype=torch.int32)
+    if kind == "zero":
+        return torch.zeros((B, Wa), dtype=torch.int32)
+    bits = np.random.default_rng(seed).random((B, Wa * 32)) < 0.9
+    return torch.from_numpy(packetizer.pack_bits_np(bits.astype(np.uint8)).view(np.int32))
+
+
+def _schedule_kernels_agree(dev, lit, iw, votes, **tiling):
+    """Both schedule kernels against their plain versions, tolerance 0, on
+    the full schedules (exact and early exit), every quality prefix and a
+    tile table whose clause blocks list their tiles in reverse order."""
+    from repro_torch.kernels import anytime, sparse_infer, term_infer
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
+    lit, v = lit.to(dev).contiguous(), g(votes)
+    swing = anytime.total_swing(votes)
+    sched = sparse_infer.build_schedule(iw, **tiling)
+    fs = term_infer.build_factorized_schedule(iw, **tiling)
+    for kind, full, margins, min_tiles, prefix in (
+            ("sparse", sched, anytime.sparse_tile_margins(sched, votes), 1,
+             anytime.sparse_prefix_schedule),
+            ("factorized", fs, anytime.factorized_tile_margins(fs, votes),
+             fs.n_term_tiles + 1, anytime.factorized_prefix_schedule)):
+        levels = [q["n_tiles"] for q in anytime.quality_prefixes(margins, swing,
+                                                                 min_tiles=min_tiles)]
+        for n_tiles, margin in [(full.n_tiles, None), (full.n_tiles, margins)] + [
+                (n, None) for n in levels]:
+            s = full if n_tiles == full.n_tiles else prefix(full, n_tiles)
+            t = s.tensors(dev)
+            m = None if margin is None else g(margin)
+            if kind == "sparse":
+                args = (lit, t["chain_ids"], v, t["tiles"], t["indptr"])
+                kw = dict(block_c=s.block_c, block_j=s.block_j, tile_margin=m)
+                want = sparse_infer.sparse_tables_plain(*args, **kw)
+                got = sparse_infer.sparse_tables_cuda(*args, **kw)
+            else:
+                args = (lit, t["term_chain"], t["clause_chain"], v, t["tiles"], t["indptr"])
+                kw = dict(block_c=s.block_c, block_j=s.block_j,
+                          n_term_tiles=s.n_term_tiles, tile_margin=m)
+                want = term_infer.factorized_tables_plain(*args, **kw)
+                got = term_infer.factorized_tables_cuda(*args, **kw)
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), want.cpu().numpy(),
+                err_msg=f"{kind} {tiling} tiles {n_tiles}/{full.n_tiles} early={m is not None}")
+    # a clause block's tiles in reverse order: the walk's tile-by-tile path
+    t = sched.tensors(dev)
+    tiles = t["tiles"].clone()
+    for cb in range(sched.n_cblocks):
+        lo, hi = int(sched.indptr[cb]), int(sched.indptr[cb + 1])
+        tiles[1, lo:hi] = tiles[1, lo:hi].flip(0)
+    args = (lit, t["chain_ids"], v, tiles, t["indptr"])
+    for m in (None, g(anytime.sparse_tile_margins(sched, votes))):
+        kw = dict(block_c=sched.block_c, block_j=sched.block_j, tile_margin=m)
+        np.testing.assert_array_equal(sparse_infer.sparse_tables_cuda(*args, **kw).cpu().numpy(),
+                                      sparse_infer.sparse_tables_plain(*args, **kw).cpu().numpy(),
+                                      err_msg=f"tiles reversed {tiling} early={m is not None}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kind,B", [
+    *[("asset", "random", B) for B in (1, 31, 32, 33, 97, 512, 513, 1030)],
+    ("asset", "ones", 97), ("asset", "zero", 97),
+    *[(case, kind, B) for case, B in (("empty_clause", 97), ("long_clause", 33),
+                                      ("ragged_U", 513), ("k32", 70))
+      for kind in ("random", "ones", "zero")],
+])
+def test_cuda_schedule_kernels_equal_plain_versions(cuda_device, case, kind, B):
+    """sparse_tables_cuda and factorized_tables_cuda against their plain
+    versions, tolerance 0, exact and early exit and at every quality
+    prefix: on the committed tm-mnist artifact at the serve shapes (B 1 to
+    1030: one to more than two 16-word slabs), and on synthetic banks with
+    empty clauses that carry votes, one chain 200 long in a block of short
+    ones, U not a multiple of block_c and K 32, at the default tiling and
+    at block_c 8 / block_j 4; requests random, all ones and all zero."""
+    if case == "asset":
+        from repro_torch.data.synthetic import make_boolean_classification
+        comp = compiler.CompiledTM.load(ASSET)
+        iw, votes = comp.include_words, np.asarray(comp.votes, np.int32)
+        if kind == "random":
+            X, _ = make_boolean_classification(B, 784, 10, seed=B)
+            lit = packetizer.pack_literals(torch.from_numpy(X))[:, torch.from_numpy(
+                np.asarray(comp.word_ids, np.int64))]
+        else:
+            lit = _requests(kind, B, iw.shape[1], B)
+        tilings = [dict()]
+    else:
+        iw, votes = _schedule_bank(case)
+        lit = _requests(kind, B, iw.shape[1], B)
+        tilings = [dict(), dict(block_c=8, block_j=4)]
+    for tiling in tilings:
+        _schedule_kernels_agree(cuda_device, lit, iw, votes, **tiling)
+
+
+@pytest.mark.cuda
+def test_cuda_schedule_occupancy(cuda_device):
+    """The exact walks' grid at the serve bucket and past it (B 512 and
+    1030: 2 and 5 slabs of 8 words, 32 clauses a block), a thread a chain,
+    no spills."""
+    from repro_torch.kernels import sparse_infer, term_infer
+    for mod, n_cblocks, block_c in ((sparse_infer, 4, 512), (term_infer, 2, 1024)):
+        for B, grid_y in ((512, 2), (1030, 5)):
+            occ = mod.occupancy(B, n_cblocks, block_c, 10)
+            assert (occ["grid_x"], occ["grid_y"]) == (n_cblocks * block_c // 32, grid_y), occ
+            assert occ["chain_threads"] == 1 and occ["local_bytes"] == 0, occ
+            assert occ["blocks_per_sm"] >= 1, occ
 
 
 # -- training kernels -----------------------------------------------------------
