@@ -26,9 +26,15 @@ serve bucket's ``fused_infer``, ``sparse_infer`` and ``term_infer`` in
 The three trained banks must
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
-to the oracle on every engine.  Checks that the flash library's SASS holds
-tensor-core MMA instructions, and holds and times the bf16 flash kernel at
-hd 128 (qwen3-32b's attention) beside ``scaled_dot_product_attention``.
+to the oracle on every engine.  ``class_sum`` is also held and timed on the
+unfused dense rung's shape, the serve bucket's fire matrix over the
+artifact's clauses (``CLASS_SUM_SERVE``).  Checks that the flash and
+xnor_popcount libraries' SASS holds tensor-core MMA instructions (HGMMA;
+BMMA), times xnor_popcount at every BNN layer (``BNN_TIMES``, beside a
+float32 ``torch.matmul`` and an int8 ``torch._int_mm`` of the +-1 matrices,
+timed only) and prints its launch shape (``BNN_OCCUPANCY``), and holds and
+times the bf16 flash kernel at hd 128 (qwen3-32b's attention) beside
+``scaled_dot_product_attention``.
 Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
@@ -64,8 +70,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # __popc issues at 16 per SM per clock on compute capability 9.0, a quarter
 # of the 32-bit integer rate (CUDA programming guide, arithmetic instruction
-# throughput table), so xnor_popcount's population counts run at this rate
+# throughput table): xnor_popcount's floor if its counts ran on the CUDA
+# cores, printed as information
 POPC_OPS_PER_S = 132 * 16 * 1.98e9
+# dense int8 tensor-core peak (NVIDIA data sheet): the same 0/1 products as
+# xnor_popcount's one-bit products, 2 operations a product
+INT8_OPS_PER_S = 1979e12
 # dense bf16 tensor-core peak (NVIDIA data sheet), the rate flash
 # attention's products could run at
 BF16_FLOPS_PER_S = 989e12
@@ -322,7 +332,7 @@ class Training:
         if name == "clause_eval":
             a = (t["lit_words"], t["inc_words"])
             return lambda: m.clause_fire_cuda(*a), lambda: m.clause_fire_plain(*a)
-        a = (fire.to(self.torch.int8), self.votes[sl])
+        a = (fire, self.votes[sl])    # uint8, as the unfused step passes it
         return lambda: m.class_sum_cuda(*a), lambda: m.class_sum_plain(*a)
 
     def fused_infer_calls(self, t):
@@ -425,7 +435,8 @@ def train_phases(dev, max_err, launches):
     import torch
 
     from repro_torch.core import compiler, packetizer
-    from repro_torch.kernels import clause_eval, fused_infer, fused_train, ops, ta_update
+    from repro_torch.kernels import (class_sum, clause_eval, fused_infer, fused_train, ops,
+                                     ta_update)
 
     tr = Training(dev)
     runs = {"fused": (), "--no-fuse": ("--no-fuse",),
@@ -511,7 +522,8 @@ def train_phases(dev, max_err, launches):
         fused_train=fused_train.occupancy(TRAIN_BATCH, L, W),
         ta_update=ta_update.occupancy(TRAIN_BATCH, L),
         fused_infer=fused_infer.occupancy(TRAIN_BATCH, C),
-        clause_eval=clause_eval.occupancy(TRAIN_BATCH, C))))
+        clause_eval=clause_eval.occupancy(TRAIN_BATCH, C),
+        class_sum=class_sum.occupancy(TRAIN_BATCH, C, K))))
     work, draws = tr.work(t, fire, ftype)
     fi["bound_ms"], fi["bound_by"] = bound(work["fused_infer"][0],
                                            work["fused_infer"][1] / INT32_OPS_PER_S * 1e3)
@@ -549,8 +561,10 @@ def train_phases(dev, max_err, launches):
         us = device_us(prof)
         busy_s = sum(u for u, _ in us.values()) / 1e6
         top = sorted(us.items(), key=lambda kv: -kv[1][0])[:10]
+        n_launch = sum(n for _, n in us.values())
         print("TRAIN_PROFILE " + json.dumps(dict(
             run=label, steps=10, wall_s=wall_s, device_busy_s=busy_s if us else None,
+            device_launches=n_launch, device_launches_per_step=n_launch / 10,
             idle_share=1 - busy_s / wall_s if us else None,
             top=[dict(name=k[:60], us=u, count=n) for k, (u, n) in top])))
     return times, work
@@ -565,14 +579,23 @@ def bound(n_bytes, t_ops_ms):
 
 def bnn_phase(dev) -> dict:
     """The BNN baseline: train 784-256-256-256-10 one epoch, pack, predict
-    10,000 samples through xnor_popcount; the kernel against its plain
-    version on every layer's inputs; times at the first layer's shape."""
+    10,000 samples through xnor_popcount; the kernel's tensor-core
+    instructions in its SASS; the kernel against its plain version on every
+    layer's inputs; times at every layer's shape, the first layer's for the
+    kernels line."""
     import torch
 
     from repro_torch.baselines import bnn
     from repro_torch.core import packetizer
     from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import _build
     from repro_torch.kernels import xnor_popcount as xp
+
+    # the one-bit products run on the tensor cores: BMMA in the SASS
+    mma = sass_mma(_build._lib_path("xnor_popcount"), ("BMMA", "IMMA"))
+    check(mma and all(n > 0 for n in mma.values()),
+          f"an xnor_popcount kernel has no tensor-core MMA in its SASS: {mma}")
+    print("xnor_popcount SASS tensor-core MMA (BMMA, IMMA) instructions: " + json.dumps(mma))
 
     X, y, Xte, yte = paper_dataset("mnist", n_train=4000, n_test=BNN_TEST)
     # one epoch at the default rate (1e-3) leaves the net near chance
@@ -632,26 +655,50 @@ def bnn_phase(dev) -> dict:
 
     per_layer = []
     for aw, w, n_bits in layers:
-        per_layer.append(dict(W=aw.shape[1], O=w.shape[0], ms=cuda_time_ms(
-            lambda aw=aw, w=w, n_bits=n_bits: xp.xnor_popcount_cuda(aw, w, n_bits))))
+        run = lambda aw=aw, w=w, n_bits=n_bits: xp.xnor_popcount_cuda(aw, w, n_bits)
+        per_layer.append(dict(W=aw.shape[1], O=w.shape[0], ms=cuda_time_ms(run),
+                              **profile_device(run)[0]))
+    print("BNN_OCCUPANCY " + json.dumps([dict(B=aw.shape[0], W=aw.shape[1], O=w.shape[0],
+                                              **xp.occupancy(aw.shape[0], w.shape[0],
+                                                             aw.shape[1]))
+                                         for aw, w, _ in layers]))
     aw, w, n_bits = layers[0]
     B, W = aw.shape
     O = w.shape[0]
     kern = lambda: xp.xnor_popcount_cuda(aw, w, n_bits)
     plain = lambda: xp.xnor_popcount_plain(aw, w, n_bits)
+    # yardsticks, timed only: one float32 product of the +-1 matrices, and
+    # torch._int_mm of them as int8; the row's library_ms is the faster
     pm_a = 2.0 * x.to(torch.float32) - 1.0
     pm_w = torch.sign(torch.where(params[0] == 0, 1.0, params[0]))
+    i8_a, i8_w = pm_a.to(torch.int8), pm_w.to(torch.int8)
+    lib = {}
+    for name, call in (("float32 torch.matmul", lambda: torch.matmul(pm_a, pm_w)),
+                       ("int8 torch._int_mm", lambda: torch._int_mm(i8_a, i8_w))):
+        try:
+            same = torch.equal(call().to(torch.int32), kern())
+        except RuntimeError as e:   # a yardstick only: note it and go on
+            lib[name] = dict(error=str(e)[:200])
+            continue
+        check(same, f"{name} of the +-1 matrices != xnor_popcount")
+        lib[name] = dict(ms=cuda_time_ms(call), **profile_device(call)[0])
+    timed = [k for k in lib if lib[k].get("device_ms") is not None]
+    check(timed, f"no library yardstick timed: {lib}")
+    fast = min(timed, key=lambda k: lib[k]["device_ms"])
     row = dict(ms=cuda_time_ms(kern), plain_ms=cuda_time_ms(plain, reps=5),
-               library_ms=cuda_time_ms(lambda: torch.matmul(pm_a, pm_w)),
-               **profile_device(lambda: torch.matmul(pm_a, pm_w), key="library_device_ms")[0])
+               library_ms=lib[fast]["ms"], library_device_ms=lib[fast]["device_ms"],
+               library_device_ms_spread=lib[fast]["device_ms_spread"], library_call=fast,
+               library_calls=lib)
     dev_ms, per = profile_device(kern)
     row.update(dev_ms)
     print(f"xnor_popcount device work per call at B={B} W={W} O={O}: {json.dumps(per)}")
-    n_words = B * O * W
-    # per word: one population count, one three-input logic op (xnor), one add
-    t_ops = max(n_words / POPC_OPS_PER_S, 2 * n_words / INT32_OPS_PER_S) * 1e3
-    row["bound_ms"], row["bound_by"] = bound(nbytes(aw, w) + B * O * 4, t_ops)
-    print("BNN_TIMES " + json.dumps(dict(row, shape=dict(B=B, W=W, O=O),
+    # bound: the bytes (packed inputs read once, int32 output written once)
+    # against the B x O x n_bits one-bit products at the int8 tensor-core rate;
+    # the population-count floor (B x O x W words on the CUDA cores) as information
+    row["bound_ms"], row["bound_by"] = bound(nbytes(aw, w) + B * O * 4,
+                                             2 * B * O * n_bits / INT8_OPS_PER_S * 1e3)
+    row["popc_floor_ms"] = B * O * W / POPC_OPS_PER_S * 1e3
+    print("BNN_TIMES " + json.dumps(dict(row, shape=dict(B=B, W=W, O=O, n_bits=n_bits),
                                          per_layer=per_layer, predict_ms=predict_ms,
                                          train_s=train_s)))
     return dict(row, launches=launches, max_abs_err=max_err, tolerance=0)
@@ -740,14 +787,15 @@ def split_device_time(us) -> dict:
     return out
 
 
-def sass_mma(lib) -> dict:
-    """{kernel function: tensor-core MMA instructions (HGMMA, Hopper's
-    warpgroup MMA, and HMMA)} in the SASS of a built library, from
+def sass_mma(lib, kinds=("HGMMA", "HMMA")) -> dict:
+    """{kernel function: tensor-core MMA instructions of ``kinds`` (HGMMA,
+    Hopper's warpgroup MMA, and HMMA by default; BMMA and IMMA are the
+    one-bit and integer forms)} in the SASS of a built library, from
     ``cuobjdump -sass``."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
-    check(tool is not None, "cuobjdump not found: cannot read the flash kernel's SASS")
+    check(tool is not None, f"cuobjdump not found: cannot read the SASS of {lib}")
     res = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     check(res.returncode == 0, f"cuobjdump -sass {lib} failed: {res.stderr[-2000:]}")
@@ -756,7 +804,7 @@ def sass_mma(lib) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and ("HGMMA" in line or "HMMA" in line):
+        elif fn is not None and any(k in line for k in kinds):
             counts[fn] += 1
     return counts
 
@@ -910,7 +958,8 @@ def main() -> None:
 
         from repro_torch.core import compiler, packetizer
         from repro_torch.data.synthetic import make_boolean_classification
-        from repro_torch.kernels import _build, fused_infer, ref, sparse_infer, term_infer
+        from repro_torch.kernels import (_build, class_sum, fused_infer, ref, sparse_infer,
+                                         term_infer)
         from repro_torch.launch import serve
     except ImportError as e:
         fail(f"the port's package is not importable from {ROOT}/src: {e}")
@@ -1042,6 +1091,23 @@ def main() -> None:
             print(f"{name} device work per call at B={BUCKET}"
                   f"{' (early exit)' if margin_on else ''}: {json.dumps(per)}")
     K = votes.shape[1]
+    # class_sum on the unfused dense rung's shape: the bucket's fire matrix
+    # over the artifact's clauses (int8, as clause_fire gives it)
+    fired = ref.clause_fire_ref(xw_all[:BUCKET].contiguous(), inc)
+    a = (fired, votes)
+    got, want = class_sum.class_sum_cuda(*a), class_sum.class_sum_plain(*a)
+    torch.cuda.synchronize()
+    cs_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(cs_err == 0, f"class_sum B={BUCKET}: kernel differs from its plain version by {cs_err}")
+    U = fired.shape[1]
+    cs_serve = dict(shape=dict(B=BUCKET, C=U, K=K),
+                    ms=cuda_time_ms(lambda: class_sum.class_sum_cuda(*a)),
+                    plain_ms=cuda_time_ms(lambda: class_sum.class_sum_plain(*a), reps=5),
+                    **profile_device(lambda: class_sum.class_sum_cuda(*a))[0],
+                    occupancy=class_sum.occupancy(BUCKET, U, K))
+    cs_serve["bound_ms"], cs_serve["bound_by"] = bound(
+        nbytes(fired, votes) + BUCKET * K * 4, BUCKET * U * K / INT32_OPS_PER_S * 1e3)
+    print("CLASS_SUM_SERVE " + json.dumps(cs_serve))
     print("INFER_OCCUPANCY " + json.dumps(dict(
         B=BUCKET, C=inc.shape[0], W=inc.shape[1], K=K,
         fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0]),
@@ -1092,6 +1158,7 @@ def main() -> None:
     # 7. the training path, its kernels, resume, train -> compile -> serve
     for name in TRAIN_KERNELS:
         max_err[name] = 0
+    max_err["class_sum"] = cs_err
     train_times, train_work = train_phases(dev, max_err, launches)
 
     # 8. the BNN baseline and the LM serving path
@@ -1171,6 +1238,8 @@ def main() -> None:
                    tolerance=0)
         if row["library_ms"] is None:
             row["library_note"] = "no single PyTorch call computes this function"
+        if name == "class_sum":   # also its launch on the unfused dense rung
+            row.update({f"serve_{k}": v for k, v in cs_serve.items() if k != "occupancy"})
         rows.append(row)
     for name, (meta, r) in extra_rows.items():
         rows.append(dict(name=name, route="cuda", source=meta["source"],

@@ -4,7 +4,7 @@
 :func:`class_sum` runs ``csrc/class_sum.cu`` for CUDA tensors and
 :func:`class_sum_plain` (``ref.class_sum_ref``) for CPU tensors.  It sums
 the unfused training step's class votes and the unfused dense inference
-pipeline's.
+pipeline's.  ``fired`` may be int8 or uint8: the kernel reads bytes.
 """
 
 from __future__ import annotations
@@ -16,11 +16,12 @@ from repro_torch.kernels.ref import class_sum_ref
 
 # kernel launches through class_sum on CUDA tensors
 launches = 0
+LAUNCH_FIELDS = ("grid_x", "split", "samples_per_block")
 
 
 def _check(fired, votes):
-    if fired.dtype != torch.int8:
-        raise TypeError(f"fired must be int8, got {fired.dtype}")
+    if fired.dtype not in (torch.int8, torch.uint8):
+        raise TypeError(f"fired must be int8 or uint8, got {fired.dtype}")
     if votes.dtype != torch.int32:
         raise TypeError(f"votes must be int32, got {votes.dtype}")
     for name, t in dict(fired=fired, votes=votes).items():
@@ -49,15 +50,24 @@ def class_sum_cuda(fired, votes):
     K = votes.shape[1]
     out = torch.empty((B, K), dtype=torch.int32, device=fired.device)
     P, I = _build.P, _build.I
-    fn = _build.entry("class_sum", "class_sum_launch", [P, P, P, I, I, I, P])
-    err = fn(_build.ptr(fired), _build.ptr(votes), _build.ptr(out), B, C, K,
-             _build.stream_ptr(fired.device))
+    fn = _build.entry("class_sum", "class_sum_launch", [P, I, P, P, I, I, I, P])
+    # the launch chooses its cluster size and samples a block (see occupancy)
+    err = fn(_build.ptr(fired), int(fired.dtype == torch.int8), _build.ptr(votes),
+             _build.ptr(out), B, C, K, _build.stream_ptr(fired.device))
     _build.check("class_sum", err)
     launches += 1
     return out
 
 
+def occupancy(B: int, C: int, K: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, shared and spill bytes, and the grid, cluster size along the clause
+    axis and samples a block it launches with at batch ``B``, ``C`` clauses
+    and ``K`` classes."""
+    return _build.occupancy("class_sum", B, C, K, extra=LAUNCH_FIELDS)
+
+
 def class_sum(fired: torch.Tensor, votes: torch.Tensor) -> torch.Tensor:
     """(B, C) {0,1} int8/uint8 x (C, K) int32 -> (B, K) int32 class sums."""
-    args = (fired.to(torch.int8).contiguous(), votes.to(torch.int32).contiguous())
+    args = (fired.contiguous(), votes.to(torch.int32).contiguous())
     return class_sum_cuda(*args) if fired.is_cuda else class_sum_plain(*args)

@@ -5,6 +5,11 @@ the {-1, +1} vectors the bits encode.
 :func:`xnor_popcount` runs ``csrc/xnor_popcount.cu`` for CUDA tensors and
 :func:`xnor_popcount_plain` (``ref.xnor_popcount_ref``) for CPU tensors.
 ``ops.xnor_dot`` and ``baselines/bnn.py:bnn_predict`` call it.
+
+The kernel takes the dot over the first ``n_bits`` bits only; the plain
+version counts the pad bits past them as matches.  The two agree whenever
+the pad bits of ``a_words`` and ``w_words`` agree, as ``pack_bits``' zero
+pads do.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from repro_torch.kernels.ref import xnor_popcount_ref
 
 # kernel launches through xnor_popcount on CUDA tensors
 launches = 0
+LAUNCH_FIELDS = ("grid_x", "grid_y", "warp_cols", "block_rows")
 
 
 def _check(a_words, w_words, n_bits):
@@ -58,6 +64,15 @@ def xnor_popcount_cuda(a_words, w_words, n_bits: int):
     _build.check("xnor_popcount", err)
     launches += 1
     return out
+
+
+def occupancy(B: int, O: int, W: int) -> dict:
+    """The kernel's registers a thread, threads a block, resident blocks per
+    SM, dynamic shared and spill bytes, and the grid, warps side by side
+    along O and samples a block (a block is block_rows samples x 32 *
+    warp_cols outputs) it launches with at batch ``B``, ``O`` outputs and
+    ``W`` words."""
+    return _build.occupancy("xnor_popcount", B, O, W, extra=LAUNCH_FIELDS)
 
 
 def xnor_popcount(a_words: torch.Tensor, w_words: torch.Tensor,

@@ -53,6 +53,37 @@ def test_xnor_popcount_plain_equals_reference(B, O, W, pad):
     np.testing.assert_array_equal(want, pm.astype(np.int32))
 
 
+@pytest.mark.parametrize("B,O,W,pad,ones", [(9, 6, 1, 31, False), (9, 6, 1, 31, True),
+                                            (33, 65, 4, 13, True), (50, 256, 25, 16, False),
+                                            (17, 10, 8, 0, False), (20, 12, 26, 7, True)])
+def test_xnor_dot_equals_the_and_popcount_form(B, O, W, pad, ones):
+    """The CUDA kernel's arithmetic, dot = n - 2 pa - 2 pw + 4 popcount(a & w)
+    over the first n_bits bits (pads masked off), against the port's
+    xnor_popcount_ref and the reference's Pallas kernel (interpret mode).
+    ``ones`` sets the pad bits in both operands: they agree, so the XNOR
+    forms count them as matches and the masked form never sees them."""
+    rng = np.random.default_rng(7 * B + O + pad)
+    n_bits = W * 32 - pad
+    a_bits = rng.integers(0, 2, (B, n_bits), dtype=np.uint8)
+    w_bits = rng.integers(0, 2, (O, n_bits), dtype=np.uint8)
+    ra, rw = r_pk.pack_bits_np(a_bits), r_pk.pack_bits_np(w_bits)
+    mask = np.full(W, 0xFFFFFFFF, np.uint32)
+    if n_bits % 32:
+        mask[-1] = (1 << (n_bits % 32)) - 1
+    if ones:
+        ra, rw = ra | ~mask, rw | ~mask
+    ta, tw = (torch.from_numpy(x.view(np.int32).copy()) for x in (ra, rw))
+    am, wm = (torch.from_numpy((x & mask).astype(np.int64)) for x in (ra, rw))
+    pa, pw = t_ref.popcount32(am).sum(1), t_ref.popcount32(wm).sum(1)
+    s = sum(t_ref.popcount32(am[:, i, None] & wm[None, :, i]) for i in range(W))
+    dot = (n_bits - 2 * pa[:, None] - 2 * pw[None, :] + 4 * s).to(torch.int32)
+    np.testing.assert_array_equal(dot.numpy(), t_ref.xnor_popcount_ref(ta, tw, n_bits).numpy())
+    np.testing.assert_array_equal(
+        dot.numpy(), np.asarray(r_ops.xnor_dot(jnp.asarray(ra), jnp.asarray(rw), n_bits, **KW)))
+    pm = (2.0 * a_bits - 1) @ (2.0 * w_bits - 1).T
+    np.testing.assert_array_equal(dot.numpy(), pm.astype(np.int32))
+
+
 def test_popcount32_on_edge_words():
     words = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x55555555,
                       0xDEADBEEF], np.uint32)

@@ -409,6 +409,90 @@ def test_cuda_xnor_popcount_equals_plain(cuda_device, B, O, W, pad):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def _pad_ones(words, n_bits):
+    """Set the bits of the last word past ``n_bits`` (int32 bit patterns)."""
+    if n_bits % 32:
+        words = words.clone()
+        words[:, -1] |= torch.tensor(~((1 << (n_bits % 32)) - 1) & 0xFFFFFFFF,
+                                     dtype=torch.int64).to(torch.int32)
+    return words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 15, 17, 64, 10000])
+@pytest.mark.parametrize("O", [1, 8, 10, 256, 257])
+def test_cuda_xnor_popcount_shapes_and_pads(cuda_device, B, O):
+    """The tensor-core kernel at every edge the wrapper takes: B not a
+    multiple of a block's samples, O past a block's 256 outputs or not a
+    multiple of 4, one word, a ragged last word (pad 31), pad bits set in
+    both operands (they agree, so the plain version counts them as
+    matches), and W past one 32-word slab (40, 70) at two batch sizes."""
+    from repro_torch.kernels import xnor_popcount
+    rng = np.random.default_rng(B * 1000 + O)
+    for W in (1, 8, 25, 26) + ((40, 70) if B in (17, 10000) else ()):
+        for pad, ones in ((0, False), (31, False), (31, True), (13, True)):
+            n_bits = W * 32 - pad
+            a = packetizer.pack_bits(torch.from_numpy(
+                rng.integers(0, 2, (B, n_bits), dtype=np.uint8))).to(cuda_device)
+            w = packetizer.pack_bits(torch.from_numpy(
+                rng.integers(0, 2, (O, n_bits), dtype=np.uint8))).to(cuda_device)
+            if ones:
+                a, w = _pad_ones(a, n_bits), _pad_ones(w, n_bits)
+            want = xnor_popcount.xnor_popcount_plain(a, w, n_bits)
+            got = xnor_popcount.xnor_popcount_cuda(a, w, n_bits)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (W, pad, ones)
+
+
+@pytest.mark.cuda
+def test_cuda_xnor_popcount_occupancy(cuda_device):
+    """The BNN's layers: 48 samples x 256 outputs a block at O 256 (one wave
+    at B 10,000), 256 x 32 at O 10, one block column, no spills."""
+    from repro_torch.kernels import xnor_popcount
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for O in (256, 10):
+        occ = xnor_popcount.occupancy(10000, O, 8)
+        assert (occ["grid_x"], occ["grid_y"]) == (-(-10000 // occ["block_rows"]), 1), occ
+        assert (occ["warp_cols"], occ["block_rows"]) == ((8, 48) if O == 256 else (1, 256)), occ
+        assert occ["grid_x"] <= occ["blocks_per_sm"] * sms and occ["local_bytes"] == 0, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 512, 1030])
+@pytest.mark.parametrize("C", [1, 15, 16, 2000, 2048, 2049])
+def test_cuda_class_sum_shapes_and_byte_types(cuda_device, B, C):
+    """class_sum against its plain version (on the CPU) at every K tiling
+    (1, 10, 16, 17, 32 classes), general votes up to +-2^20, fired as int8
+    and as uint8; then arbitrary bytes (signed and not) with smaller votes."""
+    from repro_torch.kernels import class_sum
+    rng = np.random.default_rng(B * 10000 + C)
+    for K in (1, 10, 16, 17, 32):
+        votes = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20 + 1, (C, K), dtype=np.int32))
+        fired = torch.from_numpy(rng.integers(0, 2, (B, C), dtype=np.int8))
+        for dt in (torch.int8, torch.uint8):
+            want = class_sum.class_sum_plain(fired.to(dt), votes)
+            got = class_sum.class_sum(fired.to(dt).to(cuda_device), votes.to(cuda_device))
+            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    votes = torch.from_numpy(rng.integers(-2 ** 10, 2 ** 10 + 1, (C, 10), dtype=np.int32))
+    raw = rng.integers(0, 256, (B, C), dtype=np.uint8)
+    for f in (torch.from_numpy(raw), torch.from_numpy(raw.view(np.int8))):
+        want = class_sum.class_sum_plain(f, votes)
+        got = class_sum.class_sum(f.to(cuda_device), votes.to(cuda_device))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_class_sum_occupancy(cuda_device):
+    """The unfused training step's shape (B 64, 2048 clauses) splits the
+    clause axis over a cluster, so the grid covers more than 64 SMs; no
+    spills."""
+    from repro_torch.kernels import class_sum
+    occ = class_sum.occupancy(64, 2048, 10)
+    assert occ["split"] > 1 and occ["grid_x"] > 64, occ
+    assert occ["grid_x"] == occ["split"] * -(-64 // occ["samples_per_block"]), occ
+    assert occ["blocks_per_sm"] >= 1 and occ["local_bytes"] == 0, occ
+
+
 @pytest.mark.cuda
 def test_cuda_bnn_predict_equals_cpu(cuda_device):
     from repro_torch.baselines import bnn

@@ -104,6 +104,24 @@ def test_clause_fire_and_class_sum_match_reference(B, F, cpc):
                                     ne_t), want)
 
 
+@pytest.mark.parametrize("B,C,K", [(13, 35, 3), (64, 2048, 10), (5, 17, 33)])
+def test_class_sum_takes_int8_and_uint8_fired(B, C, K):
+    """class_sum reads fired as bytes: int8 and uint8 fire matrices give the
+    reference's class sums (its Pallas kernel in interpret mode), with
+    general votes; other types are refused."""
+    rng = np.random.default_rng(B + C + K)
+    fired = rng.integers(0, 2, (B, C), dtype=np.int8)
+    votes = rng.integers(-2 ** 19, 2 ** 19, (C, K), dtype=np.int32)
+    want = np.asarray(r_ops.class_sums(jnp.asarray(fired), jnp.asarray(votes), **KW))
+    for dt in (torch.int8, torch.uint8):
+        _eq(t_class_sum.class_sum(torch.from_numpy(fired).to(dt), torch.from_numpy(votes)),
+            want)
+    with pytest.raises(TypeError, match="int8 or uint8"):
+        t_class_sum.class_sum(torch.from_numpy(fired).to(torch.int32), torch.from_numpy(votes))
+    with pytest.raises(ValueError, match="CUDA"):
+        t_class_sum.class_sum_cuda(torch.from_numpy(fired), torch.from_numpy(votes))
+
+
 def _selection(rc, ta, x, y, seed, b_off, sl=slice(None), c_off=0, p=None):
     """Reference fire / ftype / lits for a (possibly sliced) bank.  ``p``
     sets every sample's selection probabilities p_t and p_n (1.0: every
