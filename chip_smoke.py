@@ -34,7 +34,13 @@ BMMA), times xnor_popcount at every BNN layer (``BNN_TIMES``, beside a
 float32 ``torch.matmul`` and an int8 ``torch._int_mm`` of the +-1 matrices,
 timed only) and prints its launch shape (``BNN_OCCUPANCY``), and holds and
 times the bf16 flash kernel at hd 128 (qwen3-32b's attention) beside
-``scaled_dot_product_attention``.
+``scaled_dot_product_attention``.  The online phase trains a live tm-mnist
+bank on the card (``fit(engine="kernel")``), drives the ``OnlineUpdater``
+(each step held to the plain versions, each recompiled candidate to a
+from-scratch compile, the promoted artifact to the oracle through both
+schedule kernels; ``ONLINE_DRILL``), then ``serve_tm --online --zoo 2``
+beside the same requests served without it (``ONLINE_SERVE``) and
+``serve_tm --zoo 4`` on the committed artifact (``ZOO_SERVE``).
 Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
@@ -48,8 +54,11 @@ any phase fails.  Imports nothing of JAX or of the reference package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -111,6 +120,17 @@ TRAIN_KERNELS = {
                       replaces="src/repro/kernels/ta_update.py:28"),
 }
 
+# the online phase: the live bank's boot training (tm-mnist at full width,
+# the cut is depth: 1 epoch on 2000 synthetic samples), the drift threshold
+# the drill and the --online serve run use (the reference's default; such a
+# bank drifts 15-24% a step, so every step rebuilds), the drill's feedback
+# batches (64 requests each, from the serving stream), and the zoo run's
+# tenants
+ONLINE_N_TRAIN, ONLINE_EPOCHS = 2000, 1
+ONLINE_DRIFT = 0.05
+ONLINE_STEPS = 24
+ONLINE_REQUESTS = 4096
+ZOO_TENANTS = 4
 
 BNN_SIZES = (784, 256, 256, 256, 10)
 BNN_TEST = 10000
@@ -568,6 +588,297 @@ def train_phases(dev, max_err, launches):
             idle_share=1 - busy_s / wall_s if us else None,
             top=[dict(name=k[:60], us=u, count=n) for k, (u, n) in top])))
     return times, work
+
+
+class _Tee(io.TextIOBase):
+    """Writes to several streams at once."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def serve_run(argv):
+    """``serve_tm`` on ``argv`` -> (SERVE_HEALTH, GATEWAY_HEALTH,
+    ONLINE_HEALTH, ms from the first offer to the drained gateway, as the
+    serve line prints it)."""
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        out = serve.serve_tm(serve.build_parser().parse_args(argv))
+    m = re.search(r"inferences in \d+ buckets of \d+ \[[^]]*\] in ([0-9.]+) ms",
+                  buf.getvalue())
+    check(m is not None, "serve_tm printed no serve line")
+    return (*out, float(m.group(1)))
+
+
+def online_phase(dev) -> dict:
+    """MATADOR's online loop on the card: a live tm-mnist bank trained by
+    the hash-RNG kernel trainer, the OnlineUpdater drill (every step held
+    to the plain versions, every candidate to a from-scratch compile, the
+    promoted artifact to the oracle), then ``serve_tm --online`` and
+    ``serve_tm --zoo``.  Returns the drill's numbers."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.matador_tm import TM_MNIST
+    from repro_torch.core import compiler, packetizer, tm, train
+    from repro_torch.data.synthetic import make_boolean_classification
+    from repro_torch.kernels import fused_infer, fused_train, sparse_infer, term_infer
+    from repro_torch.runtime import online
+    from repro_torch.runtime.zoo import ArtifactZoo
+
+    mods = {"fused_infer": fused_infer, "fused_train": fused_train,
+            "sparse_infer": sparse_infer, "term_infer": term_infer}
+
+    def zero():
+        for m in mods.values():
+            m.launches = 0
+
+    def counts():
+        return {k: m.launches for k, m in mods.items()}
+
+    c = TM_MNIST
+    tr = Training(dev)
+    print(f"online: drift threshold {ONLINE_DRIFT}, {ONLINE_STEPS} feedback batches "
+          f"of 64, live bank {ONLINE_EPOCHS} epoch on {ONLINE_N_TRAIN} samples "
+          "(tm-mnist at full width; the cut is depth)")
+
+    # 1. the live bank on the card: fit(engine="kernel"), then compile
+    X, y = make_boolean_classification(ONLINE_N_TRAIN, c.n_features, c.n_classes, seed=0)
+    zero()
+    t0 = time.perf_counter()
+    state = tm.init(c, torch.Generator().manual_seed(0), dev)
+    state = train.fit(c, state, torch.from_numpy(X), torch.from_numpy(y),
+                      epochs=ONLINE_EPOCHS, batch_size=64,
+                      generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    boot_counts = counts()
+    check(boot_counts["fused_train"] > 0, "the live bank's training launched no fused_train")
+    boot = compiler.compile_tm(c, state.ta_state)
+    boot.schedule()
+    print(f"online: live bank trained in {boot_s:.2f} s, launches {boot_counts}; "
+          f"U={boot.n_unique} includes={boot.stats.n_includes} "
+          f"sharing={boot.stats.partial_term_sharing:.3f}")
+
+    # 2. the drill: immediate swaps through a zoo, batches from the request
+    # stream; each candidate is held to a from-scratch compile of its bank
+    Xr, yr = make_boolean_classification((ONLINE_STEPS + 8) * 64, c.n_features,
+                                         c.n_classes, seed=2)
+    nb = online.OnlineUpdater._artifact_nbytes(boot)
+    checked, banks = [], []
+
+    def make_obj(cand):
+        fresh = compiler.compile_tm(c, upd.bank)
+        for f in ("include_words", "word_ids", "votes"):
+            check(np.array_equal(getattr(cand, f), getattr(fresh, f)),
+                  f"candidate {len(checked)}: {f} != a from-scratch compile_tm")
+        check(cand.stats.as_dict() == fresh.stats.as_dict(),
+              f"candidate {len(checked)}: stats != a from-scratch compile_tm")
+        want = sparse_infer.build_schedule(fresh.include_words)
+        got = cand.default_schedule
+        for f in ("block_c", "block_j", "n_rows", "n_lit_bits"):
+            check(getattr(got, f) == getattr(want, f), f"candidate schedule {f}")
+        for f in ("chain_ids", "tile_cb", "tile_jb", "tile_first", "tile_last",
+                  "counts", "indptr"):
+            check(np.array_equal(getattr(got, f), getattr(want, f)),
+                  f"candidate {len(checked)}: schedule {f} != build_schedule")
+        checked.append(cand)
+        banks.append(upd.bank)
+        return {"compiled": cand}, online.OnlineUpdater._artifact_nbytes(cand)
+
+    zoo = ArtifactZoo(lambda tenant: ({"compiled": boot}, nb))
+    with zoo.lease("t0"):
+        pass
+    upd = online.OnlineUpdater(
+        c, state.ta_state, boot,
+        cfg=online.OnlineConfig(drift_threshold=ONLINE_DRIFT, batch_size=64,
+                                swap_policy="immediate"),
+        zoo=zoo, tenant="t0", make_obj=make_obj,
+        deployed_obj={"compiled": boot}, deployed_nbytes=nb)
+    drifts, rebuild_ms = [], []
+    zero()
+    for i in range(ONLINE_STEPS):
+        prev, g = upd.bank, upd.gstep
+        xb, yb = Xr[i * 64:(i + 1) * 64], yr[i * 64:(i + 1) * 64]
+        for j in range(64):
+            check(upd.ingest(xb[j], int(yb[j])), "the updater refused clean feedback")
+        t0 = time.perf_counter()
+        check(upd.step(), "a full feedback batch did not step")
+        torch.cuda.synchronize()
+        rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+        want = tr.plain_step(prev, torch.from_numpy(xb).to(dev),
+                             torch.from_numpy(yb).to(dev), g)
+        check(torch.equal(upd.bank, want),
+              f"online step {g}: the bank differs from the plain versions' step")
+        drifts.append(upd.last_drift)
+    drill_counts = counts()
+    h = upd.health()
+    check(h["rebuilds"] >= 1 and h["incremental_rebuilds"] >= 1,
+          f"the drill rebuilt {h['rebuilds']} times, {h['incremental_rebuilds']} "
+          "incrementally: it needs at least one incremental rebuild")
+    check(h["promotions"] >= 1 and h["rebuild_failures"] == 0 and not h["rollbacks"],
+          f"the drill promoted nothing or failed: {h}")
+    check(len(checked) == h["rebuilds"], "a candidate was not checked")
+    check(drill_counts["fused_train"] == ONLINE_STEPS
+          and drill_counts["fused_infer"] >= ONLINE_STEPS,
+          f"online steps launched {drill_counts}")
+
+    # the promoted artifact through both schedule kernels at the bucket
+    dep = upd.deployed
+    check(dep is checked[-1] and zoo.version("t0") == h["promotions"] + 1,
+          "the zoo does not serve the last promoted candidate")
+    xp = packetizer.pack_literals(torch.from_numpy(Xr[:BUCKET]).to(dev))
+    oracle = compiler.run_compiled(dep, xp, engine="oracle")
+    zero()
+    for eng in ("factorized", "sparse"):
+        out = compiler.run_compiled(dep, xp, engine=eng)
+        torch.cuda.synchronize()
+        check(torch.equal(out, oracle),
+              f"promoted artifact: run_compiled({eng}) != oracle at B={BUCKET}")
+    check(term_infer.launches > 0 and sparse_infer.launches > 0,
+          "the promoted artifact was not served through both schedule kernels")
+    print(f"online: promoted artifact through term_infer and sparse_infer at "
+          f"B={BUCKET} == oracle")
+
+    # one online step on the card, and a rebuild on the host
+    xb_t = torch.from_numpy(Xr[:64]).to(dev)
+    yb_t = torch.from_numpy(yr[:64]).to(dev)
+
+    def one_step():
+        return train.online_step(c, upd.bank, xb_t, yb_t, 0)
+
+    # an updater step that rebuilds nothing: the training step, the drift
+    # on the host and the accuracy watch
+    upd.cfg.drift_threshold = float("inf")
+    plain_ms = []
+    for i in range(ONLINE_STEPS, ONLINE_STEPS + 8):
+        for j in range(i * 64, (i + 1) * 64):
+            upd.ingest(Xr[j], int(yr[j]))
+        t0 = time.perf_counter()
+        check(upd.step(), "a full feedback batch did not step")
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+
+    step_dev, step_per = profile_device(one_step)
+    print(f"online_step device work per call at B=64: {json.dumps(step_per)}")
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    drift_ms = host_ms(lambda: compiler.include_drift(
+        upd._anchor, compiler.dense_include_words(c, upd.bank)))
+    # each rebuild of the drill again, from the artifact it replaced: the
+    # host ms to an artifact with its default chain schedule, through
+    # incremental_recompile and through compile_tm + the full schedule
+    recompile = {"incremental": [], "full": []}
+    for i in range(1, len(checked)):
+        t0 = time.perf_counter()
+        new, info = compiler.incremental_recompile(c, banks[i], checked[i - 1])
+        new.schedule()
+        t_inc = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        compiler.compile_tm(c, banks[i]).schedule()
+        recompile[info["mode"]].append(
+            dict(ms=t_inc, full_ms=(time.perf_counter() - t0) * 1e3,
+                 rows_reused=info["rows_reused"]))
+    recompile = {mode: dict(n=len(r), ms_median=statistics.median(x["ms"] for x in r),
+                            full_ms_median=statistics.median(x["full_ms"] for x in r),
+                            rows_reused=[x["rows_reused"] for x in r])
+                 for mode, r in recompile.items() if r}
+    drill = dict(
+        steps=h["steps"], drift_threshold=ONLINE_DRIFT, drifts=drifts,
+        rebuilds=h["rebuilds"], incremental_rebuilds=h["incremental_rebuilds"],
+        full_rebuilds=h["full_rebuilds"], promotions=h["promotions"],
+        rebuild_info=upd.rebuild_info, launches=drill_counts,
+        step_event_ms=cuda_time_ms(one_step), **{f"step_{k}": v for k, v in step_dev.items()},
+        step_wall_ms_median=statistics.median(plain_ms),
+        rebuild_step_wall_ms_median=statistics.median(rebuild_ms),
+        drift_host_ms=drift_ms,
+        recompile_host_ms=recompile,
+        drift_to_promotion_ms=h["drift_to_promotion_ms"],
+        boot=dict(wall_s=boot_s, launches=boot_counts, U=boot.n_unique,
+                  sharing=boot.stats.partial_term_sharing))
+    print("ONLINE_DRILL " + json.dumps(drill))
+
+    # 3. serve_tm --online beside the same requests served without it, and
+    # with the updater stepping but never rebuilding (a threshold no drift
+    # reaches), in turns after a warm-up: plain, steps only, online, plain
+    with tempfile.TemporaryDirectory() as d:
+        common = ["--arch", "tm-mnist", "--device", "cuda", "--zoo", "2",
+                  "--requests", str(ONLINE_REQUESTS), "--bucket", str(BUCKET)]
+        boot_path = boot.save(os.path.join(d, "boot.npz"))
+        online_argv = ["--online", "--swap-policy", "immediate", "--epochs",
+                       str(ONLINE_EPOCHS), "--n-train", str(ONLINE_N_TRAIN),
+                       "--artifact", os.path.join(d, "online.npz")]
+        turns = [("warmup", ["--artifact", boot_path]),
+                 ("plain", ["--artifact", boot_path]),
+                 ("steps_only", online_argv + ["--drift-threshold", "1e9"]),
+                 ("online", online_argv + ["--drift-threshold", str(ONLINE_DRIFT)]),
+                 ("plain", ["--artifact", boot_path])]
+        runs = []
+        for label, extra in turns:
+            zero()
+            sh, sg, oh, ms = serve_run(common + extra)
+            runs.append(dict(run=label, ms=ms, latency_ms=sg["latency_ms"],
+                             launches=counts(), health=sh, gateway=sg, online=oh))
+        saved = compiler.CompiledTM.load(os.path.join(d, "online.npz"))
+    for r in runs:
+        check(r["gateway"]["unaccounted"] == 0 and r["gateway"]["answered"] == ONLINE_REQUESTS,
+              f"serve {r['run']}: {r['gateway']['answered']} answered, "
+              f"{r['gateway']['unaccounted']} unaccounted")
+        check(r["health"]["demotions"] == [] and r["health"]["probe_failures"] == [],
+              f"serve {r['run']} demoted: {r['health']['demotions']}")
+        check(r["health"]["final_engine"] == runs[0]["health"]["final_engine"],
+              f"serve {r['run']} ended on {r['health']['final_engine']}")
+    on = runs[3]
+    oh = on["online"]
+    check(oh["steps"] > 0 and oh["promotions"] >= 1,
+          f"serve --online: {oh['steps']} steps, {oh['promotions']} promotions")
+    check(runs[2]["online"]["steps"] > 0 and runs[2]["online"]["promotions"] == 0,
+          f"serve --online without rebuilds: {runs[2]['online']}")
+    check(saved.n_unique > 0, "serve --online saved no artifact")
+    kern = {"factorized": "term_infer", "sparse": "sparse_infer"}[on["health"]["final_engine"]]
+    check(on["launches"]["fused_train"] > 1 and on["launches"][kern] > 1,
+          f"serve --online launched {on['launches']}: fused_train and {kern} must "
+          "each launch more than once")
+    print("ONLINE_SERVE " + json.dumps(dict(
+        requests=ONLINE_REQUESTS, bucket=BUCKET, engine=on["health"]["final_engine"],
+        drift_threshold=ONLINE_DRIFT,
+        turns=[dict(run=r["run"], ms=r["ms"], inf_per_s=ONLINE_REQUESTS / r["ms"] * 1e3,
+                    latency_ms=r["latency_ms"], launches=r["launches"],
+                    steps=r["online"]["steps"] if r["online"] else 0,
+                    promotions=r["online"]["promotions"] if r["online"] else 0,
+                    zoo_swaps=r["gateway"]["zoo"]["swaps"]) for r in runs])))
+
+    # 4. serve_tm --zoo on the committed artifact: the LRU churns
+    zh, zg, _, z_ms = serve_run(["--arch", "tm-mnist", "--artifact", ASSET,
+                                 "--device", "cuda", "--requests", "4096",
+                                 "--bucket", str(BUCKET), "--zoo", str(ZOO_TENANTS)])
+    check(zg["unaccounted"] == 0 and zg["answered"] == 4096,
+          f"serve --zoo: {zg['answered']} answered, {zg['unaccounted']} unaccounted")
+    check(zg["zoo"]["evictions"] > 0 and zh["demotions"] == [],
+          f"serve --zoo {ZOO_TENANTS}: zoo {zg['zoo']}, demotions {zh['demotions']}")
+    print("ZOO_SERVE " + json.dumps(dict(tenants=ZOO_TENANTS, ms=z_ms,
+                                         inf_per_s=4096 / z_ms * 1e3, zoo=zg["zoo"])))
+    return drill
 
 
 def bound(n_bytes, t_ops_ms):
@@ -1125,7 +1436,7 @@ def main() -> None:
                 "--requests", "4096", "--bucket", str(BUCKET), *extra]
         for m in mods.values():
             m.launches = 0
-        health, gw = serve.serve_tm(serve.build_parser().parse_args(argv))
+        health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(argv))
         counts = {k: m.launches for k, m in mods.items()}
         print(f"serve {' '.join(extra) or '(default)'}: launches {counts}")
         check(health["final_engine"] == expect[name],
@@ -1161,11 +1472,14 @@ def main() -> None:
     max_err["class_sum"] = cs_err
     train_times, train_work = train_phases(dev, max_err, launches)
 
-    # 8. the BNN baseline and the LM serving path
+    # 8. the online loop (live bank, drill, serve --online) and the zoo
+    online_phase(dev)
+
+    # 9. the BNN baseline and the LM serving path
     extra_rows = {"xnor_popcount": (BNN_KERNEL, bnn_phase(dev)),
                   "flash_attention": (FLASH_KERNEL, lm_phase(dev))}
 
-    # 9. the kernels line.  Bound: the bytes the function must move (each
+    # 10. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the
     # chain ids this run's walk needs, not the padded tables) over the
     # memory rate, against its integer operations over the issue rate

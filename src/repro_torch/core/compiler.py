@@ -156,6 +156,65 @@ class CompileStats:
 
 
 @dataclasses.dataclass
+class DriftStats:
+    """How far a live automata bank has drifted from a reference bank.
+
+    Measured on the DENSE packed include words (every raw clause, before
+    dedup/pruning), so the comparison is stable across recompiles: two
+    banks compare row-for-row regardless of how their compiled artifacts
+    deduped.  ``drift`` is the normalized signal the online updater
+    thresholds on — changed include bits relative to the reference bank's
+    include count (a freshly-promoted artifact reads 0.0).
+    """
+
+    n_clauses: int
+    n_clauses_changed: int
+    n_bits_changed: int
+    n_includes_ref: int
+    n_includes_live: int
+
+    @property
+    def drift(self) -> float:
+        return self.n_bits_changed / max(self.n_includes_ref, 1)
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["drift"] = self.drift
+        return d
+
+
+def dense_include_words(config: tm.TMConfig, ta_state) -> np.ndarray:
+    """(C_raw, W) packed uint32 include words of a raw automata bank — the
+    drift-tracking snapshot (no dedup, no pruning, no clustering).  A bank
+    tensor is packed on its device and the words copied to the host."""
+    if isinstance(ta_state, torch.Tensor):
+        words = packetizer.pack_include_masks(ta_state[: config.n_clauses_raw])
+        return words.cpu().numpy().view(np.uint32)
+    inc = (np.asarray(ta_state)[: config.n_clauses_raw] >= 0).astype(np.uint8)
+    return packetizer.pack_bits_np(inc)
+
+
+def include_drift(ref_words: np.ndarray, live_words: np.ndarray) -> DriftStats:
+    """Compare two dense packed include banks (same shape) bit-for-bit."""
+    ref = np.asarray(ref_words, dtype=np.uint32)
+    live = np.asarray(live_words, dtype=np.uint32)
+    if ref.shape != live.shape:
+        raise ValueError(
+            f"include_drift: shape mismatch {ref.shape} vs {live.shape} — "
+            "drift is only defined against the same clause bank layout")
+    x = np.ascontiguousarray(ref ^ live)
+    return DriftStats(
+        n_clauses=int(ref.shape[0]),
+        n_clauses_changed=int(x.any(axis=1).sum()) if ref.size else 0,
+        n_bits_changed=int(np.unpackbits(x.view(np.uint8)).sum()),
+        n_includes_ref=int(np.unpackbits(
+            np.ascontiguousarray(ref).view(np.uint8)).sum()),
+        n_includes_live=int(np.unpackbits(
+            np.ascontiguousarray(live).view(np.uint8)).sum()),
+    )
+
+
+@dataclasses.dataclass
 class CompiledTM:
     """Deployable inference artifact (the "bitstream" analog).
 
@@ -791,6 +850,55 @@ def compile_tm(
         n_classes=config.n_classes,
         stats=stats,
     )
+
+
+def incremental_recompile(
+    config: tm.TMConfig,
+    ta_state,
+    prev: CompiledTM,
+    *,
+    dedup: bool = True,
+    prune_words: bool = True,
+    cluster: bool = True,
+) -> tuple[CompiledTM, dict]:
+    """Recompile a drifted bank, reusing ``prev``'s schedule work where the
+    layout survived.
+
+    The host compile pipeline itself (:func:`compile_tm`) is cheap numpy;
+    the expensive artifact state is the chain SCHEDULE (a per-clause python
+    compaction loop) and the tuned tilings.  When the new artifact lands on
+    the same word layout and row count as ``prev`` — the common case for
+    small online drift — the default-tiling chain schedule is rebuilt
+    incrementally (``sparse_infer.build_schedule_incremental``: only
+    clauses whose include rows moved are re-compacted) and ``prev``'s
+    tuned tilings carry over.  Any layout change, or a ``prev`` whose
+    default schedule was never built, falls back to the full lazy rebuild.
+
+    Returns ``(compiled, info)``; ``info["mode"]`` is ``"incremental"`` or
+    ``"full"``, with ``rows_reused``/``tiles_reused`` counters in the
+    incremental case.  Either way the result equals a from-scratch
+    ``compile_tm`` (the incremental schedule is exact, and the factorized
+    schedule stays lazy).
+    """
+    from repro_torch.kernels import sparse_infer
+
+    new = compile_tm(config, ta_state, dedup=dedup,
+                     prune_words=prune_words, cluster=cluster)
+    info: dict = dict(mode="full", rows_reused=0, tiles_reused=0)
+    key = (sparse_infer.DEFAULT_BLOCK_C, sparse_infer.DEFAULT_BLOCK_J)
+    prev_sched = prev._schedules.get(key)
+    if (prev_sched is not None
+            and new.include_words.shape == prev.include_words.shape
+            and np.array_equal(new.word_ids, prev.word_ids)):
+        sched, re_info = sparse_infer.build_schedule_incremental(
+            new.include_words, prev_sched, prev.include_words,
+            block_c=key[0], block_j=key[1])
+        new._schedules[key] = sched
+        info = dict(mode="incremental", **re_info)
+        # same shape family: prev's tilings remain valid keys for the
+        # successor artifact
+        new.tuned.update({k: dict(v) for k, v in prev.tuned.items()})
+    return new, info
 
 
 def run_compiled(

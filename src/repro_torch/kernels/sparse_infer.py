@@ -136,19 +136,44 @@ def cluster_order(include_words: np.ndarray) -> np.ndarray:
     return np.lexsort(keys)
 
 
-def build_schedule(
+def artifact_tag(include_words) -> str:
+    """Content hash of an artifact's include rows: the identity of a
+    compiled bank for schedule memoization (two same-shape artifacts with
+    different sparsity must never share)."""
+    import hashlib
+
+    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+    h = hashlib.sha1(iw.tobytes())
+    h.update(str(iw.shape).encode())
+    return h.hexdigest()
+
+
+# content-keyed memo of build_schedule_cached: repeated builds for the same
+# include rows and tiling return the SAME object, so its device tables
+# (SparseSchedule.tensors) and chain-length memo are made once
+_SCHEDULE_CACHE: dict = {}
+
+
+def build_schedule_cached(
     include_words: np.ndarray,
     *,
     block_c: int = DEFAULT_BLOCK_C,
     block_j: int = DEFAULT_BLOCK_J,
 ) -> SparseSchedule:
-    """Compile ``(U, Wa)`` packed include rows into a chain schedule.
+    """Content-memoized :func:`build_schedule` for callers without a
+    ``CompiledTM`` to memoize on (e.g. raw include rows in a serving loop)."""
+    key = (artifact_tag(include_words), block_c, block_j)
+    if key not in _SCHEDULE_CACHE:
+        _SCHEDULE_CACHE[key] = build_schedule(
+            np.asarray(include_words, dtype=np.uint32),
+            block_c=block_c, block_j=block_j)
+    return _SCHEDULE_CACHE[key]
 
-    Rows are taken in the given order (``compile_tm`` has already applied
-    :func:`cluster_order`).  Identical, table for table, to the reference
-    ``build_schedule`` without shard padding.
-    """
-    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+
+def _layout(iw: np.ndarray, block_c: int, block_j: int):
+    """What a chain schedule of ``iw`` holds besides its chains: the
+    effective ``block_c``, the padded include bits, the tile counts and
+    CSR pointers, the chain width and the flat tile table."""
     U, Wa = iw.shape
     n_lit_bits = Wa * 32
     block_c = max(min(block_c, _rup(max(U, 1), 8)), 1)
@@ -171,30 +196,105 @@ def build_schedule(
         n_jblocks = 1                     # one all-sentinel block
     Jp = n_jblocks * block_j
 
-    chain_ids = np.full((Cp, Jp), n_lit_bits, np.int32)
-    for c in range(Cp):
-        (lids,) = np.nonzero(bits[c])
-        chain_ids[c, : lids.shape[0]] = lids
-
-    tile_cb = np.zeros(T, np.int32)
-    tile_jb = np.zeros(T, np.int32)
-    tile_first = np.zeros(T, np.int32)
-    tile_last = np.zeros(T, np.int32)
+    tiles = np.zeros((4, T), np.int32)    # clause block, chain block, first, last
     t = 0
     for b in range(n_cblocks):
         n = int(counts[b])
         for j in range(n):
-            tile_cb[t], tile_jb[t] = b, j
-            tile_first[t] = int(j == 0)
-            tile_last[t] = int(j == n - 1)
+            tiles[:, t] = (b, j, int(j == 0), int(j == n - 1))
             t += 1
+    return block_c, bits, counts, indptr, Jp, tiles
 
+
+def _schedule(block_c, block_j, U, bits, counts, indptr, chain_ids, tiles):
     return SparseSchedule(
-        block_c=block_c, block_j=block_j, n_rows=U, n_lit_bits=n_lit_bits,
-        chain_ids=chain_ids, tile_cb=tile_cb, tile_jb=tile_jb,
-        tile_first=tile_first, tile_last=tile_last,
+        block_c=block_c, block_j=block_j, n_rows=U, n_lit_bits=bits.shape[1],
+        chain_ids=chain_ids, tile_cb=tiles[0], tile_jb=tiles[1],
+        tile_first=tiles[2], tile_last=tiles[3],
         counts=counts, indptr=indptr,
     )
+
+
+def build_schedule(
+    include_words: np.ndarray,
+    *,
+    block_c: int = DEFAULT_BLOCK_C,
+    block_j: int = DEFAULT_BLOCK_J,
+) -> SparseSchedule:
+    """Compile ``(U, Wa)`` packed include rows into a chain schedule.
+
+    Rows are taken in the given order (``compile_tm`` has already applied
+    :func:`cluster_order`).  Identical, table for table, to the reference
+    ``build_schedule`` without shard padding.
+    """
+    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+    block_c, bits, counts, indptr, Jp, tiles = _layout(iw, block_c, block_j)
+    chain_ids = np.full((bits.shape[0], Jp), bits.shape[1], np.int32)
+    for c in range(bits.shape[0]):
+        (lids,) = np.nonzero(bits[c])
+        chain_ids[c, : lids.shape[0]] = lids
+    return _schedule(block_c, block_j, iw.shape[0], bits, counts, indptr,
+                     chain_ids, tiles)
+
+
+def build_schedule_incremental(
+    include_words: np.ndarray,
+    prev: SparseSchedule,
+    prev_include_words: np.ndarray,
+    *,
+    block_c: int = DEFAULT_BLOCK_C,
+    block_j: int = DEFAULT_BLOCK_J,
+) -> tuple[SparseSchedule, dict]:
+    """Rebuild a chain schedule, reusing ``prev``'s chain rows where the
+    include bits did not move.
+
+    The expensive part of :func:`build_schedule` is the per-clause
+    ``nonzero`` loop that compacts include bits into literal-id chains;
+    online drift touches a small fraction of clauses, so rows whose packed
+    include words equal ``prev_include_words`` copy their chain out of
+    ``prev.chain_ids`` (the literal space and tiling are checked first, so
+    the sentinel padding agrees).  The tile table and CSR counts are always
+    rebuilt: they are cheap and depend on the longest chain.
+
+    Returns ``(schedule, info)`` with ``rows_reused`` / ``rows_rebuilt`` /
+    ``tiles_reused`` (tiles of clause blocks with no changed row).  The
+    result equals a from-scratch :func:`build_schedule`; a different row
+    count, word count or effective tiling falls back to the full build
+    with zero reuse.
+    """
+    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+    piw = np.ascontiguousarray(np.asarray(prev_include_words, dtype=np.uint32))
+    U, Wa = iw.shape
+    eff_block_c = max(min(block_c, _rup(max(U, 1), 8)), 1)
+    if (piw.shape != iw.shape
+            or prev.block_c != eff_block_c or prev.block_j != block_j
+            or prev.n_rows != U or prev.n_lit_bits != Wa * 32):
+        full = build_schedule(iw, block_c=block_c, block_j=block_j)
+        return full, dict(rows_reused=0, rows_rebuilt=U, tiles_reused=0)
+
+    block_c, bits, counts, indptr, Jp, tiles = _layout(iw, block_c, block_j)
+    Cp = bits.shape[0]
+    row_same = np.zeros(Cp, bool)
+    row_same[:U] = (iw == piw).all(axis=1)
+    row_same[U:] = True                  # padding rows are sentinel in both
+
+    chain_ids = np.full((Cp, Jp), bits.shape[1], np.int32)
+    copy_w = min(Jp, prev.chain_ids.shape[1])
+    # a reused row's chain fits the new width: its include count bounds the
+    # new longest chain, and entries past a chain are sentinel either way
+    chain_ids[row_same, :copy_w] = prev.chain_ids[row_same, :copy_w]
+    for c in np.nonzero(~row_same)[0]:
+        (lids,) = np.nonzero(bits[c])
+        chain_ids[c, :lids.shape[0]] = lids
+
+    block_clean = row_same.reshape(-1, block_c).all(axis=1)
+    sched = _schedule(block_c, block_j, U, bits, counts, indptr, chain_ids, tiles)
+    info = dict(
+        rows_reused=int(row_same[:U].sum()),
+        rows_rebuilt=int(U - row_same[:U].sum()),
+        tiles_reused=int(counts[block_clean].sum()),
+    )
+    return sched, info
 
 
 def bit_transpose_literals(lit_words: torch.Tensor, n_lit_bits: int) -> torch.Tensor:

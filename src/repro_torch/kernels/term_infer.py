@@ -33,7 +33,7 @@ from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
 from repro_torch.kernels.sparse_infer import (_check_tables, _rup, and_reduce,
-                                              bit_transpose_literals,
+                                              artifact_tag, bit_transpose_literals,
                                               chain_fold_plain, chain_lengths)
 
 # default factorized tiling (the reference's, so shipped schedules are
@@ -261,6 +261,32 @@ def build_factorized_schedule(
         tile_jb=tile_jb, tile_first=tile_first, tile_last=tile_last,
         counts=counts, indptr=indptr,
     )
+
+
+# content-keyed memo of build_factorized_schedule_cached (see
+# sparse_infer._SCHEDULE_CACHE)
+_FSCHEDULE_CACHE: dict = {}
+
+
+def build_factorized_schedule_cached(
+    include_words: np.ndarray,
+    *,
+    block_c: int = DEFAULT_BLOCK_C,
+    block_j: int = DEFAULT_BLOCK_J,
+    block_t: int = DEFAULT_BLOCK_T,
+    term_w: int | None = None,
+) -> FactorizedSchedule:
+    """Content-memoized :func:`build_factorized_schedule` for callers
+    without a ``CompiledTM`` to memoize on."""
+    if term_w is None:
+        term_w = pick_term_width(include_words)
+    key = (artifact_tag(include_words), block_c, block_j, block_t, term_w)
+    if key not in _FSCHEDULE_CACHE:
+        _FSCHEDULE_CACHE[key] = build_factorized_schedule(
+            np.asarray(include_words, dtype=np.uint32),
+            block_c=block_c, block_j=block_j, block_t=block_t,
+            term_w=term_w)
+    return _FSCHEDULE_CACHE[key]
 
 
 def _check_terms(lit_words, term_chain):

@@ -3,13 +3,18 @@ port's kernels, and the LM substrate's prefill + decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tm-mnist \\
         --artifact src/repro_torch/assets/tm_mnist_e1.npz --requests 4096 --bucket 512
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tm-tiny --online \\
+        --swap-policy immediate --artifact /tmp/tiny_online.npz
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch-size 16 --seq-len 2048 --new-tokens 64
 
 The TM loop mirrors the MATADOR runtime: load a compiled artifact, packetize
 requests, stream them through the clause datapath in fixed-size buckets
-behind the async gateway, argmax.  Serving without an artifact trains
-first, as the reference does, with the per-sample ``jax.random`` trainer
+behind the async gateway, argmax.  ``--zoo N`` serves N round-robin tenants
+through the artifact zoo; ``--online`` trains a live bank beside serving
+and hot-swaps recompiled artifacts (``runtime/online.py``).  Serving
+without an artifact and without ``--online`` trains first, as the
+reference does, with the per-sample ``jax.random`` trainer
 (``engine="jnp"``), which a later slice of the port brings.  Any other
 ``--arch`` serves a language model with random weights (``serve_lm``).
 """
@@ -22,6 +27,7 @@ import itertools
 import json
 import os
 import signal
+import threading
 import time
 
 import numpy as np
@@ -29,12 +35,10 @@ import torch
 
 # serve_tm options that need modules not yet ported
 _LATER = {"mesh": "clause-sharded multi-GPU serving",
-          "autotune": "autotuning and the cost model",
-          "zoo": "the multi-tenant artifact zoo",
-          "online": "online learning"}
+          "autotune": "autotuning and the cost model"}
 
 
-def serve_tm(args) -> tuple[dict, dict]:
+def serve_tm(args) -> tuple[dict, dict, dict | None]:
     """Chunked streaming TM serve loop with an engine degradation ladder.
 
     Requests stream through fixed-size buckets of ``--bucket`` datapoints
@@ -57,9 +61,27 @@ def serve_tm(args) -> tuple[dict, dict]:
     serves exact buckets through the certified early-exit mode;
     ``--brownout`` lets the gateway's controller degrade schedule-engine
     buckets to budgeted prefixes with a concrete error bound under
-    overload.  The run ends with the ``SERVE_HEALTH`` and
-    ``GATEWAY_HEALTH`` JSON lines (the reference's schema), which are also
-    returned.
+    overload.
+
+    ``--zoo N`` serves N round-robin tenants through the artifact zoo
+    (``runtime/zoo.py``): per-tenant circuit breakers and an LRU cache of
+    ``N - 1`` entries, so it churns (``N`` under ``--online``).  ``--online`` trains a live bank with
+    the hash-RNG kernel trainer (``fit(engine="kernel")``, ``--n-train``
+    samples, ``--epochs``, batch 64), serves its compiled artifact through
+    the zoo, and runs ``runtime/online.OnlineUpdater`` on its own thread:
+    the request stream's labels are its feedback, every batch is one
+    fused training step on the card, and a drift past
+    ``--drift-threshold`` recompiles incrementally, canaries the candidate
+    on mirrored buckets (or promotes it at once under ``--swap-policy
+    immediate``), hot-swaps it and rebinds the ladder.  The updater ends
+    once it has trained on the stream's feedback (on SIGTERM it stops at
+    once and drains its queue to ``--online-ckpt-dir``), and the promoted
+    artifact is saved to ``--artifact`` when one is named.
+
+    The run ends with the ``SERVE_HEALTH`` and ``GATEWAY_HEALTH`` JSON lines
+    (the reference's schema; ``GATEWAY_HEALTH["zoo"]`` under the zoo) and,
+    under ``--online``, ``ONLINE_HEALTH``; returns the three dicts (the
+    last None without ``--online``).
     """
     from repro_torch import device as _device
     from repro_torch.configs.matador_tm import TM_CONFIGS
@@ -74,30 +96,61 @@ def serve_tm(args) -> tuple[dict, dict]:
         if getattr(args, flag, None):
             raise SystemExit(f"--{flag} needs {what}, which a later slice of "
                              "the port brings; serve without it")
-    if not args.artifact:
+    if not args.artifact and not args.online:
         raise SystemExit("--artifact is required: serving without one trains "
                          "with the engine='jnp' trainer, which a later slice "
                          "of the port brings")
     dev = _device.resolve(args.device)
     config = TM_CONFIGS[args.arch]
-    path = args.artifact if args.artifact.endswith(".npz") else args.artifact + ".npz"
-    if not os.path.exists(path):
-        raise SystemExit(f"artifact {path} not found; compile one with the "
-                         "reference (python -m repro.launch.serve --artifact "
-                         "...) or with core.compiler.compile_tm on a bank "
-                         "from repro_torch.launch.train")
-    try:
-        compiled = compiler.CompiledTM.load(path)
-    except compiler.ArtifactError as e:
-        raise SystemExit(f"refusing to serve: {e}")
-    if (compiled.n_features != config.n_features
-            or compiled.n_classes != config.n_classes):
-        raise SystemExit(
-            f"artifact {path} was compiled for F={compiled.n_features}/"
-            f"K={compiled.n_classes}, but --arch {args.arch} is "
-            f"F={config.n_features}/K={config.n_classes}")
-    print(f"loaded artifact {path} (U={compiled.n_unique}) on {dev}")
+    path = None
+    if args.artifact:
+        path = (args.artifact if args.artifact.endswith(".npz")
+                else args.artifact + ".npz")
+    bank = None
+    if args.online:
+        # the updater trains a LIVE bank next to serving; a loaded artifact
+        # has no automata to train, so --online always trains one (with
+        # the hash-RNG kernel trainer) and the artifact is rewritten at exit
+        from repro_torch.core import tm, train
+
+        if path and os.path.exists(path):
+            print(f"--online: training a live bank (artifact {path} will be "
+                  "refreshed at exit)")
+        X, y = make_boolean_classification(
+            args.n_train, config.n_features, config.n_classes, seed=0)
+        state = tm.init(config, torch.Generator().manual_seed(0), dev)
+        state = train.fit(config, state, torch.from_numpy(X), torch.from_numpy(y),
+                          epochs=args.epochs, batch_size=64,
+                          generator=torch.Generator().manual_seed(1))
+        bank = state.ta_state
+        compiled = compiler.compile_tm(config, bank)
+        # the default chain schedule, so that a rebuild can reuse its rows
+        # (incremental_recompile takes the incremental branch only then)
+        compiled.schedule()
+        print(f"trained a live bank: {args.epochs} epochs on {args.n_train} "
+              f"samples; compiled U={compiled.n_unique} on {dev}")
+    else:
+        if not os.path.exists(path):
+            raise SystemExit(f"artifact {path} not found; compile one with the "
+                             "reference (python -m repro.launch.serve --artifact "
+                             "...) or with core.compiler.compile_tm on a bank "
+                             "from repro_torch.launch.train")
+        try:
+            compiled = compiler.CompiledTM.load(path)
+        except compiler.ArtifactError as e:
+            raise SystemExit(f"refusing to serve: {e}")
+        if (compiled.n_features != config.n_features
+                or compiled.n_classes != config.n_classes):
+            raise SystemExit(
+                f"artifact {path} was compiled for F={compiled.n_features}/"
+                f"K={compiled.n_classes}, but --arch {args.arch} is "
+                f"F={config.n_features}/K={config.n_classes}")
+        print(f"loaded artifact {path} (U={compiled.n_unique}) on {dev}")
     print("compile stats:", compiled.stats.as_dict())
+    # the serving artifact, as a mutable cell: the online updater promotes
+    # a successor by updating this and rebinding the ladder, whose engines
+    # read it when they are built
+    current = {"compiled": compiled}
 
     bucket = args.bucket
     if args.factorize and args.no_factorize:
@@ -109,19 +162,20 @@ def serve_tm(args) -> tuple[dict, dict]:
         >= compiler.FACTORIZE_SHARING_THRESHOLD)
 
     # anytime serving state: per-engine {level: err_bound} tables (filled
-    # when a schedule engine is built) and the served-tier histogram
+    # when a schedule engine is built, so a rebound engine gets the
+    # promoted artifact's bounds) and the served-tier histogram
     ee0 = bool(args.early_exit or args.brownout)
     quality_bounds: dict = {}
     quality_served: dict = {}
 
-    def _quality_engine(engine):
+    def _quality_engine(art, engine):
         quality_bounds[engine] = {
-            q["level"]: q["bound"] for q in compiled.quality_levels(engine=engine)}
+            q["level"]: q["bound"] for q in art.quality_levels(engine=engine)}
 
         def run(xw, quality=0):
             q = min(int(quality), max(quality_bounds[engine], default=0))
             return compiler.run_compiled(
-                compiled, xw, engine=engine, quality=q,
+                art, xw, engine=engine, quality=q,
                 early_exit=ee0 and q == 0).argmax(-1)
 
         run.supports_quality = True
@@ -129,10 +183,12 @@ def serve_tm(args) -> tuple[dict, dict]:
 
     def build_engine(name):
         # lazy per-level builders: engines the ladder never reaches cost
-        # nothing (the CUDA build runs at the first kernel launch)
+        # nothing (the CUDA build runs at the first kernel launch); the
+        # artifact is read from the `current` cell at build time
+        art = current["compiled"]
         if name in ("factorized", "sparse"):
-            return _quality_engine(name)
-        return lambda xw: compiler.run_compiled(compiled, xw, engine=name).argmax(-1)
+            return _quality_engine(art, name)
+        return lambda xw: compiler.run_compiled(art, xw, engine=name).argmax(-1)
 
     levels = []
     if factorize:
@@ -144,10 +200,11 @@ def serve_tm(args) -> tuple[dict, dict]:
         [(name, (lambda n=name: build_engine(n))) for name in levels],
         promote_after=args.promote_after)
 
-    Xr, _ = make_boolean_classification(
+    Xr, yr = make_boolean_classification(
         args.requests, config.n_features, config.n_classes, seed=2)
     # requests are packetized on the device, then held on the host the way
-    # a server receives them; each bucket goes back to the device
+    # a server receives them; each bucket goes back to the device.  Under
+    # --online the labels double as the labeled feedback stream
     xp = packetizer.pack_literals(torch.from_numpy(Xr).to(dev)).cpu().numpy()
     n, W = xp.shape
 
@@ -159,11 +216,13 @@ def serve_tm(args) -> tuple[dict, dict]:
                count=False)
 
     bucket_i = itertools.count()
+    online_hooks = {"latency": None}   # filled when --online wires the updater
 
     def run_rows(rows, quality=0):
         # one gateway bucket: zero-pad to the fixed bucket shape, run the
         # engine ladder, keep the straggler/deadline accounting
         i = next(bucket_i)
+        t_b = time.perf_counter()
         mon.start_step()
         faults.sleep_if("serve.slow_bucket", step=i)    # deadline drill site
         padded = np.zeros((bucket, W), xp.dtype)
@@ -184,15 +243,93 @@ def serve_tm(args) -> tuple[dict, dict]:
                 f"bucket deadline: {flag['seconds'] * 1e3:.1f} ms > "
                 f"{args.bucket_deadline:g}x EWMA {flag['ewma'] * 1e3:.1f} ms",
                 bucket=i)
+        if online_hooks["latency"] is not None:
+            # post-swap latency watch: a promoted artifact that blows up
+            # bucket wall-time gets rolled back by the updater
+            online_hooks["latency"](time.perf_counter() - t_b)
         return preds, info
 
-    def runner(tenant, rows, quality=0):
-        return run_rows(rows, quality)
+    def _nbytes(c):
+        return int(c.include_words.nbytes + c.word_ids.nbytes + c.votes.nbytes)
+
+    zoo = None
+    updater = None
+    if args.online:
+        # online mode always routes through the zoo (one tenant unless
+        # --zoo): the updater's atomic hot-swap IS a zoo operation, and
+        # every bucket leases the entry it answers with, so in-flight
+        # buckets finish on the version they started on
+        from repro_torch.runtime import online as online_mod
+        from repro_torch.runtime.zoo import ArtifactZoo
+
+        def make_obj(c):
+            # the zoo entry pairs the artifact with the shared ladder
+            # runner: leases pin the object (and thus its version); the
+            # ladder itself is rebound on promote via on_promote below
+            return {"compiled": c, "run": run_rows}, _nbytes(c)
+
+        zoo = ArtifactZoo(lambda tenant: make_obj(current["compiled"]),
+                          max_entries=max(args.zoo or 1, 1))
+        runner = zoo.runner(lambda obj, rows: obj["run"](rows))
+
+        def canary_serve(obj, rows):
+            # candidate side of the shadow canary and the accuracy watch:
+            # the oracle on the artifact (its predictions equal every
+            # ladder engine's), at the live bucket shape
+            padded = np.zeros((bucket, W), xp.dtype)
+            padded[:len(rows)] = rows
+            xw = torch.from_numpy(padded).to(dev)
+            preds = compiler.run_compiled(obj["compiled"], xw, engine="oracle")
+            return preds.argmax(-1).cpu().numpy()[:len(rows)]
+
+        def on_promote(cand):
+            current["compiled"] = cand
+            ladder.rebind(
+                [(nm, (lambda n2=nm: build_engine(n2))) for nm in levels])
+            print(f"online: promoted artifact live (U={cand.n_unique}); "
+                  "engine ladder rebound")
+
+        ckpt_manager = None
+        if args.online_ckpt_dir:
+            from repro_torch.checkpoint.store import CheckpointManager
+
+            ckpt_manager = CheckpointManager(args.online_ckpt_dir)
+        updater = online_mod.OnlineUpdater(
+            config, bank, compiled,
+            cfg=online_mod.OnlineConfig(
+                drift_threshold=args.drift_threshold,
+                canary_frac=args.canary_frac,
+                swap_policy=args.swap_policy),
+            zoo=zoo, tenant="t0", make_obj=make_obj, serve_fn=canary_serve,
+            deployed_obj={"compiled": compiled, "run": run_rows},
+            deployed_nbytes=_nbytes(compiled),
+            ckpt_manager=ckpt_manager, on_promote=on_promote)
+        online_hooks["latency"] = updater.record_bucket_latency
+    elif args.zoo:
+        # multi-tenant mode: requests round-robin over --zoo tenants that
+        # share the compiled engines but carry per-tenant circuit breakers;
+        # max_entries < tenants keeps the LRU churning under real pressure
+        from repro_torch.runtime.zoo import ArtifactZoo
+
+        nbytes = int(compiled.include_words.nbytes + compiled.votes.nbytes)
+        zoo = ArtifactZoo(lambda tenant: (tenant, nbytes),
+                          max_entries=max(args.zoo - 1, 1))
+        runner = zoo.runner(lambda obj, rows: run_rows(rows))
+    else:
+        # the single-tenant runner is quality-aware (the zoo runner
+        # protocol is exact-only, so the zoo and online paths serve exact
+        # under pressure)
+        def runner(tenant, rows, quality=0):
+            return run_rows(rows, quality)
+
+    def tenant_of(j):
+        return f"t{j % args.zoo}" if args.zoo else "t0"
 
     async def stream():
         gw = await Gateway(
             runner, bucket=bucket, max_queue=args.max_queue or None,
             max_wait=args.max_wait_ms / 1e3, drain_timeout=args.drain_timeout,
+            mirror=updater.mirror if updater is not None else None,
             brownout=BrownoutController() if args.brownout else None,
         ).start()
         loop = asyncio.get_running_loop()
@@ -203,23 +340,71 @@ def serve_tm(args) -> tuple[dict, dict]:
             loop.add_signal_handler(signal.SIGTERM, stop.set)
         except (NotImplementedError, RuntimeError):
             pass
+        stop_online = threading.Event()
+        online_thread = None
+        if updater is not None:
+            # the updater's own thread: ingest labeled feedback in batch-
+            # sized slices and train/drift-check between gateway buckets;
+            # it ends by itself once the stream's feedback is trained on
+            feed = iter(range(n))
+
+            def online_loop():
+                while not stop_online.is_set():
+                    progressed = False
+                    for _ in range(updater.cfg.batch_size):
+                        j = next(feed, None)
+                        if j is None:
+                            break
+                        updater.ingest(Xr[j], int(yr[j]))
+                        progressed = True
+                    progressed = updater.step() or progressed
+                    if not progressed:
+                        return
+
+            online_thread = threading.Thread(
+                target=online_loop, name="online-updater", daemon=True)
+            online_thread.start()
         deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
-        futs = [gw.offer("t0", xp[j], deadline=deadline) for j in range(n)]
+        futs = [gw.offer(tenant_of(j), xp[j], deadline=deadline)
+                for j in range(n)]
         answered = asyncio.ensure_future(asyncio.gather(*futs))
         sigterm = asyncio.ensure_future(stop.wait())
         await asyncio.wait({answered, sigterm},
                            return_when=asyncio.FIRST_COMPLETED)
         health = await gw.drain()
+        t_served = time.perf_counter()
+        if online_thread is not None:
+            if stop.is_set():
+                stop_online.set()
+            # off the event loop: the updater may be mid-rebuild
+            await asyncio.to_thread(online_thread.join, 600)
+            stop_online.set()
+        if updater is not None and stop.is_set():
+            # SIGTERM: after the gateway drains, flush the pending feedback
+            # queue through the checkpoint path — a restarted updater
+            # resumes the bank and re-ingests every drained record
+            ck_step = updater.drain()
+            if ck_step is not None:
+                print(f"online: feedback queue drained to checkpoint "
+                      f"step {ck_step}")
         sigterm.cancel()
-        return await answered, health, stop.is_set()
+        return await answered, health, stop.is_set(), t_served
 
     t0 = time.perf_counter()
-    responses, gw_health, sigtermed = asyncio.run(stream())
-    dt = time.perf_counter() - t0
+    responses, gw_health, sigtermed, t_served = asyncio.run(stream())
+    # serving time: to the drained gateway, without the updater's tail
+    dt = t_served - t0
+    if args.online:
+        print(f"online: the updater ended {time.perf_counter() - t_served:.2f} s "
+              "after the gateway drained")
     if sigtermed:
         print("SIGTERM: gateway drained "
               f"({gw_health['answered']}/{gw_health['offered']} answered, "
               f"{gw_health['shed_total']} typed-shed)")
+    if args.online and path:
+        # the PROMOTED artifact (with its schedules) for the next cold start
+        current["compiled"].save(path)
+        print(f"saved artifact (schedules) to {path}")
     engine_labels = {"factorized": "factorized-schedule",
                      "sparse": "sparse-schedule",
                      "dense": "fused-kernel", "oracle": "oracle"}
@@ -239,7 +424,13 @@ def serve_tm(args) -> tuple[dict, dict]:
         quality_tiers={str(k): v for k, v in sorted(quality_served.items())},
     )
     print("SERVE_HEALTH " + json.dumps(health))
+    if zoo is not None:
+        gw_health["zoo"] = zoo.health()
     print("GATEWAY_HEALTH " + json.dumps(gw_health))
+    online_health = None
+    if updater is not None:
+        online_health = updater.health()
+        print("ONLINE_HEALTH " + json.dumps(online_health))
     if gw_health["unaccounted"]:
         raise SystemExit(
             f"gateway accounting violated: {gw_health['unaccounted']} "
@@ -247,7 +438,7 @@ def serve_tm(args) -> tuple[dict, dict]:
     preds = np.asarray([r.pred for r in responses if r.ok], np.int64)
     hist = np.bincount(preds, minlength=config.n_classes)
     print("pred class histogram:", hist.tolist())
-    return health, gw_health
+    return health, gw_health, online_health
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -256,7 +447,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a TM config of configs/matador_tm.py (e.g. tm-mnist) "
                          "or an LM of configs.ARCH_IDS (e.g. tinyllama-1.1b)")
     ap.add_argument("--artifact", default=None,
-                    help="TM: compiled-artifact .npz to serve (required)")
+                    help="TM: compiled-artifact .npz to serve (required "
+                         "without --online; under --online the promoted "
+                         "artifact is saved there at exit)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                          "(the kernels' plain PyTorch versions)")
@@ -297,6 +490,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--brownout", action="store_true",
                     help="gateway: degrade answer quality instead of shedding "
                          "under overload (implies --early-exit)")
+    ap.add_argument("--zoo", type=int, default=None,
+                    help="TM gateway: serve this many round-robin tenants "
+                         "through the artifact zoo (per-tenant circuit "
+                         "breakers, LRU-capped cache) instead of one")
+    ap.add_argument("--online", action="store_true",
+                    help="TM: train a live bank and run the online-learning "
+                         "updater beside serving: labeled feedback steps the "
+                         "bank, include-bit drift arms an incremental "
+                         "recompile, the candidate is shadow-canaried and "
+                         "hot-swapped through the artifact zoo")
+    ap.add_argument("--drift-threshold", type=float, default=0.05,
+                    help="TM --online: include-bit drift fraction (live bank "
+                         "vs the deployed artifact's bank) that arms a "
+                         "recompile")
+    ap.add_argument("--canary-frac", type=float, default=0.25,
+                    help="TM --online: fraction of live buckets mirrored to "
+                         "the candidate during the shadow canary")
+    ap.add_argument("--swap-policy", default="canary",
+                    choices=("canary", "immediate"),
+                    help="TM --online: 'canary' (default) shadow-validates "
+                         "the candidate before the atomic swap; 'immediate' "
+                         "promotes once the integrity envelope passes")
+    ap.add_argument("--online-ckpt-dir", default=None,
+                    help="TM --online: checkpoint directory the SIGTERM "
+                         "drain writes the live bank + pending feedback "
+                         "through (a restart resumes from it)")
+    ap.add_argument("--epochs", type=int, default=3,
+                    help="TM --online: epochs of the live bank's training")
+    ap.add_argument("--n-train", type=int, default=2000,
+                    help="TM --online: synthetic samples the live bank "
+                         "trains on")
     for flag, what in _LATER.items():
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True,
                         help=f"not yet ported ({what}); exits with a message")

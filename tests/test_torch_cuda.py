@@ -611,3 +611,66 @@ def test_cuda_lm_prefill_decode_equal_cpu(cuda_device, arch):
     for a, b in zip(gpu, cpu):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
         np.testing.assert_array_equal(a.argmax(-1).numpy(), b.argmax(-1).numpy())
+
+
+def _online_pair(dev, threshold):
+    """An updater on the CPU and one on ``dev`` from the same bank, each
+    over its own zoo, promoting at once."""
+    from repro_torch.runtime import online
+    from repro_torch.runtime.zoo import ArtifactZoo
+
+    cfg = tm.TMConfig(n_features=48, n_classes=4, clauses_per_class=24,
+                      threshold=10, s=5.0, clause_pad_multiple=32)
+    rng = np.random.default_rng(3)
+    ta = rng.integers(-40, 12, (cfg.n_clauses_total, cfg.n_literals)).astype(np.int8)
+    ta[cfg.n_clauses_raw:] = -cfg.n_states
+    out = []
+    for d in ("cpu", dev):
+        compiled = compiler.compile_tm(cfg, ta)
+        compiled.schedule()
+        zoo = ArtifactZoo(lambda t, c=compiled: ({"compiled": c}, 1))
+        out.append(online.OnlineUpdater(
+            cfg, torch.from_numpy(ta.copy()).to(d), compiled,
+            cfg=online.OnlineConfig(drift_threshold=threshold, batch_size=64,
+                                    swap_policy="immediate"),
+            zoo=zoo, clock=lambda: 0.0))
+    return cfg, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.0, 0.05])
+def test_cuda_online_steps_and_promotions_equal_cpu(cuda_device, threshold):
+    """Online steps on the card (fused_infer then fused_train) end on the
+    CPU plain versions' bank after every step, with equal health and
+    promoted artifacts; the promoted artifact's kernel sums equal the
+    oracle on both schedule kernels."""
+    from repro_torch.kernels import fused_train, sparse_infer, term_infer
+
+    cfg, (cpu, gpu) = _online_pair(cuda_device, threshold)
+    rng = np.random.default_rng(4)
+    n0 = fused_train.launches
+    for step in range(6):
+        X = rng.integers(0, 2, (64, cfg.n_features)).astype(np.uint8)
+        y = rng.integers(0, cfg.n_classes, 64).astype(np.int32)
+        for upd in (cpu, gpu):
+            for i in range(64):
+                upd.ingest(X[i], int(y[i]))
+            assert upd.step()
+        np.testing.assert_array_equal(gpu.bank.cpu().numpy(), cpu.bank.numpy(),
+                                      err_msg=f"step {step}")
+        assert gpu.health() == cpu.health()
+        for f in ("include_words", "word_ids", "votes"):
+            np.testing.assert_array_equal(getattr(gpu.deployed, f),
+                                          getattr(cpu.deployed, f))
+    assert fused_train.launches - n0 == 6
+    assert gpu.promotions >= 1
+    dep = gpu.deployed
+    assert str(cuda_device) in dep._dev        # warmed before the swap
+    x = packetizer.pack_literals(torch.from_numpy(
+        rng.integers(0, 2, (512, cfg.n_features)).astype(np.uint8))).to(cuda_device)
+    oracle = compiler.run_compiled(dep, x, engine="oracle")
+    n_s, n_t = sparse_infer.launches, term_infer.launches
+    for eng in ("factorized", "sparse"):
+        got = compiler.run_compiled(dep, x, engine=eng)
+        np.testing.assert_array_equal(got.cpu().numpy(), oracle.cpu().numpy(), err_msg=eng)
+    assert sparse_infer.launches > n_s and term_infer.launches > n_t
