@@ -40,7 +40,11 @@ bank on the card (``fit(engine="kernel")``), drives the ``OnlineUpdater``
 from-scratch compile, the promoted artifact to the oracle through both
 schedule kernels; ``ONLINE_DRILL``), then ``serve_tm --online --zoo 2``
 beside the same requests served without it (``ONLINE_SERVE``) and
-``serve_tm --zoo 4`` on the committed artifact (``ZOO_SERVE``).
+``serve_tm --zoo 4`` on the committed artifact (``ZOO_SERVE``).  The
+AUTOTUNE phase (``autotune_phase``) holds every candidate launch of the
+four tuned kernels to its plain version, sweeps them in a fresh cache,
+refits the ``torch-cuda`` cost model, and drives ``serve_tm --autotune``
+under every policy, a zoo cold load and ``train_tm --autotune``.
 Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
@@ -1256,6 +1260,336 @@ def lm_phase(dev) -> dict:
                 f32_tolerance=FLASH_F32_ATOL)
 
 
+def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
+    """The autotuner and its cost model on the card, in a fresh cache and
+    sidecar (a stale cache would turn the sweeps into no-ops):
+
+    * every candidate of every registry held to its plain version at
+      tolerance 0: ``fused_infer``, ``sparse_infer`` and ``term_infer`` on
+      the committed artifact at each of ``BATCHES`` (the walks exact and
+      early exit), ``fused_train`` and ``fused_infer`` on the training
+      shapes (``TRAIN_BATCHES``, the initial and a trained bank);
+    * ``policy="sweep"`` for the four kernels (``fused_infer`` and
+      ``fused_train`` at every batch above, the walks at the serve bucket on
+      its requests), the ``torch-cuda`` model refit from the sidecar, and,
+      at each main shape, the default launch's, the winner's and the
+      model's top-1's device time (``profile_device``) against the best
+      candidate's: ``AUTOTUNE``, and the refit coefficients:
+      ``AUTOTUNE_COEFFS``;
+    * ``serve_tm --autotune`` under each policy on a copy of the committed
+      artifact (never the committed file: a measured tiling re-saves it),
+      each run's answers and tiling against the oracle, then ``predict``
+      once more on the swept copy: the recorded tiling answers with no
+      timing run (``AUTOTUNE_SERVE``);
+    * one ``artifact_loader(policy="predict")`` cold load: no timing run,
+      its plan serves equal to the oracle (``AUTOTUNE_ZOO``);
+    * ``train_tm --autotune`` (40 steps) ends on an untuned run's bank
+      (``AUTOTUNE_TRAIN``).
+    """
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import packetizer, compiler as comp_mod
+    from repro_torch.data.synthetic import make_boolean_classification
+    from repro_torch.kernels import (autotune, cost_model, fused_infer, fused_train,
+                                     sparse_infer, term_infer)
+    from repro_torch.launch import serve
+    from repro_torch.runtime.zoo import ArtifactZoo, artifact_loader
+
+    tmp = tempfile.mkdtemp(prefix="autotune-")
+    env_keys = ("REPRO_TORCH_AUTOTUNE_CACHE", "REPRO_TORCH_TUNE_DATA")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+
+    def fresh_cache(name):
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(tmp, name)
+        autotune._PROC_CACHE.clear()
+
+    fresh_cache("sweep.json")
+    os.environ["REPRO_TORCH_TUNE_DATA"] = os.path.join(tmp, "tune_data.json")
+    cost_model._invalidate_model_cache()
+    t_phase = time.perf_counter()
+    try:
+        tabs = compiled.tensors(dev)
+        inc, votes = tabs["include_words"], tabs["votes"]
+        U, Wa = inc.shape
+        K = votes.shape[1]
+        iw = compiled.include_words
+        ones = torch.ones(U, dtype=torch.int32, device=dev)
+        exact = {k: 0 for k in autotune.kernels()}
+
+        # 1. every candidate == its plain version, tolerance 0
+        walks = {"sparse_infer": ("sparse", sparse_infer), "term_infer": ("factorized", term_infer)}
+        for B in BATCHES:
+            xw = xw_all[:B].contiguous()
+            want = fused_infer.fused_forward_plain(xw, inc, votes, ones)
+            for blk in autotune.candidates_for("fused_infer", B=B, C=U, W=Wa, K=K):
+                got = fused_infer.fused_tm_forward(xw, inc, votes, ones, **blk)
+                check(torch.equal(got, want), f"fused_infer {blk} B={B} != plain version")
+                exact["fused_infer"] += 1
+            for kernel, (eng, mod) in walks.items():
+                plains = {}
+                for blk in autotune.candidates_for(kernel, B=B, K=K, include_words=iw):
+                    tiling = {k: v for k, v in blk.items() if k != "block_s"}
+                    sched = (compiled.schedule(**tiling) if eng == "sparse"
+                             else compiled.factorized_schedule(**tiling))
+                    t = sched.tensors(dev)
+                    for early in (False, True):
+                        m = compiled.margin_tensor(eng, dev, **tiling) if early else None
+                        key = (tuple(sorted(tiling.items())), early)
+                        if eng == "sparse":
+                            args = (xw, t["chain_ids"], votes, t["tiles"], t["indptr"])
+                            kw = dict(block_c=sched.block_c, block_j=sched.block_j,
+                                      tile_margin=m)
+                            if key not in plains:
+                                plains[key] = sparse_infer.sparse_tables_plain(*args, **kw)
+                            got = sparse_infer.sparse_tables_cuda(*args, **kw,
+                                                                  block_s=blk["block_s"])
+                        else:
+                            args = (xw, t["term_chain"], t["clause_chain"], votes, t["tiles"],
+                                    t["indptr"])
+                            kw = dict(block_c=sched.block_c, block_j=sched.block_j,
+                                      n_term_tiles=sched.n_term_tiles, tile_margin=m)
+                            if key not in plains:
+                                plains[key] = term_infer.factorized_tables_plain(*args, **kw)
+                            got = term_infer.factorized_tables_cuda(*args, **kw,
+                                                                    block_s=blk["block_s"])
+                        check(torch.equal(got, plains[key]),
+                              f"{kernel} {blk} B={B} early_exit={early} != plain version")
+                        exact[kernel] += 1
+        print(f"autotune: every candidate of fused_infer, sparse_infer and term_infer == "
+              f"plain versions on the committed artifact at B={BATCHES}, the walks exact "
+              "and early exit")
+
+        tr = Training(dev)
+        init = tr.tm.init(tr.config, torch.Generator().manual_seed(0), dev).ta_state
+
+        def check_training_shapes(bank, label):
+            for B in TRAIN_BATCHES:
+                t, _, _, kw = tr.batch(bank, B, 7, 12345)
+                C, L = t["ta"].shape
+                W = t["lit_words"].shape[1]
+                want = fused_train.fused_train_plain(t, 7, **kw)
+                for blk in autotune.candidates_for("fused_train", B=B, C=C, W=W, L=L, K=K):
+                    clauses = fused_train.clauses_a_block(B, W, **blk)
+                    got = fused_train.fused_train_cuda(t, 7, clauses=clauses, **kw)
+                    check(torch.equal(got, want),
+                          f"fused_train {blk} {label} B={B} != plain version")
+                    exact["fused_train"] += 1
+                kern_ones = torch.ones(C, dtype=torch.int32, device=dev)
+                want = fused_infer.fused_forward_plain(t["lit_words"], t["inc_words"],
+                                                       tr.votes, kern_ones)
+                for blk in autotune.candidates_for("fused_infer", B=B, C=C, W=W, K=K):
+                    got = fused_infer.fused_tm_forward(t["lit_words"], t["inc_words"],
+                                                       tr.votes, None, **blk)
+                    check(torch.equal(got, want),
+                          f"fused_infer {blk} {label} training B={B} != plain version")
+                    exact["fused_infer"] += 1
+
+        check_training_shapes(init, "initial bank")
+
+        # 2. sweep, refit, and the main shapes' device times
+        t64, _, _, _ = tr.batch(init, TRAIN_BATCH, 7, 0)
+        Ct, Lt = t64["ta"].shape
+        Wt = t64["lit_words"].shape[1]
+        lit = xw_all[:BUCKET].contiguous()
+        feats = compiled.extract_features()
+        main_shapes = {
+            "fused_infer": ("fused_infer", dict(B=BUCKET, C=U, W=Wa, K=K)),
+            "fused_infer_train": ("fused_infer", dict(B=TRAIN_BATCH, C=Ct, W=Wt, K=K)),
+            "fused_train": ("fused_train", dict(B=TRAIN_BATCH, C=Ct, W=Wt, L=Lt, K=K)),
+            "sparse_infer": ("sparse_infer", dict(B=BUCKET, K=K, include_words=iw,
+                                                  lit_words=lit)),
+            "term_infer": ("term_infer", dict(B=BUCKET, K=K, include_words=iw,
+                                              lit_words=lit)),
+        }
+        fit_shapes = [("fused_infer", dict(B=B, C=U, W=Wa, K=K)) for B in BATCHES]
+        fit_shapes += [("fused_infer", dict(B=B, C=Ct, W=Wt, K=K)) for B in TRAIN_BATCHES]
+        fit_shapes += [("fused_train", dict(B=B, C=Ct, W=Wt, L=Lt, K=K))
+                       for B in TRAIN_BATCHES]
+        fit_shapes += [main_shapes["sparse_infer"], main_shapes["term_infer"]]
+        shipped = {label: autotune.rank_candidates(kernel, device=dev, **shape)[0][0]
+                   for label, (kernel, shape) in main_shapes.items()}
+        t0, r0 = time.perf_counter(), autotune.TIMING_RUNS
+        sweep_us = {}          # shape_key -> {candidate tag: the sweep's reading}
+
+        def shape_key(kernel, shape):
+            return (kernel, *sorted((k, v) for k, v in shape.items()
+                                    if k not in ("include_words", "lit_words")))
+
+        for kernel, shape in fit_shapes:
+            n0 = len(cost_model.load_observations())
+            autotune.tune(kernel, device=dev, policy="sweep",
+                          features=feats if "include_words" in shape else None, **shape)
+            sweep_us[shape_key(kernel, shape)] = {
+                "x".join(str(r["blocks"][n]) for n in autotune._REGISTRY[kernel].block_names):
+                r["measured_us"] for r in cost_model.load_observations()[n0:]}
+        sweep_s, sweep_runs = time.perf_counter() - t0, autotune.TIMING_RUNS - r0
+        # the main shapes' winners: recalled from the sweeps' cache entries
+        winners = {label: autotune.tune(kernel, device=dev, policy="sweep", **shape)
+                   for label, (kernel, shape) in main_shapes.items()}
+        check(autotune.TIMING_RUNS == r0 + sweep_runs, "a swept shape was timed again")
+        rows = cost_model.load_observations()
+        check(len(rows) > 0 and all(r["mode"] == "torch-cuda" for r in rows),
+              "the sweeps logged no torch-cuda observation")
+        model = cost_model.get_model("torch-cuda", refresh=True)
+        print("AUTOTUNE_COEFFS " + json.dumps(dict(
+            rows={k: sum(r["kernel"] == k for r in rows) for k in autotune.kernels()},
+            coeffs=model.coeffs)))
+
+        report = {}
+        for label, (kernel, shape) in main_shapes.items():
+            tuner = autotune._REGISTRY[kernel]
+            problem = tuner.prepare(**shape)
+            clipped = tuner.clip(tuner.default_candidates, problem)
+            runs = tuner.make_runs(problem, clipped, dev)
+            dev_ms = {c: profile_device(run)[0] for c, run in runs.items()}
+
+            def as_tuple(blk, names=tuner.block_names):
+                return tuple(blk[n] for n in names)
+
+            B = shape["B"]
+            if kernel == "fused_infer":
+                split = fused_infer.occupancy(B, shape["C"])["word_split"]
+                default = as_tuple(fused_infer.blocks_for(split, shape["W"]))
+            elif kernel == "fused_train":
+                default = as_tuple(fused_train.blocks_for(fused_train.DEFAULT_CLAUSES, B,
+                                                          shape["W"]))
+            else:
+                mod = sparse_infer if kernel == "sparse_infer" else term_infer
+                base = [mod.DEFAULT_BLOCK_C, mod.DEFAULT_BLOCK_J]
+                if kernel == "term_infer":
+                    base.append(mod.DEFAULT_BLOCK_T)
+                cand = (*base, sparse_infer.covering_slab(B)) + (
+                    (0,) if kernel == "term_infer" else ())
+                default = tuner.clip([cand], problem)[0]
+            refit = as_tuple(autotune.rank_candidates(kernel, device=dev, **shape)[0][0])
+            pick = dict(default=default, winner=as_tuple(winners[label]),
+                        top1_shipped=as_tuple(shipped[label]), top1_refit=refit)
+            best = min(dev_ms, key=lambda c: dev_ms[c]["device_ms"])
+            row = dict(kernel=kernel, B=B, n_candidates=len(clipped),
+                       best=dict(blocks=dict(zip(tuner.block_names, best)), **dev_ms[best]))
+            for name, c in pick.items():
+                check(c in dev_ms, f"{label}: {name} {c} is not a candidate")
+                row[name] = dict(blocks=dict(zip(tuner.block_names, c)), **dev_ms[c])
+            for name in ("winner", "top1_shipped", "top1_refit"):
+                row[f"{name}_over_best"] = dev_ms[pick[name]]["device_ms"] / dev_ms[best]["device_ms"]
+            row["winner_over_default"] = (dev_ms[pick["winner"]]["device_ms"]
+                                          / dev_ms[pick["default"]]["device_ms"])
+            row["all_device_ms"] = {"x".join(map(str, c)): v["device_ms"]
+                                    for c, v in dev_ms.items()}
+            row["all_sweep_us"] = sweep_us[shape_key(kernel, shape)]
+            report[label] = row
+        print("AUTOTUNE " + json.dumps(dict(sweep_s=sweep_s, sweep_timing_runs=sweep_runs,
+                                            exact_checks=exact, shapes=report)))
+
+        # 3. serve_tm --autotune under each policy, on copies of the asset
+        mods = {"fused_infer": fused_infer, "sparse_infer": sparse_infer,
+                "term_infer": term_infer}
+        X, _ = make_boolean_classification(4096, 784, 10, seed=2)
+        xp = packetizer.pack_literals(torch.from_numpy(X).to(dev))
+        oracle = torch.cat([comp_mod.run_compiled(compiled, xp[i:i + BUCKET], engine="oracle")
+                            for i in range(0, 4096, BUCKET)])
+        want_hist = np.bincount(oracle.argmax(-1).cpu().numpy(), minlength=10).tolist()
+
+        def serve_autotuned(art, policy):
+            argv = ["--arch", "tm-mnist", "--artifact", art, "--device", "cuda",
+                    "--requests", "4096", "--bucket", str(BUCKET), "--autotune",
+                    "--tune-policy", policy]
+            for m in mods.values():
+                m.launches = 0
+            r0 = autotune.TIMING_RUNS
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+                health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(argv))
+            text = buf.getvalue()
+            counts = {k: m.launches for k, m in mods.items()}
+            check(health["final_engine"] == "factorized" and health["demotions"] == [],
+                  f"serve --autotune {policy}: {health['final_engine']}, "
+                  f"{health['demotions']}")
+            check(gw["answered"] == 4096 and gw["unaccounted"] == 0,
+                  f"serve --autotune {policy}: gateway {gw}")
+            check(counts["term_infer"] > 0, f"serve --autotune {policy}: no term_infer launch")
+            hist = re.search(r"pred class histogram: (\[[^]]*\])", text)
+            check(hist is not None and ast.literal_eval(hist.group(1)) == want_hist,
+                  f"serve --autotune {policy}: answers != the oracle's")
+            m = re.search(r"(autotuned|artifact-recorded) factorized blocks[^:]*: (\{[^}]*\})",
+                          text)
+            check(m is not None, f"serve --autotune {policy} printed no tiling")
+            blocks = ast.literal_eval(m.group(2))
+            got = torch.cat([comp_mod.run_compiled(compiled, xp[i:i + BUCKET],
+                                                   engine="factorized", **blocks)
+                             for i in range(0, 4096, BUCKET)])
+            check(torch.equal(got, oracle), f"serve --autotune {policy}: its tiling "
+                  f"{blocks} != the oracle")
+            return dict(blocks=blocks, source=m.group(1), timing_runs=autotune.TIMING_RUNS - r0,
+                        launches=counts, saved="saved artifact" in text)
+
+        serve_report = {}
+        fresh_cache("serve.json")
+        for policy in autotune.POLICIES:
+            art = os.path.join(tmp, f"tm_mnist_{policy}.npz")
+            shutil.copy(ASSET, art)
+            r = serve_report[policy] = serve_autotuned(art, policy)
+            check(r["source"] == "autotuned", f"serve {policy} recalled a tiling from a copy "
+                  "of the committed artifact")
+            check((r["timing_runs"] == 0) == (policy == "predict"),
+                  f"serve {policy}: {r['timing_runs']} timing runs")
+            check(r["saved"] == (policy != "predict"), f"serve {policy}: saved={r['saved']}")
+        again = serve_report["predict again"] = serve_autotuned(
+            os.path.join(tmp, "tm_mnist_sweep.npz"), "predict")
+        check(again["timing_runs"] == 0 and again["source"] == "artifact-recorded"
+              and again["blocks"] == serve_report["sweep"]["blocks"],
+              f"the swept tiling was not recalled from the re-saved artifact: {again}")
+        print("AUTOTUNE_SERVE " + json.dumps(serve_report))
+
+        # 4. a zoo cold load under policy="predict"
+        fresh_cache("zoo.json")
+        zoo = ArtifactZoo(artifact_loader(lambda tenant: ASSET, batch=BUCKET, device=dev),
+                          max_entries=1)
+        r0 = autotune.TIMING_RUNS
+        with zoo.lease("t0") as obj:
+            runs_spent = autotune.TIMING_RUNS - r0
+            got = comp_mod.run_compiled(obj["compiled"], xp[:BUCKET], engine=obj["engine"],
+                                        **obj["blocks"])
+        check(runs_spent == 0, f"the zoo's cold load made {runs_spent} timing runs")
+        check(torch.equal(got, oracle[:BUCKET]), "the zoo's cold-load plan != the oracle")
+        zoo_report = dict(engine=obj["engine"], blocks=obj["blocks"], timing_runs=runs_spent)
+        print("AUTOTUNE_ZOO " + json.dumps(zoo_report))
+
+        # 5. train_tm --autotune against an untuned run
+        plain_bank, _, plain_wall = tr.run("untuned (autotune phase)")
+        fresh_cache("train.json")
+        r0 = autotune.TIMING_RUNS
+        tuned_bank, counts, wall = tr.run("--autotune", "--autotune")
+        check(counts["fused_infer"] > 0 and counts["fused_train"] > 0,
+              f"train_tm --autotune launched {counts}")
+        check(torch.equal(tuned_bank, plain_bank),
+              "train_tm --autotune ended on another bank than the untuned run")
+        check_training_shapes(tuned_bank, "trained bank")
+        train_report = dict(steps=TRAIN_STEPS, wall_s=wall, untuned_wall_s=plain_wall,
+                            timing_runs=autotune.TIMING_RUNS - r0, launches=counts,
+                            blocks={k.split(":")[0]: v["blocks"]
+                                    for k, v in autotune._load_cache().items()})
+        print("AUTOTUNE_TRAIN " + json.dumps(train_report))
+        print(f"autotune: {sum(exact.values())} candidate launches == plain versions "
+              f"({json.dumps(exact)}); serve under every policy == oracle; zoo cold load "
+              "and a recalled tiling made no timing run; train --autotune bank == untuned; "
+              f"the phase took {time.perf_counter() - t_phase:.1f} s")
+        return dict(shapes=report, serve=serve_report, zoo=zoo_report, train=train_report)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune._PROC_CACHE.clear()
+        cost_model._invalidate_model_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -1479,7 +1813,10 @@ def main() -> None:
     extra_rows = {"xnor_popcount": (BNN_KERNEL, bnn_phase(dev)),
                   "flash_attention": (FLASH_KERNEL, lm_phase(dev))}
 
-    # 10. the kernels line.  Bound: the bytes the function must move (each
+    # 10. the autotuner and its cost model (AUTOTUNE)
+    autotune_phase(dev, compiled, xp_all, xw_all)
+
+    # 11. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the
     # chain ids this run's walk needs, not the padded tables) over the
     # memory rate, against its integer operations over the issue rate

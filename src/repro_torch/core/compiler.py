@@ -244,8 +244,10 @@ class CompiledTM:
     # "<kernel>:B<bucket>"), shipped by save() so a cold-start server loads
     # a tuned schedule instead of re-paying the sweep
     tuned: dict = dataclasses.field(default_factory=dict, repr=False)
-    # cost-model features shipped by a reference artifact; carried through
-    # load() untouched (the port writes {} until the cost model is ported)
+    # candidate-independent cost-model features
+    # (``kernels/cost_model.artifact_features``), shipped by save() so a
+    # zoo cold load never recomputes them; a reference artifact's (with
+    # its HLO terms) load untouched
     features: dict = dataclasses.field(default_factory=dict, repr=False)
     # device copies of include_words / word_ids / votes, keyed by device,
     # and of the margin tables, keyed (engine, tiling, device)
@@ -421,10 +423,13 @@ class CompiledTM:
         key = f"{kernel}:B{int(bucket)}"
         if rows is not None:
             key += f":U{int(rows)}"      # shard-slice vs full-bank sweeps
-        # the port's own tag: a tiling the reference recorded on a CPU or
-        # TPU backend never answers for this port's kernels
-        key += f":{PORT_MODE_PREFIX}{mode or 'cuda'}"
-        return key
+        # the port's own tag (``autotune._mode_backend``'s ``torch-cuda`` /
+        # ``torch-cpu``, or the bare device type): a tiling the reference
+        # recorded on a CPU or TPU backend never answers for the port
+        mode = mode or "cuda"
+        if not mode.startswith(PORT_MODE_PREFIX):
+            mode = PORT_MODE_PREFIX + mode
+        return f"{key}:{mode}"
 
     def record_tuned(self, kernel: str, bucket: int, blocks: dict, *,
                      rows: int | None = None, mode: str | None = None) -> None:
@@ -434,8 +439,9 @@ class CompiledTM:
         size the sweep ran at, ``rows`` the clause-row count the sweep
         actually saw (a mesh run tunes a per-shard SLICE — its winner must
         not answer for the full bank), and ``mode`` the device tag
-        (``"cuda"`` or ``"cpu"``, under the port's own prefix) so a
-        tiling recorded elsewhere is never recalled on the card."""
+        (``"torch-cuda"``/``"torch-cpu"``, or ``"cuda"``/``"cpu"`` under
+        the port's own prefix) so a tiling recorded elsewhere is never
+        recalled on the card."""
         self.tuned[self._tuned_key(kernel, bucket, rows, mode)] = dict(blocks)
 
     def tuned_blocks(self, kernel: str, bucket: int, *,
@@ -446,6 +452,20 @@ class CompiledTM:
         rows, mode) was never tuned."""
         blocks = self.tuned.get(self._tuned_key(kernel, bucket, rows, mode))
         return dict(blocks) if blocks is not None else None
+
+    def extract_features(self, refresh: bool = False) -> dict:
+        """Candidate-independent cost-model features of this artifact
+        (``kernels/cost_model.artifact_features``), memoized on the
+        instance and persisted by :meth:`save`.  The port has no HLO
+        lowering, so these are the reference's fallback features
+        (``with_hlo=False``), which the reference also takes whenever its
+        lowering fails."""
+        if self.features and not refresh:
+            return dict(self.features)
+        from repro_torch.kernels import cost_model
+
+        self.features = cost_model.artifact_features(self)
+        return dict(self.features)
 
     def save(self, path: str) -> str:
         """Write the artifact atomically with an integrity envelope.
@@ -507,7 +527,7 @@ class CompiledTM:
                            n_terms=fsched.n_terms,
                            n_lit_bits=fsched.n_lit_bits),
             tuned=self.tuned,
-            features={},   # cost-model features: not ported yet
+            features=self.extract_features(),
         )
         meta["checksum"] = _artifact_checksum(arrays, meta)
         final = path if path.endswith(".npz") else path + ".npz"
@@ -926,10 +946,16 @@ def run_compiled(
     unnecessary: compilation dropped empty clauses (the degenerate
     all-empty artifact keeps one all-zero clause whose votes are zero).
 
-    Schedule tilings come from ``blocks``: ``block_c``/``block_j`` (chain
-    tiling, memoized on the artifact) and, factorized only,
-    ``block_t``/``term_w``.  The dense and oracle engines have no tiling
-    to take and ignore ``block_c``/``block_j``.
+    Launches come from ``blocks``, in the reference's names: the schedule
+    engines take ``block_c``/``block_j`` (chain tiling, memoized on the
+    artifact), ``block_s`` (sample words a block of the walk) and,
+    factorized only, ``block_t``/``term_w``; the fused dense kernel takes
+    ``block_b``/``block_c``/``block_w`` when ``block_b`` or ``block_w`` is
+    given (a dense tiling; ``fused_infer.word_split``).  Under ``"auto"``
+    on the card a dense-only key (``block_b``/``block_w``) pins the dense
+    kernel, as in the reference: a dense-tuned launch is never
+    reinterpreted as a schedule tiling.  Each engine ignores the keys that
+    are not its own, as the reference's do.
 
     Anytime inference (``kernels/anytime.py``): ``quality > 0`` serves a
     budgeted tile prefix (error bounded by ``compiled.quality_levels()``),
@@ -939,7 +965,8 @@ def run_compiled(
     """
     from repro_torch.kernels import ops
 
-    known = {"block_c", "block_j", "block_t", "term_w"}
+    known = {"block_b", "block_c", "block_w", "block_j", "block_s",
+             "block_t", "term_w"}
     unknown = blocks.keys() - known
     if unknown:
         raise TypeError(f"run_compiled: unknown block kwargs {sorted(unknown)}; "
@@ -947,9 +974,12 @@ def run_compiled(
     spec = ops.EngineSpec.coerce(engine)
     name = spec.name
     fact_keys = {"block_t", "term_w"} & blocks.keys()
+    dense_keys = {"block_b", "block_w"} & blocks.keys()
     if name == "auto":
         if not ops.kernel_dispatch(x_packed):
             name = "oracle"
+        elif dense_keys:
+            name = "dense"
         elif (fact_keys or compiled.stats.partial_term_sharing
               >= FACTORIZE_SHARING_THRESHOLD):
             name = "factorized"
@@ -974,7 +1004,8 @@ def run_compiled(
         margin = None
         if early_exit and quality <= 0 and fsched.n_tiles:
             margin = compiled.margin_tensor("factorized", x_packed.device, **ftiling)
-        return ops.tm_forward_factorized(xw, votes, fsched, tile_margin=margin)
+        return ops.tm_forward_factorized(xw, votes, fsched, tile_margin=margin,
+                                         block_s=blocks.get("block_s"))
     if name == "sparse":
         stiling = {k: blocks.get(k) for k in ("block_c", "block_j")}
         if quality > 0:
@@ -984,10 +1015,13 @@ def run_compiled(
         margin = None
         if early_exit and quality <= 0 and sched.n_tiles:
             margin = compiled.margin_tensor("sparse", x_packed.device, **stiling)
-        return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin)
+        return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin,
+                                       block_s=blocks.get("block_s"))
     if name == "dense":
+        dense = ({k: blocks[k] for k in ("block_b", "block_c", "block_w")
+                  if k in blocks} if dense_keys else {})
         return ops.tm_forward_packed(xw, tabs["include_words"], votes, None,
-                                     fuse=spec.fuse)
+                                     fuse=spec.fuse, **dense)
     from repro_torch.kernels import ref
 
     return ref.class_sum_ref(ref.clause_fire_ref(xw, tabs["include_words"]), votes)

@@ -10,4 +10,6 @@ baseline's binarized matmul, flash_attention the LM substrate's causal
 attention forward.
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors; ``_build`` compiles the sources at first CUDA use.
+``autotune`` picks the launches of fused_infer, fused_train, sparse_infer
+and term_infer, ranked by ``cost_model``.
 """

@@ -45,7 +45,10 @@
 //     clauses a stride apart through the clause block (the builders sort
 //     clauses by chain length, and the shortest fire most), so a hot clause
 //     meets the others' fold work in no block and its atomics spread over
-//     ceil(sw_total / sw) blocks: 16 words a block was ~1.3 us slower;
+//     ceil(sw_total / sw) blocks: 16 words a block was ~1.3 us slower.  sw
+//     is the largest power of two up to 8 that the bucket's words need,
+//     unless the caller passes its own (1, 2, 4 or 8: the autotuner's
+//     block_s, kernels/autotune.py);
 //   * the fold walks only what fired: a warp takes 32 clauses of one sample
 //     word and skips it with one reduction when none fired, else 32
 //     independent ballots give lane b the clauses that fired for sample b,
@@ -408,16 +411,20 @@ __global__ void __launch_bounds__(kEarlyThreads) chain_early_kernel(
 }
 
 // Sample words a block of the exact walk takes (a power of two, at most
-// kMaxSlabWords): its grid is (clause blocks x ceil(block_c / (kThreads /
-// sw)), ceil(sw_total / sw)).
-inline int slab_words(int sw_total) {
+// kMaxSlabWords): `slab` when the caller passed one (1, 2, 4 or 8), else
+// the smallest power of two that covers sw_total, capped at kMaxSlabWords;
+// 0 for any other value.  Its grid is (clause blocks x ceil(block_c /
+// (kThreads / sw)), ceil(sw_total / sw)).
+inline int slab_words(int slab, int sw_total) {
+  if (slab != 0) {
+    return slab > 0 && slab <= kMaxSlabWords && (slab & (slab - 1)) == 0 ? slab : 0;
+  }
   int sw = 1;
   while (sw < sw_total && sw < kMaxSlabWords) sw <<= 1;
   return sw;
 }
 
-inline dim3 exact_grid(int sw_total, int n_cblocks, int block_c) {
-  const int sw = slab_words(sw_total);
+inline dim3 exact_grid(int sw, int sw_total, int n_cblocks, int block_c) {
   const int cpb = kThreads / sw;
   return dim3(n_cblocks * ((block_c + cpb - 1) / cpb), (sw_total + sw - 1) / sw);
 }
@@ -433,29 +440,33 @@ inline bool stage_fits(int rows, int k, int extra_words) {
 // can have).
 constexpr size_t kEarlyShared = 200 * 1024;
 
-// The exact walk's dynamic shared memory: the chunk's votes rows where
-// they fit (with `fold`; the early-exit walk only stores its fired words).
-inline size_t exact_shared(int sw_total, int k, bool fold) {
-  const int cpb = kThreads / slab_words(sw_total);
+// The exact walk's dynamic shared memory at sw sample words a block: the
+// chunk's votes rows where they fit (with `fold`; the early-exit walk only
+// stores its fired words).
+inline size_t exact_shared(int sw, int k, bool fold) {
+  const int cpb = kThreads / sw;
   return fold && stage_fits(cpb, k, 0) ? cpb * k * sizeof(int32_t) : 0;
 }
 
-// Launch the exact walk, or (margin != nullptr) the walk into `fired`, a
-// (sw_total, n_rows) scratch the caller allocates, then the early-exit
-// fold, on `stream`.
+// Launch the exact walk at `slab` sample words a block (0: slab_words'
+// choice), or (margin != nullptr) the walk into `fired`, a (sw_total,
+// n_rows) scratch the caller allocates, then the early-exit fold, on
+// `stream`.
 template <int NI>
 inline cudaError_t launch_chain(
     const uint32_t* rows, int stride, int sw_total, const int32_t* chain, const int32_t* lens,
     int jp, const int32_t* votes, int n_rows, int k, const int32_t* indptr,
     int n_cblocks, const int32_t* tile_jb, const int32_t* tile_last,
-    int tile_off, const int32_t* margin, int block_c, int block_j,
+    int tile_off, const int32_t* margin, int block_c, int block_j, int slab,
     int n_samples, int32_t* out, uint32_t* fired, cudaStream_t stream) {
+  const int sw = slab_words(slab, sw_total);
+  if (sw == 0) return cudaErrorInvalidValue;
   if (n_cblocks <= 0 || sw_total <= 0) return cudaSuccess;
-  const size_t staged = exact_shared(sw_total, k, margin == nullptr);
-  chain_exact_kernel<NI><<<exact_grid(sw_total, n_cblocks, block_c), kThreads,
+  const size_t staged = exact_shared(sw, k, margin == nullptr);
+  chain_exact_kernel<NI><<<exact_grid(sw, sw_total, n_cblocks, block_c), kThreads,
                                  staged, stream>>>(
       rows, stride, sw_total, chain, lens, jp, votes, n_rows, k, indptr, tile_jb,
-      tile_last, tile_off, block_c, block_j, slab_words(sw_total), staged > 0, out,
+      tile_last, tile_off, block_c, block_j, sw, staged > 0, out,
       margin == nullptr ? nullptr : fired);
   if (margin == nullptr) return cudaGetLastError();
   const cudaError_t e = cudaGetLastError();
@@ -508,12 +519,16 @@ cudaError_t occupancy(Kernel kernel, int threads, size_t dyn_shared, dim3 g, int
 }
 
 // Registers, threads, blocks an SM, shared and spill bytes, grid and
-// threads a chain of the exact walk at sw_total sample words.
+// threads a chain of the exact walk at sw_total sample words and `slab`
+// words a block (0: slab_words' choice).
 template <int NI>
-cudaError_t exact_occupancy(int sw_total, int n_cblocks, int block_c, int k, int* info) {
-  const size_t dyn = exact_shared(sw_total, k, true);
+cudaError_t exact_occupancy(int sw_total, int n_cblocks, int block_c, int k, int slab,
+                            int* info) {
+  const int sw = slab_words(slab, sw_total);
+  if (sw == 0) return cudaErrorInvalidValue;
+  const size_t dyn = exact_shared(sw, k, true);
   return occupancy(chain_exact_kernel<NI>, kThreads, dyn,
-                   exact_grid(sw_total, n_cblocks, block_c), info);
+                   exact_grid(sw, sw_total, n_cblocks, block_c), info);
 }
 
 }  // namespace repro_torch

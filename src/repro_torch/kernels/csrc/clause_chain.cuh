@@ -37,8 +37,9 @@
 //     (their partial fire bits meet by AND; exact, AND commutes).  The
 //     host takes the wide block (KS = 1: 32 x 64) where it still gives at
 //     least one block an SM, else KS = 4 (32 x 16): B 512, C 2000: 16 x 32
-//     blocks at KS 1; B 64, C 2048: 2 x 128 at KS 4.  KS = 2 (32 x 32) is
-//     left out: at B 64 it lost to KS = 4, and no other shape was timed;
+//     blocks at KS 1; B 64, C 2048: 2 x 128 at KS 4.  A caller may pass
+//     the split instead (1, 2 or 4; KS = 2 is 32 x 32): the autotuner
+//     times all three (kernels/autotune.py);
 //   * every word is ANDed, as the TPU kernel does: no early exit, so the
 //     bound's B x C x W stays the work done.
 // A block's fire bits end in shared memory as one 16-bit mask a sample
@@ -80,7 +81,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // The block's shape for KS warps splitting the words.
 template <int KS>
 struct Shape {
-  static_assert(KS == 1 || KS == 4, "one warp or all 4 split the words");
+  static_assert(KS == 1 || KS == 2 || KS == 4, "1, 2 or all 4 warps split the words");
   static constexpr int kWarpsC = kWarps / KS;   // warps along the clauses
   static constexpr int kBC = 4 * kTC * kWarpsC;   // clauses a block
   static constexpr int kPieces = kBC / 16;        // 16-bit fire masks a sample
@@ -238,8 +239,15 @@ inline int word_split(int b_total, int c_total) {
   return bt * ((c_total + Shape<1>::kBC - 1) / Shape<1>::kBC) >= sms ? 1 : 4;
 }
 
+// The word split of a launch: `ks` when the caller passed one (1, 2 or
+// 4), else the heuristic above; 0 for any other value.
+inline int resolve_split(int ks, int b_total, int c_total) {
+  if (ks == 0) return word_split(b_total, c_total);
+  return ks == 1 || ks == 2 || ks == 4 ? ks : 0;
+}
+
 inline dim3 grid(int b_total, int c_total, int ks) {
-  const int bc = ks == 1 ? Shape<1>::kBC : Shape<4>::kBC;
+  const int bc = Shape<1>::kBC / ks;   // 64, 32 or 16 clauses a block
   return dim3((b_total + kBB - 1) / kBB, (c_total + bc - 1) / bc);
 }
 

@@ -131,27 +131,39 @@ int launch(const uint32_t* lit, const uint32_t* inc, const int32_t* votes,
 
 }  // namespace
 
+// ks: the warps that split each pair's words (1, 2 or 4), 0 for the
+// heuristic (clause_chain.cuh: word_split).
 extern "C" int fused_infer_launch(
     const uint32_t* lit, const uint32_t* inc, const int32_t* votes,
     const int32_t* nonempty, int32_t* out, int b_total, int c_total,
-    int w_total, int k, void* stream) {
+    int w_total, int k, int ks, void* stream) {
+  const int split = resolve_split(ks, b_total, c_total);
+  if (split == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b_total <= 0 || k <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(b_total) * k * sizeof(int32_t), s);
   if (err != cudaSuccess || c_total <= 0) return static_cast<int>(err);
-  return word_split(b_total, c_total) == 1
-             ? launch<1>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s)
-             : launch<4>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
+  switch (split) {
+    case 1: return launch<1>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
+    case 2: return launch<2>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
+    default: return launch<4>(lit, inc, votes, nonempty, out, b_total, c_total, w_total, k, s);
+  }
 }
 
 // Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
-// y and word split of the launch at (B, C) into info[0..7] (W and K change
-// neither the grid nor the static shared memory).
-extern "C" int fused_infer_occupancy(int b_total, int c_total, int* info) {
-  const int ks = word_split(b_total, c_total);
-  const dim3 g = grid(b_total, c_total, ks);
-  const cudaError_t err = ks == 1 ? occupancy(fused_infer_kernel<1>, g, ks, info)
-                                  : occupancy(fused_infer_kernel<4>, g, ks, info);
+// y and word split of the launch at (B, C) with split ks (0: the
+// heuristic's) into info[0..7] (W and K change neither the grid nor the
+// static shared memory).
+extern "C" int fused_infer_occupancy(int b_total, int c_total, int ks, int* info) {
+  const int split = resolve_split(ks, b_total, c_total);
+  if (split == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 g = grid(b_total, c_total, split);
+  cudaError_t err;
+  switch (split) {
+    case 1: err = occupancy(fused_infer_kernel<1>, g, split, info); break;
+    case 2: err = occupancy(fused_infer_kernel<2>, g, split, info); break;
+    default: err = occupancy(fused_infer_kernel<4>, g, split, info); break;
+  }
   return static_cast<int>(err);
 }
 

@@ -44,8 +44,6 @@
 
 namespace {
 
-using ta_delta::kCT;
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
@@ -83,6 +81,7 @@ __host__ __device__ inline int buffer_words(int seg, int w_total) {
   return round4(seg * w_total + 1);
 }
 
+template <int kCT>
 __global__ void __launch_bounds__(ta_delta::kMaxThreads) fused_train_kernel(
     const int8_t* __restrict__ ta, const uint32_t* __restrict__ lit_words,
     const uint32_t* __restrict__ inc_words, const int32_t* __restrict__ y,
@@ -91,7 +90,7 @@ __global__ void __launch_bounds__(ta_delta::kMaxThreads) fused_train_kernel(
     const int32_t* __restrict__ pol, int32_t* __restrict__ out, int b_total,
     int c_total, int w_total, int seg, uint32_t c_base, uint32_t b_off,
     uint32_t c_off, ta_delta::Draw d) {
-  __shared__ ta_delta::Tile t;
+  __shared__ ta_delta::TileOf<kCT> t;
   __shared__ uint8_t active_s[ta_delta::kSegMax];   // samples with feedback in the tile
   __shared__ int n_active;
   extern __shared__ __align__(16) uint32_t dyn_s[];  // row buffers, then includes
@@ -110,8 +109,8 @@ __global__ void __launch_bounds__(ta_delta::kMaxThreads) fused_train_kernel(
   copy_words(inc_s, inc_words + static_cast<size_t>(c0) * W, n_c * W);
   stage(0);
   cp_async_commit();
-  const uint32_t ex0 = ta_delta::exclude_bits(ta, c0, n_c, threadIdx.x * ta_delta::kV,
-                                              static_cast<int>(d.l_total));
+  const ta_delta::Excl<kCT> ex0 = ta_delta::exclude_bits<kCT>(
+      ta, c0, n_c, threadIdx.x * ta_delta::kV, static_cast<int>(d.l_total));
 
   for (int k = 0; k < n_seg; ++k) {
     const int s0 = k * seg, ns = min(seg, b_total - s0);
@@ -190,62 +189,102 @@ struct Config {
   int threads, seg, smem;
 };
 
-Config config(int b_total, int l_total, int w_total) {
+Config config(int b_total, int l_total, int w_total, int ct) {
   Config k;
   k.threads = ta_delta::block_threads(l_total);
   k.seg = ta_delta::seg_samples(b_total, 4 * w_total);
   const int n_buf = b_total > k.seg ? 2 : 1;
-  k.smem = (n_buf * buffer_words(k.seg, w_total) + round4(kCT * w_total)) * 4;
+  k.smem = (n_buf * buffer_words(k.seg, w_total) + round4(ct * w_total)) * 4;
   return k;
 }
 
-// with ~10 KB of static shared memory: opt in past 48 KB
+// with ~10-14 KB of static shared memory: opt in past 48 KB
+template <int kCT>
 cudaError_t opt_in(int smem) {
   if (smem <= 32 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fused_train_kernel,
+  return cudaFuncSetAttribute(fused_train_kernel<kCT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int kCT>
+cudaError_t launch(const int8_t* ta, const uint32_t* lit_words, const uint32_t* inc_words,
+                   const int32_t* y, const int32_t* kn, const float* p_t, const float* p_n,
+                   const int32_t* cls, const int32_t* pol, int32_t* out, int b_total,
+                   int c_total, int l_total, int w_total, uint32_t c_base, uint32_t b_off,
+                   uint32_t c_off, const ta_delta::Draw& d, cudaStream_t stream) {
+  const Config k = config(b_total, l_total, w_total, kCT);
+  const cudaError_t err = opt_in<kCT>(k.smem);
+  if (err != cudaSuccess) return err;
+  fused_train_kernel<kCT><<<(c_total + kCT - 1) / kCT, k.threads, k.smem, stream>>>(
+      ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out, b_total, c_total,
+      w_total, k.seg, c_base, b_off, c_off, d);
+  return cudaGetLastError();
+}
+
+template <int kCT>
+cudaError_t occupancy(int b_total, int l_total, int w_total, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fused_train_kernel<kCT>);
+  const Config k = config(b_total, l_total, w_total, kCT);
+  if (err == cudaSuccess) err = opt_in<kCT>(k.smem);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_train_kernel<kCT>,
+                                                        k.threads, k.smem);
+  }
+  if (err != cudaSuccess) return err;
+  info[0] = a.numRegs;
+  info[1] = k.threads;
+  info[2] = blocks;
+  info[3] = static_cast<int>(a.sharedSizeBytes) + k.smem;
+  info[4] = static_cast<int>(a.localSizeBytes);
+  info[5] = kCT;
+  info[6] = k.seg;
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// ct: clauses a block (2, 4 or 8), 0 for the default, ta_delta::kCT.
 extern "C" int fused_train_launch(
     const int8_t* ta, const uint32_t* lit_words, const uint32_t* inc_words,
     const int32_t* y, const int32_t* kn, const float* p_t, const float* p_n,
     const int32_t* cls, const int32_t* pol, int32_t* out, int b_total,
     int c_total, int l_total, int w_total, uint32_t c_dim, uint32_t c_base,
     uint32_t seed, uint32_t b_off, uint32_t c_off, uint32_t t_act,
-    uint32_t t_inact, void* stream) {
+    uint32_t t_inact, int ct, void* stream) {
+  if (ct == 0) ct = ta_delta::kCT;
+  if (ct != 2 && ct != 4 && ct != 8) return static_cast<int>(cudaErrorInvalidValue);
   if (c_total <= 0 || l_total <= 0) return static_cast<int>(cudaSuccess);
-  const Config k = config(b_total, l_total, w_total);
-  const cudaError_t err = opt_in(k.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const ta_delta::Draw d{seed, t_act, t_inact, c_dim, static_cast<uint32_t>(l_total)};
-  fused_train_kernel<<<(c_total + kCT - 1) / kCT, k.threads, k.smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out, b_total, c_total,
-      w_total, k.seg, c_base, b_off, c_off, d);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (ct) {
+    case 2: err = launch<2>(ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out,
+                            b_total, c_total, l_total, w_total, c_base, b_off, c_off, d, s);
+            break;
+    case 8: err = launch<8>(ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out,
+                            b_total, c_total, l_total, w_total, c_base, b_off, c_off, d, s);
+            break;
+    default: err = launch<4>(ta, lit_words, inc_words, y, kn, p_t, p_n, cls, pol, out,
+                             b_total, c_total, l_total, w_total, c_base, b_off, c_off, d, s);
+  }
+  return static_cast<int>(err);
 }
 
 // info: registers a thread, threads a block, resident blocks per SM,
-// shared bytes a block (static + dynamic), local (spill) bytes a thread
-extern "C" int fused_train_occupancy(int b_total, int l_total, int w_total, int* info) {
-  cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, fused_train_kernel);
-  const Config k = config(b_total, l_total, w_total);
-  if (err == cudaSuccess) err = opt_in(k.smem);
-  int blocks = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fused_train_kernel,
-                                                        k.threads, k.smem);
+// shared bytes a block (static + dynamic), local (spill) bytes a thread,
+// clauses a block and samples a segment, of the launch with ct clauses a
+// block (0: the default)
+extern "C" int fused_train_occupancy(int b_total, int l_total, int w_total, int ct,
+                                     int* info) {
+  if (ct == 0) ct = ta_delta::kCT;
+  switch (ct) {
+    case 2: return static_cast<int>(occupancy<2>(b_total, l_total, w_total, info));
+    case 4: return static_cast<int>(occupancy<4>(b_total, l_total, w_total, info));
+    case 8: return static_cast<int>(occupancy<8>(b_total, l_total, w_total, info));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = a.numRegs;
-  info[1] = k.threads;
-  info[2] = blocks;
-  info[3] = static_cast<int>(a.sharedSizeBytes) + k.smem;
-  info[4] = static_cast<int>(a.localSizeBytes);
-  return static_cast<int>(cudaSuccess);
 }
 
 extern "C" const char* fused_train_error_string(int err) {

@@ -32,7 +32,7 @@ extern "C" int sparse_infer_launch(
     int sw_total, const int32_t* chain_ids, const int32_t* lens, int jp,
     const int32_t* votes, int n_rows, int k, const int32_t* indptr,
     int n_cblocks, const int32_t* tile_jb, const int32_t* tile_last,
-    const int32_t* margin, int block_c, int block_j, int32_t* out,
+    const int32_t* margin, int block_c, int block_j, int slab, int32_t* out,
     uint32_t* fired, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = launch_bit_transpose(lit, b_total, w_total, sw_total, sw_total,
@@ -41,16 +41,17 @@ extern "C" int sparse_infer_launch(
   return static_cast<int>(launch_chain<kIds>(
       lit_t, sw_total, sw_total, chain_ids, lens, jp, votes, n_rows,
       k, indptr, n_cblocks, tile_jb, tile_last, /*tile_off=*/0, margin,
-      block_c, block_j, b_total, out, fired, st));
+      block_c, block_j, slab, b_total, out, fired, st));
 }
 
 // Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
 // y and threads a chain of the exact walk at B samples, n_cblocks clause
-// blocks of block_c and k classes, into info[0..7].
-extern "C" int sparse_infer_occupancy(int b_total, int n_cblocks, int block_c, int k,
+// blocks of block_c, k classes and `slab` sample words a block (0: the
+// heuristic's, chain_walk.cuh: slab_words), into info[0..7].
+extern "C" int sparse_infer_occupancy(int b_total, int n_cblocks, int block_c, int k, int slab,
                                       int* info) {
   return static_cast<int>(exact_occupancy<kIds>(
-      (b_total + 31) / 32, n_cblocks, block_c, k, info));
+      (b_total + 31) / 32, n_cblocks, block_c, k, slab, info));
 }
 
 extern "C" const char* sparse_infer_error_string(int err) {

@@ -40,6 +40,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "hash_rng.cuh"
@@ -47,11 +48,18 @@
 namespace ta_delta {
 
 constexpr int kV = 7;                  // literals a thread
-constexpr int kCT = 4;                 // clauses a block: 512 at tm-mnist
+// clauses a block: 512 blocks at tm-mnist.  fused_train.cu also
+// instantiates 2 and 8 (the autotuner's block_c, kernels/autotune.py);
+// ta_update.cu keeps 4
+constexpr int kCT = 4;
 constexpr int kMaxThreads = 256;       // a literal chunk is at most 1792 wide
 constexpr int kSegMax = 128;           // samples a segment (8 bits of an entry)
 constexpr int kRowBudget = 32 * 1024;  // bytes of staged literal rows a segment
-static_assert(kCT * kV <= 32, "a thread's exclude bits fill one word");
+
+// A thread's exclude bits for CT clauses of kV literals: one word, or two
+// past 32 bits (CT = 8).
+template <int CT>
+using Excl = typename std::conditional<(CT * kV <= 32), uint32_t, uint64_t>::type;
 
 // Draw parameters: the hash's seed and thresholds, the clause dimension of
 // the automaton index and the literal count.
@@ -63,14 +71,17 @@ struct Draw {
 // pairs, the pair lists, and a warp's staging of its sums for coalesced
 // stores.  A pair entry holds its code in bits 0-2, the staged row of its
 // sample in bits 8-15 and the sample's index in its segment from bit 16.
-struct Tile {
+template <int CT>
+struct TileOf {
+  static constexpr int kClauses = CT;
   alignas(16) int32_t sums[kMaxThreads * kV];
-  uint32_t pair[kCT][kSegMax];
-  uint8_t code[kSegMax][kCT];
-  int n[kCT];
+  uint32_t pair[CT][kSegMax];
+  uint8_t code[kSegMax][CT];
+  int n[CT];
   int n_rows;                          // staged literal rows
   uint8_t row_sample[kSegMax];         // kCompact: the sample of each row
 };
+using Tile = TileOf<kCT>;
 
 // Host side: threads of a block for L literals, and samples a segment for
 // staged rows of row_bytes each.
@@ -92,19 +103,19 @@ inline int seg_samples(int b_total, int row_bytes) {
 // (an unfired clause's Type II adds nothing).  Lists keep sample order.
 // kCompact numbers the staged rows over the samples with a listed pair
 // (ta_update stages only those); else a sample's row is its index.
-template <bool kCompact>
-__device__ __forceinline__ void build_lists(Tile& t, int ns, int lane) {
-  int n[kCT];
+template <bool kCompact, int CT>
+__device__ __forceinline__ void build_lists(TileOf<CT>& t, int ns, int lane) {
+  int n[CT];
 #pragma unroll
-  for (int c = 0; c < kCT; ++c) n[c] = 0;
+  for (int c = 0; c < CT; ++c) n[c] = 0;
   int n_rows = 0;
   const uint32_t below = (1u << lane) - 1u;
   for (int base = 0; base < ns; base += 32) {
     const int s = base + lane;
-    uint32_t codes[kCT];
+    uint32_t codes[CT];
     uint32_t keep = 0u;                  // bit c: pair (s, c) is listed
 #pragma unroll
-    for (int c = 0; c < kCT; ++c) {
+    for (int c = 0; c < CT; ++c) {
       codes[c] = s < ns ? t.code[s][c] : 0u;
       const uint32_t ft = codes[c] & 3u;
       if (ft == 1u || (ft == 2u && (codes[c] & 4u))) keep |= 1u << c;
@@ -117,7 +128,7 @@ __device__ __forceinline__ void build_lists(Tile& t, int ns, int lane) {
       n_rows += __popc(any);
     }
 #pragma unroll
-    for (int c = 0; c < kCT; ++c) {
+    for (int c = 0; c < CT; ++c) {
       const bool k = (keep >> c) & 1u;
       const uint32_t b = __ballot_sync(0xffffffffu, k);
       if (k) {
@@ -129,24 +140,25 @@ __device__ __forceinline__ void build_lists(Tile& t, int ns, int lane) {
   }
   if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < kCT; ++c) t.n[c] = n[c];
+    for (int c = 0; c < CT; ++c) t.n[c] = n[c];
     t.n_rows = kCompact ? n_rows : ns;
   }
 }
 
 // Bits kV * c + v: automata (c0 + c, l0 + v) that exclude (state < 0);
 // 0 where l0 is past the literals.
-__device__ __forceinline__ uint32_t exclude_bits(const int8_t* ta, int c0, int n_c,
+template <int CT = kCT>
+__device__ __forceinline__ Excl<CT> exclude_bits(const int8_t* ta, int c0, int n_c,
                                                  int l0, int l_total) {
-  uint32_t ex = 0u;
+  Excl<CT> ex = 0u;
   if (l0 >= l_total) return ex;
 #pragma unroll
-  for (int c = 0; c < kCT; ++c) {
+  for (int c = 0; c < CT; ++c) {
     if (c < n_c) {
       const int8_t* p = ta + static_cast<size_t>(c0 + c) * l_total + l0;
 #pragma unroll
       for (int v = 0; v < kV; ++v) {
-        if (l0 + v < l_total && __ldg(p + v) < 0) ex |= 1u << (kV * c + v);
+        if (l0 + v < l_total && __ldg(p + v) < 0) ex |= Excl<CT>(1) << (kV * c + v);
       }
     }
   }
@@ -196,7 +208,8 @@ __device__ __forceinline__ void walk(const uint32_t* pairs, int n, const uint32_
 // start 16-byte aligned passes them through shared memory and stores them
 // as 16-byte words, neighbouring lanes on neighbouring addresses; another
 // warp stores a thread's sums one by one.
-__device__ __forceinline__ void store(Tile& t, int32_t* out_row, int lc, int l_total,
+template <class T>
+__device__ __forceinline__ void store(T& t, int32_t* out_row, int lc, int l_total,
                                       const int32_t (&acc)[kV], bool add) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int w0 = lc + warp * 32 * kV;
@@ -229,22 +242,24 @@ __device__ __forceinline__ void store(Tile& t, int32_t* out_row, int lc, int l_t
 // (first), added for a later one.  ex0: the thread's exclude bits in the
 // first chunk, loaded by the caller ahead of its front end so that their
 // latency hides behind it.  No barrier inside.
-__device__ __forceinline__ void walk_tile(Tile& t, const uint32_t* rows, int row_words,
+template <int CT>
+__device__ __forceinline__ void walk_tile(TileOf<CT>& t, const uint32_t* rows, int row_words,
                                           const int8_t* ta, int32_t* out, int c0, int n_c,
-                                          uint32_t ex0, uint32_t g_row0, const Draw& d,
+                                          Excl<CT> ex0, uint32_t g_row0, const Draw& d,
                                           bool first) {
   const int L = static_cast<int>(d.l_total);
   for (int lc = 0; lc < L; lc += blockDim.x * kV) {
     const int l0 = lc + threadIdx.x * kV;
     if (l0 >= L) break;
-    const uint32_t ex = lc == 0 ? ex0 : exclude_bits(ta, c0, n_c, l0, L);
+    const Excl<CT> ex = lc == 0 ? ex0 : exclude_bits<CT>(ta, c0, n_c, l0, L);
     for (int c = 0; c < n_c; ++c) {
       const int n = t.n[c];
       if (!first && n == 0) continue;
       int32_t acc[kV];
 #pragma unroll
       for (int v = 0; v < kV; ++v) acc[v] = 0;
-      walk(t.pair[c], n, rows, row_words, (ex >> (kV * c)) & ((1u << kV) - 1u),
+      walk(t.pair[c], n, rows, row_words,
+           static_cast<uint32_t>(ex >> (kV * c)) & ((1u << kV) - 1u),
            g_row0 + static_cast<uint32_t>(c), static_cast<uint32_t>(l0), d, acc);
       store(t, out + static_cast<size_t>(c0 + c) * L, lc, L, acc, !first);
     }

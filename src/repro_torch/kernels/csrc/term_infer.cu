@@ -81,7 +81,7 @@ extern "C" int term_infer_launch(
     uint32_t* term_bits, const int32_t* clause_chain, const int32_t* lens,
     int jp, const int32_t* votes, int n_rows, int k, const int32_t* indptr,
     int n_cblocks, const int32_t* tile_jb, const int32_t* tile_last,
-    int n_term_tiles, const int32_t* margin, int block_c, int block_j,
+    int n_term_tiles, const int32_t* margin, int block_c, int block_j, int slab,
     int32_t* out, uint32_t* fired, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the padding words transpose too (samples past b_total read as 0), so
@@ -100,16 +100,17 @@ extern "C" int term_infer_launch(
   return static_cast<int>(launch_chain<kIds>(
       term_bits, stride, sw_total, clause_chain, lens, jp, votes,
       n_rows, k, indptr, n_cblocks, tile_jb, tile_last, n_term_tiles, margin,
-      block_c, block_j, b_total, out, fired, st));
+      block_c, block_j, slab, b_total, out, fired, st));
 }
 
 // Registers, threads, blocks an SM, shared bytes, spill bytes, grid x, grid
 // y and threads a chain of the stage-2 walk at B samples, n_cblocks clause
-// blocks of block_c and k classes, into info[0..7].
-extern "C" int term_infer_occupancy(int b_total, int n_cblocks, int block_c, int k,
+// blocks of block_c, k classes and `slab` sample words a block (0: the
+// heuristic's, chain_walk.cuh: slab_words), into info[0..7].
+extern "C" int term_infer_occupancy(int b_total, int n_cblocks, int block_c, int k, int slab,
                                     int* info) {
   return static_cast<int>(exact_occupancy<kIds>(
-      (b_total + 31) / 32, n_cblocks, block_c, k, info));
+      (b_total + 31) / 32, n_cblocks, block_c, k, slab, info));
 }
 
 extern "C" const char* term_infer_error_string(int err) {

@@ -20,6 +20,12 @@ from repro_torch.kernels.ref import class_sum_ref, clause_fire_ref
 # and the warps that split each pair's words (csrc/clause_chain.cuh)
 GRID_FIELDS = ("grid_x", "grid_y", "word_split")
 
+# The launches the kernel can make, in the reference's block names: a CUDA
+# block of BLOCK_B samples and 64 / split clauses, its warps split each
+# pair's words `split` ways, so one warp walks ceil(W / split) words.
+BLOCK_B = 32
+SPLITS = (1, 2, 4)
+
 # kernel launches through fused_tm_forward on CUDA tensors
 launches = 0
 
@@ -49,8 +55,33 @@ def fused_forward_plain(lit_words, inc_words, votes, nonempty):
     return class_sum_ref(fired, votes)
 
 
-def fused_forward_cuda(lit_words, inc_words, votes, nonempty):
-    """Launch ``csrc/fused_infer.cu`` on CUDA tensors -> (B, K) int32."""
+def blocks_for(split: int, W: int) -> dict:
+    """``{block_b, block_c, block_w}`` of the launch with word split
+    ``split`` over ``W`` words."""
+    return dict(block_b=BLOCK_B, block_c=64 // split, block_w=-(-W // split))
+
+
+def word_split(W: int, block_b=None, block_c=None, block_w=None) -> int:
+    """The word split (1, 2 or 4) that a tiling names over ``W`` words, or
+    0, the kernel's own choice (``csrc/clause_chain.cuh:word_split``), when
+    it names none.  A tiling the kernel does not launch raises
+    ``ValueError``: it is never clamped to one it does."""
+    given = {k: v for k, v in dict(block_b=block_b, block_c=block_c,
+                                   block_w=block_w).items() if v is not None}
+    if not given:
+        return 0
+    match = [s for s in SPLITS
+             if all(blocks_for(s, W)[k] == int(v) for k, v in given.items())]
+    if not match:
+        raise ValueError(
+            f"fused_infer launches {[blocks_for(s, W) for s in SPLITS]} at "
+            f"W={W}; {given} is none of them")
+    return match[0] if len(match) < len(SPLITS) else 0
+
+
+def fused_forward_cuda(lit_words, inc_words, votes, nonempty, split: int = 0):
+    """Launch ``csrc/fused_infer.cu`` on CUDA tensors -> (B, K) int32;
+    ``split`` warps split each pair's words (0: the kernel's choice)."""
     global launches
     _check(lit_words, inc_words, votes, nonempty)
     if not lit_words.is_cuda:
@@ -61,32 +92,38 @@ def fused_forward_cuda(lit_words, inc_words, votes, nonempty):
     out = torch.empty((B, K), dtype=torch.int32, device=lit_words.device)
     P, I = _build.P, _build.I
     fn = _build.entry("fused_infer", "fused_infer_launch",
-                      [P, P, P, P, P, I, I, I, I, P])
+                      [P, P, P, P, P, I, I, I, I, I, P])
     err = fn(_build.ptr(lit_words), _build.ptr(inc_words), _build.ptr(votes),
-             _build.ptr(nonempty), _build.ptr(out), B, C, W, K,
+             _build.ptr(nonempty), _build.ptr(out), B, C, W, K, int(split),
              _build.stream_ptr(lit_words.device))
     _build.check("fused_infer", err)
     launches += 1
     return out
 
 
-def occupancy(B: int, C: int) -> dict:
+def occupancy(B: int, C: int, split: int = 0) -> dict:
     """The kernel's registers a thread, threads a block, resident blocks per
     SM, shared and spill bytes, and the grid and word split it launches
-    with at batch ``B`` and ``C`` clauses (nothing else changes the launch:
-    its shared memory is static)."""
-    return _build.occupancy("fused_infer", B, C, extra=GRID_FIELDS)
+    with at batch ``B`` and ``C`` clauses and word split ``split`` (0: the
+    kernel's choice; nothing else changes the launch: its shared memory is
+    static)."""
+    return _build.occupancy("fused_infer", B, C, int(split), extra=GRID_FIELDS)
 
 
 def fused_tm_forward(lit_words: torch.Tensor, inc_words: torch.Tensor,
-                     votes: torch.Tensor, nonempty: torch.Tensor | None = None
-                     ) -> torch.Tensor:
+                     votes: torch.Tensor, nonempty: torch.Tensor | None = None,
+                     *, block_b: int | None = None, block_c: int | None = None,
+                     block_w: int | None = None) -> torch.Tensor:
     """Packed literals (B, W) x includes (C, W) (int32 bit patterns) ->
     (B, K) int32 class sums; ``nonempty=None`` masks nothing (training
-    semantics: empty clauses fire)."""
+    semantics: empty clauses fire).  ``block_*`` pick the launch (see
+    :func:`word_split`; checked on every device, used on the card)."""
+    split = word_split(lit_words.shape[1], block_b, block_c, block_w)
     if nonempty is None:
         nonempty = torch.ones(inc_words.shape[0], dtype=torch.int32,
                               device=inc_words.device)
     args = (lit_words.contiguous(), inc_words.contiguous(),
             votes.to(torch.int32).contiguous(), nonempty.to(torch.int32).contiguous())
-    return fused_forward_cuda(*args) if lit_words.is_cuda else fused_forward_plain(*args)
+    if lit_words.is_cuda:
+        return fused_forward_cuda(*args, split=split)
+    return fused_forward_plain(*args)

@@ -278,16 +278,28 @@ def tm_forward_packed(
     nonempty: torch.Tensor | None = None,   # (C,); None = training semantics
     *,
     fuse: bool = True,
+    autotune: bool = False,
+    **blocks,
 ) -> torch.Tensor:
     """Packed literals -> (B, K) class sums.  ``fuse=True`` runs the fused
     dense kernel (``fused_infer.py``): clause chain, empty-clause mask and
-    vote fold in one pass.  ``fuse=False`` runs the two-kernel pipeline
-    ``clause_fire`` -> (mask) -> ``class_sums`` with the (B, C) fire
-    matrix in device memory."""
+    vote fold in one pass, launched as ``blocks`` (``block_b``/``block_c``/
+    ``block_w``) name, or as ``autotune.py``'s cached sweep picks with
+    ``autotune=True`` and no blocks.  ``fuse=False`` runs the two-kernel
+    pipeline ``clause_fire`` -> (mask) -> ``class_sums`` with the (B, C)
+    fire matrix in device memory; those kernels pick their own launch, as
+    the reference's untuned ones do, and ``blocks`` are not theirs."""
     if fuse:
         faults.raise_if("kernel.dense")   # drill: dense-kernel failure
+        if autotune and not blocks:
+            from repro_torch.kernels import autotune as _autotune
+
+            B, W = lit_words.shape
+            C, K = votes.shape
+            blocks = _autotune.autotune_fused_blocks(B, C, W, K,
+                                                     device=lit_words.device)
         return _fused_infer_kernel.fused_tm_forward(lit_words, inc_words, votes,
-                                                    nonempty)
+                                                    nonempty, **blocks)
     fired = clause_fire(lit_words, inc_words)
     if nonempty is not None:
         fired = fired * (nonempty != 0).to(torch.int8)[None, :]
@@ -300,13 +312,14 @@ def tm_forward_schedule(
     schedule,                   # sparse_infer.SparseSchedule
     *,
     tile_margin=None,           # (T,) int32 anytime margins -> exact early exit
+    block_s: int | None = None,  # sample words a block of the walk
 ) -> torch.Tensor:
     """Compiled-artifact class sums via the block-sparse chain schedule
     (``sparse_infer.sparse_tm_forward``).  Vacuous-AND contract: all-zero
     rows must carry zero votes (true for every ``compile_tm`` artifact)."""
     faults.raise_if("kernel.sparse")  # drill: chain-kernel failure
     return _sparse_infer_kernel.sparse_tm_forward(
-        lit_words, votes, schedule, tile_margin=tile_margin)
+        lit_words, votes, schedule, tile_margin=tile_margin, block_s=block_s)
 
 
 def tm_forward_factorized(
@@ -315,13 +328,14 @@ def tm_forward_factorized(
     schedule,                   # term_infer.FactorizedSchedule
     *,
     tile_margin=None,           # (T,) int32 anytime margins -> exact early exit
+    block_s: int | None = None,  # sample words a block of the stage-2 walk
 ) -> torch.Tensor:
     """Compiled-artifact class sums via the two-level FACTORIZED schedule
     (``term_infer.factorized_tm_forward``): stage 1 evaluates each unique
     AND term once per sample word, stage 2 chains term ids per clause."""
     faults.raise_if("kernel.factorized")  # drill: factorized-kernel failure
     return _term_infer_kernel.factorized_tm_forward(
-        lit_words, votes, schedule, tile_margin=tile_margin)
+        lit_words, votes, schedule, tile_margin=tile_margin, block_s=block_s)
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +449,8 @@ def tm_train_step_kernel(
     batch_chunk: int | None = None,
     *,
     fuse: bool = True,
+    autotune: bool = False,
+    blocks: dict | None = None,
     b_offset: int = 0,       # global index of sample 0 (data-sharded caller)
     c_offset: int = 0,       # global index of clause 0 (clause-sharded caller)
     c_total: int | None = None,  # set when ta_state is a clause shard
@@ -449,6 +465,10 @@ def tm_train_step_kernel(
     (B, C) in device memory).  ``fuse=False`` runs ``clause_fire``, the
     feedback plan (``class_sums``) and ``ta_delta``.  CPU tensors run the
     kernels' plain versions.  Every form gives the same bits.
+
+    ``autotune=True`` picks the two fused kernels' launches from
+    ``kernels/autotune.py``'s cached sweeps (training shapes cache under
+    their own key); ``blocks`` pins the fused training kernel's launch.
 
     ``batch_chunk`` steps through the batch in slices, summing the deltas:
     the draws are indexed by global sample id, so the result equals the
@@ -480,6 +500,17 @@ def tm_train_step_kernel(
     B = x.shape[0]
     step_kw = dict(p_act=p_act, p_inact=p_inact, c_offset=c_offset,
                    c_total=c_total)
+    infer_blocks = {}
+    if fuse and autotune:
+        from repro_torch.kernels import autotune as _autotune
+
+        chunk_b = batch_chunk if (batch_chunk and B > batch_chunk) else B
+        W = packetizer.n_words(config.n_literals)
+        if blocks is None:
+            blocks = _autotune.autotune_fused_train_blocks(
+                chunk_b, C_loc, W, ta_state.shape[1], K, device=dev)
+        infer_blocks = _autotune.autotune_fused_blocks(chunk_b, C_loc, W, K,
+                                                       device=dev)
 
     def chunk_delta(xc, yc, b_off, valid):
         lits = tm.literals(xc)
@@ -487,7 +518,7 @@ def tm_train_step_kernel(
         if fuse:
             # launch 1: class sums (no empty-clause mask in training)
             sums = _fused_infer_kernel.fused_tm_forward(lit_words, inc_words,
-                                                        votes, None)
+                                                        votes, None, **infer_blocks)
             if sums_reduce is not None:
                 sums = sums_reduce(sums)
             kn, p_t, p_n = feedback_probs(torch.clamp(sums, -T, T), yc, K, T,
@@ -498,7 +529,7 @@ def tm_train_step_kernel(
             # launch 2: fire -> feedback type -> delta
             return _fused_train_kernel.fused_tm_train_delta(
                 ta_state, lits, lit_words, inc_words, yc, kn, p_t, p_n, cls,
-                pol, seed, b_offset=b_off, **step_kw)
+                pol, seed, b_offset=b_off, **step_kw, **(blocks or {}))
         fire = clause_fire(lit_words, inc_words).to(torch.uint8)
         sums = None
         if sums_reduce is not None:   # clause shard: complete the partials

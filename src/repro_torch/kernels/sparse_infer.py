@@ -54,6 +54,11 @@ GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 # kernel launches through sparse_tm_forward_tables on CUDA tensors
 launches = 0
 
+# sample words (32 samples each) a CUDA block of the exact walk takes: the
+# reference's block_s, a power of two up to 8 (csrc/chain_walk.cuh); None
+# lets the kernel take the smallest that covers the bucket, capped at 8
+SLAB_WORDS = (1, 2, 4, 8)
+
 # per-clause chain lengths, derived once per chain table (chain_lengths):
 # id(chain) -> (weak reference, versions and sentinel, deps' references,
 # lengths); an entry leaves with its chain
@@ -398,6 +403,29 @@ def chain_lengths(chain: torch.Tensor, sentinel, *deps: torch.Tensor) -> torch.T
     return lens
 
 
+def slab_words(block_s) -> int:
+    """The slab words a block of the walk takes for ``block_s`` (0: the
+    kernel's choice, for None).  Any value but 1, 2, 4 or 8 raises
+    ``ValueError``: the walk's grid and the fold's staging assume one of
+    them, and a value is never clamped to one."""
+    if block_s is None:
+        return 0
+    if int(block_s) not in SLAB_WORDS:
+        raise ValueError(f"block_s={block_s}: the chain walk takes {SLAB_WORDS} "
+                         "sample words a block")
+    return int(block_s)
+
+
+def covering_slab(B: int) -> int:
+    """The slab words the walk takes at batch ``B`` when ``block_s`` is None:
+    the smallest power of two that covers the bucket's ceil(B / 32) sample
+    words, capped at 8 (``csrc/chain_walk.cuh:slab_words``)."""
+    sw_total, sw = -(-B // 32), 1
+    while sw < sw_total and sw < SLAB_WORDS[-1]:
+        sw *= 2
+    return sw
+
+
 def _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, n_tile_rows):
     tensors = dict(lit_words=lit_words, chain_ids=chain_ids, votes=votes,
                    tiles=tiles, indptr=indptr)
@@ -423,9 +451,11 @@ def _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, n_til
 
 
 def sparse_tables_plain(lit_words, chain_ids, votes, tiles, indptr, *,
-                        block_c, block_j, tile_margin=None):
-    """Plain PyTorch version of :func:`sparse_tables_cuda` (any device)."""
+                        block_c, block_j, tile_margin=None, block_s=None):
+    """Plain PyTorch version of :func:`sparse_tables_cuda` (any device);
+    ``block_s`` is checked and has nothing to tile here."""
     _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, 4)
+    slab_words(block_s)
     B, W = lit_words.shape
     lit_t = bit_transpose_literals(lit_words, W * 32)
     sums = chain_fold_plain(lit_t, chain_ids, votes, tiles[1], tiles[3], indptr,
@@ -435,10 +465,12 @@ def sparse_tables_plain(lit_words, chain_ids, votes, tiles, indptr, *,
 
 
 def sparse_tables_cuda(lit_words, chain_ids, votes, tiles, indptr, *,
-                       block_c, block_j, tile_margin=None):
-    """Launch ``csrc/sparse_infer.cu`` on CUDA tensors -> (B, K) int32."""
+                       block_c, block_j, tile_margin=None, block_s=None):
+    """Launch ``csrc/sparse_infer.cu`` on CUDA tensors -> (B, K) int32, the
+    walk at ``block_s`` sample words a block (:func:`slab_words`)."""
     global launches
     _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, 4)
+    slab = slab_words(block_s)
     if not lit_words.is_cuda:
         raise ValueError("sparse_tables_cuda takes CUDA tensors")
     B, W = lit_words.shape
@@ -455,41 +487,45 @@ def sparse_tables_cuda(lit_words, chain_ids, votes, tiles, indptr, *,
     jb, last = tiles[1].contiguous(), tiles[3].contiguous()
     P, I = _build.P, _build.I
     fn = _build.entry("sparse_infer", "sparse_infer_launch",
-                      [P, I, I, P, I, P, P, I, P, I, I, P, I, P, P, P, I, I, P, P, P])
+                      [P, I, I, P, I, P, P, I, P, I, I, P, I, P, P, P, I, I, I, P, P, P])
     err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw,
              _build.ptr(chain_ids), _build.ptr(lens), chain_ids.shape[1],
              _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
              _build.ptr(jb), _build.ptr(last),
              None if tile_margin is None else _build.ptr(tile_margin),
-             block_c, block_j, _build.ptr(out),
+             block_c, block_j, slab, _build.ptr(out),
              None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     _build.check("sparse_infer", err)
     launches += 1
     return out[:B]
 
 
-def occupancy(B: int, n_cblocks: int, block_c: int, K: int) -> dict:
+def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dict:
     """The exact walk's registers a thread, threads a block, resident blocks
     per SM, shared and spill bytes, grid and threads a chain at batch
-    ``B`` over ``n_cblocks`` clause blocks of ``block_c`` and ``K``
-    classes (``K`` decides whether the votes are staged in shared memory)."""
-    return _build.occupancy("sparse_infer", B, n_cblocks, block_c, K, extra=GRID_FIELDS)
+    ``B`` over ``n_cblocks`` clause blocks of ``block_c``, ``K`` classes
+    (``K`` decides whether the votes are staged in shared memory) and
+    ``block_s`` sample words a block (None: the kernel's choice)."""
+    return _build.occupancy("sparse_infer", B, n_cblocks, block_c, K,
+                            slab_words(block_s), extra=GRID_FIELDS)
 
 
 def sparse_tm_forward_tables(lit_words, chain_ids, votes, tiles, indptr, *,
-                             block_c, block_j, tile_margin=None):
+                             block_c, block_j, tile_margin=None, block_s=None):
     """Packed literals (B, W) int32 -> (B, K) int32 class sums over chain
     tables: ``tiles`` is (4, T) (cb, jb, first, last), ``indptr`` the CSR
     tile pointers per clause block.  The kernel for CUDA tensors, the plain
     version for CPU tensors."""
     fn = sparse_tables_cuda if lit_words.is_cuda else sparse_tables_plain
     return fn(lit_words, chain_ids, votes, tiles, indptr, block_c=block_c,
-              block_j=block_j, tile_margin=tile_margin)
+              block_j=block_j, tile_margin=tile_margin, block_s=block_s)
 
 
 def sparse_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
-                      schedule: SparseSchedule, *, tile_margin=None) -> torch.Tensor:
-    """Packed literals -> (B, K) int32 class sums via the chain schedule.
+                      schedule: SparseSchedule, *, tile_margin=None,
+                      block_s=None) -> torch.Tensor:
+    """Packed literals -> (B, K) int32 class sums via the chain schedule,
+    the walk at ``block_s`` sample words a block (:func:`slab_words`).
 
     Bit-identical to ``class_sum_ref(clause_fire_ref(lit, include_words),
     votes)`` for the include rows the schedule was built from; with
@@ -500,13 +536,14 @@ def sparse_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
     if schedule.n_lit_bits != W * 32:
         raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
                          f"lit_words has {W} words")
+    slab_words(block_s)
     if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
         return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
     tabs = schedule.tensors(lit_words.device)
     return sparse_tm_forward_tables(
         lit_words.contiguous(), tabs["chain_ids"], votes, tabs["tiles"],
         tabs["indptr"], block_c=schedule.block_c, block_j=schedule.block_j,
-        tile_margin=tile_margin)
+        tile_margin=tile_margin, block_s=block_s)
 
 
 def schedule_class_sums_ref(lit_words, chain_ids, votes):

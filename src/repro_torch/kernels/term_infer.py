@@ -34,7 +34,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
 from repro_torch.kernels.sparse_infer import (_check_tables, _rup, and_reduce,
                                               artifact_tag, bit_transpose_literals,
-                                              chain_fold_plain, chain_lengths)
+                                              chain_fold_plain, chain_lengths,
+                                              slab_words)
 
 # default factorized tiling (the reference's, so shipped schedules are
 # memoized under the same key); small artifacts clip
@@ -298,10 +299,12 @@ def _check_terms(lit_words, term_chain):
 
 def factorized_tables_plain(lit_words, term_chain, clause_chain, votes, tiles,
                             indptr, *, block_c, block_j, n_term_tiles,
-                            tile_margin=None):
-    """Plain PyTorch version of :func:`factorized_tables_cuda` (any device)."""
+                            tile_margin=None, block_s=None):
+    """Plain PyTorch version of :func:`factorized_tables_cuda` (any device);
+    ``block_s`` is checked and has nothing to tile here."""
     _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
     _check_terms(lit_words, term_chain)
+    slab_words(block_s)
     B, W = lit_words.shape
     lit_t = bit_transpose_literals(lit_words, W * 32)
     term_bits = and_reduce(lit_t[term_chain.long()])          # (Tp, Sw)
@@ -313,13 +316,14 @@ def factorized_tables_plain(lit_words, term_chain, clause_chain, votes, tiles,
 
 def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
                            indptr, *, block_c, block_j, n_term_tiles,
-                           tile_margin=None):
+                           tile_margin=None, block_s=None):
     """Launch ``csrc/term_infer.cu`` (bit transpose, stage 1 into a term
-    buffer allocated here, then the stage-2 walk) on CUDA tensors -> (B, K)
-    int32."""
+    buffer allocated here, then the stage-2 walk at ``block_s`` sample words
+    a block, ``sparse_infer.slab_words``) on CUDA tensors -> (B, K) int32."""
     global launches
     _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
     _check_terms(lit_words, term_chain)
+    slab = slab_words(block_s)
     if not lit_words.is_cuda:
         raise ValueError("factorized_tables_cuda takes CUDA tensors")
     B, W = lit_words.shape
@@ -345,31 +349,33 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
     P, I = _build.P, _build.I
     fn = _build.entry("term_infer", "term_infer_launch",
                       [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
-                       I, P, I, I, P, P, P])
+                       I, P, I, I, I, P, P, P])
     err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
              _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
              _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
              _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
              _build.ptr(jb), _build.ptr(last), n_term_tiles,
              None if tile_margin is None else _build.ptr(tile_margin),
-             block_c, block_j, _build.ptr(out),
+             block_c, block_j, slab, _build.ptr(out),
              None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     _build.check("term_infer", err)
     launches += 1
     return out[:B]
 
 
-def occupancy(B: int, n_cblocks: int, block_c: int, K: int) -> dict:
+def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dict:
     """The stage-2 exact walk's registers a thread, threads a block, resident blocks
     per SM, shared and spill bytes, grid and threads a chain at batch
-    ``B`` over ``n_cblocks`` clause blocks of ``block_c`` and ``K``
-    classes (``K`` decides whether the votes are staged in shared memory)."""
-    return _build.occupancy("term_infer", B, n_cblocks, block_c, K, extra=GRID_FIELDS)
+    ``B`` over ``n_cblocks`` clause blocks of ``block_c``, ``K`` classes
+    (``K`` decides whether the votes are staged in shared memory) and
+    ``block_s`` sample words a block (None: the kernel's choice)."""
+    return _build.occupancy("term_infer", B, n_cblocks, block_c, K,
+                            slab_words(block_s), extra=GRID_FIELDS)
 
 
 def factorized_tm_forward_tables(lit_words, term_chain, clause_chain, votes,
                                  tiles, indptr, *, block_c, block_j,
-                                 n_term_tiles, tile_margin=None):
+                                 n_term_tiles, tile_margin=None, block_s=None):
     """Packed literals (B, W) int32 -> (B, K) int32 class sums over the
     factorized tables: ``tiles`` is (6, T) (stage, tb, cb, jb, first,
     last), ``indptr`` the CSR clause-tile pointers, and the clause tiles
@@ -378,19 +384,21 @@ def factorized_tm_forward_tables(lit_words, term_chain, clause_chain, votes,
     fn = factorized_tables_cuda if lit_words.is_cuda else factorized_tables_plain
     return fn(lit_words, term_chain, clause_chain, votes, tiles, indptr,
               block_c=block_c, block_j=block_j, n_term_tiles=n_term_tiles,
-              tile_margin=tile_margin)
+              tile_margin=tile_margin, block_s=block_s)
 
 
 def factorized_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
                           schedule: FactorizedSchedule, *,
-                          tile_margin=None) -> torch.Tensor:
+                          tile_margin=None, block_s=None) -> torch.Tensor:
     """Packed literals -> (B, K) int32 class sums via the factorized
-    schedule; with ``tile_margin`` argmax-identical (exact early exit)."""
+    schedule, the stage-2 walk at ``block_s`` sample words a block; with
+    ``tile_margin`` argmax-identical (exact early exit)."""
     B, W = lit_words.shape
     K = votes.shape[1]
     if schedule.n_lit_bits != W * 32:
         raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
                          f"lit_words has {W} words")
+    slab_words(block_s)
     if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
         return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
     tabs = schedule.tensors(lit_words.device)
@@ -398,7 +406,7 @@ def factorized_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
         lit_words.contiguous(), tabs["term_chain"], tabs["clause_chain"], votes,
         tabs["tiles"], tabs["indptr"], block_c=schedule.block_c,
         block_j=schedule.block_j, n_term_tiles=schedule.n_term_tiles,
-        tile_margin=tile_margin)
+        tile_margin=tile_margin, block_s=block_s)
 
 
 def factorized_class_sums_ref(lit_words, term_chain, clause_chain, votes):

@@ -34,8 +34,7 @@ import numpy as np
 import torch
 
 # serve_tm options that need modules not yet ported
-_LATER = {"mesh": "clause-sharded multi-GPU serving",
-          "autotune": "autotuning and the cost model"}
+_LATER = {"mesh": "clause-sharded multi-GPU serving"}
 
 
 def serve_tm(args) -> tuple[dict, dict, dict | None]:
@@ -54,6 +53,16 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     Every engine call synchronizes the device before it returns, so a
     fault lands on the bucket that caused it.  On ``--device cpu`` the
     kernel rungs run their plain PyTorch versions.
+
+    ``--autotune`` picks each rung's launch through
+    ``kernels/autotune.tune`` under ``--tune-policy``: ``predict`` trusts
+    the cost model (zero timing runs, the zoo cold-start mode), ``verify``
+    (default) times only the model's top-3, ``sweep`` times every
+    candidate (and feeds the model's sidecar).  A measured schedule tiling
+    is recorded in the artifact, and ``--artifact`` is saved again at exit
+    when one was recorded, so the next cold start recalls it with no
+    sweep; a recorded tiling of another mode (the reference's, or the
+    CPU's) never answers on the card.
 
     Requests flow through the async gateway (``runtime/gateway.py``):
     continuous batching with age-based flushes, bounded-queue admission,
@@ -147,6 +156,7 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
                 f"F={config.n_features}/K={config.n_classes}")
         print(f"loaded artifact {path} (U={compiled.n_unique}) on {dev}")
     print("compile stats:", compiled.stats.as_dict())
+    tuned_at_start = dict(compiled.tuned)
     # the serving artifact, as a mutable cell: the online updater promotes
     # a successor by updating this and rebinding the ladder, whose engines
     # read it when they are built
@@ -168,26 +178,76 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     quality_bounds: dict = {}
     quality_served: dict = {}
 
-    def _quality_engine(art, engine):
+    def tuned_blocks(art):
+        # the dense rung's launch at the shape it runs: the whole unique bank
+        if not args.autotune:
+            return {}
+        from repro_torch.kernels import autotune
+
+        blocks = autotune.tune(
+            "fused_infer", B=bucket, C=art.n_unique, W=art.n_words_active,
+            K=art.n_classes, device=dev, policy=args.tune_policy)
+        print(f"autotuned dense blocks (C={art.n_unique}, "
+              f"policy={args.tune_policy}):", blocks)
+        return blocks
+
+    def tuned_schedule_blocks(art, kernel, label):
+        # the schedule tiling is swept on the artifact's rows under
+        # artifact-hashed cache keys; a tiling recorded in the artifact (by
+        # an earlier run's save) for this bucket, row count and mode answers
+        # a cold start with no sweep (one recorded on another device or by
+        # the reference never does)
+        if not args.autotune:
+            return {}
+        from repro_torch.kernels import autotune
+
+        inc_rows = art.include_words
+        ctx = dict(rows=inc_rows.shape[0], mode=autotune._mode_backend(dev))
+        recorded = art.tuned_blocks(kernel, bucket, **ctx)
+        if recorded is not None:
+            print(f"artifact-recorded {label} blocks:", recorded)
+            return recorded
+        blocks = autotune.tune(
+            kernel, B=bucket, K=art.n_classes, include_words=inc_rows,
+            device=dev, policy=args.tune_policy, features=art.features or None)
+        if args.tune_policy != "predict":
+            # measured tilings persist with the artifact; predictions are
+            # re-derived in microseconds and must not masquerade as sweeps
+            art.record_tuned(kernel, bucket, blocks, **ctx)
+        print(f"autotuned {label} blocks (U={inc_rows.shape[0]}, "
+              f"policy={args.tune_policy}):", blocks)
+        return blocks
+
+    def _quality_engine(art, engine, blocks):
+        # the quality tiers of the schedule the blocks tile (all but the
+        # walk's block_s name the schedule)
+        tiling = {k: v for k, v in blocks.items() if k != "block_s"}
         quality_bounds[engine] = {
-            q["level"]: q["bound"] for q in art.quality_levels(engine=engine)}
+            q["level"]: q["bound"]
+            for q in art.quality_levels(engine=engine, **tiling)}
 
         def run(xw, quality=0):
             q = min(int(quality), max(quality_bounds[engine], default=0))
             return compiler.run_compiled(
                 art, xw, engine=engine, quality=q,
-                early_exit=ee0 and q == 0).argmax(-1)
+                early_exit=ee0 and q == 0, **blocks).argmax(-1)
 
         run.supports_quality = True
         return run
 
     def build_engine(name):
         # lazy per-level builders: engines the ladder never reaches cost
-        # nothing (the CUDA build runs at the first kernel launch); the
-        # artifact is read from the `current` cell at build time
+        # nothing, neither their CUDA build (at the first kernel launch) nor
+        # their sweep; the artifact is read from the `current` cell at
+        # build time
         art = current["compiled"]
         if name in ("factorized", "sparse"):
-            return _quality_engine(art, name)
+            kernel = "term_infer" if name == "factorized" else "sparse_infer"
+            return _quality_engine(art, name, tuned_schedule_blocks(art, kernel, name))
+        if name == "dense":
+            blocks = tuned_blocks(art)
+            return lambda xw: compiler.run_compiled(
+                art, xw, engine="dense", **blocks).argmax(-1)
         return lambda xw: compiler.run_compiled(art, xw, engine=name).argmax(-1)
 
     levels = []
@@ -405,6 +465,11 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
         # the PROMOTED artifact (with its schedules) for the next cold start
         current["compiled"].save(path)
         print(f"saved artifact (schedules) to {path}")
+    elif path and current["compiled"].tuned != tuned_at_start:
+        # newly recorded tilings persist for cold starts (saved after the
+        # stream, so tilings recorded lazily by ladder builders persist too)
+        current["compiled"].save(path)
+        print(f"saved artifact (schedules + tuned tilings) to {path}")
     engine_labels = {"factorized": "factorized-schedule",
                      "sparse": "sparse-schedule",
                      "dense": "fused-kernel", "oracle": "oracle"}
@@ -521,6 +586,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-train", type=int, default=2000,
                     help="TM --online: synthetic samples the live bank "
                          "trains on")
+    ap.add_argument("--autotune", action="store_true",
+                    help="TM: pick each rung's kernel launch through the "
+                         "autotuner (kernels/autotune.py)")
+    ap.add_argument("--tune-policy", default="verify",
+                    choices=("predict", "verify", "sweep"),
+                    help="TM --autotune mode: 'predict' trusts the cost "
+                         "model (zero timing runs), 'verify' (default) times "
+                         "the model's top-3, 'sweep' times every candidate")
     for flag, what in _LATER.items():
         ap.add_argument(f"--{flag}", default=None, nargs="?", const=True,
                         help=f"not yet ported ({what}); exits with a message")

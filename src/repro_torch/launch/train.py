@@ -8,7 +8,9 @@
 The loop wires the prefetching loader, async atomic checkpoints with
 restart-resume, preemption handling and the straggler monitor around the
 hash-RNG batch step (``ops.tm_train_step_kernel``): fused (two kernel
-launches per step) by default, unfused with ``--no-fuse``.  A checkpoint
+launches per step) by default, unfused with ``--no-fuse``; ``--autotune``
+launches the two fused kernels as ``kernels/autotune.py``'s cached sweeps
+pick (the bank is the same bits either way).  A checkpoint
 written by the reference's ``repro.launch.train`` resumes here and the
 reverse: the layout, the loader and every draw are the same.  It runs on
 the card unless ``--device cpu`` asks for the kernels' plain versions.
@@ -22,8 +24,7 @@ import json
 import torch
 
 # train options that need modules not yet ported
-_LATER = {"mesh": "clause-sharded multi-GPU training",
-          "autotune": "autotuning and the cost model"}
+_LATER = {"mesh": "clause-sharded multi-GPU training"}
 
 
 def train_tm(args) -> tuple[torch.Tensor, dict]:
@@ -94,7 +95,8 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
             ta, _ = ops.tm_train_step_kernel(
                 config, ta, torch.from_numpy(xb).to(dev),
                 torch.from_numpy(yb).to(dev), step,
-                batch_chunk=args.batch_chunk, fuse=not args.no_fuse)
+                batch_chunk=args.batch_chunk, fuse=not args.no_fuse,
+                autotune=args.autotune)
             faults.sleep_if("train.slow_step", step=step)  # straggler drill
             flag = mon.end_step(step)
             if flag:
@@ -145,7 +147,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the unfused three-kernel training step "
                          "instead of the fused two-kernel one")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (autotuning slice)")
+                    help="launch the fused kernels as the autotuner's cached "
+                         "sweeps pick (resolved on the first step)")
     ap.add_argument("--mesh", default=None,
                     help="not ported yet (multi-GPU slice)")
     ap.add_argument("--ckpt-dir", default=None)

@@ -1,6 +1,6 @@
 """Multi-tenant artifact zoo: LRU cache of loaded models + circuit breakers
-(a copy of the reference's; its ``artifact_loader``, which plans an engine
-through the autotuner, comes with the port's autotuning).
+(a copy of the reference's), and :func:`artifact_loader`, whose cold loads
+plan each tenant's engine and launch through ``kernels/autotune.py``.
 
 A production gateway serves MANY compiled TMs — far more than fit in
 memory at once.  The zoo is the tenant-facing model cache:
@@ -138,6 +138,35 @@ class _Entry:
     pins: int = 0
     evict_on_release: bool = False
     version: int = 1                 # bumped by swap(); 1 = cold load
+
+
+def artifact_loader(resolve_path: Callable[[str], str], *,
+                    batch: int = 64, device="cuda",
+                    policy: str = "predict") -> Callable:
+    """Build a zoo ``loader`` that cold-loads compiled-TM artifacts.
+
+    ``resolve_path(tenant)`` maps a tenant name to a ``save()``-produced
+    artifact path.  The loader validates + loads the ``CompiledTM`` and
+    asks ``kernels.autotune.plan_engine`` for an engine + block plan on
+    ``device``.  Under the default ``policy="predict"`` the plan comes
+    purely from the persisted feature vector and the cost model: a cold
+    zoo load issues ZERO kernel timing runs.  Returns the ``(obj, nbytes)``
+    pair the zoo expects, with ``obj`` a dict::
+
+        {"compiled": CompiledTM, "engine": str, "blocks": dict}
+    """
+    def load(tenant: str):
+        from repro_torch.core import compiler
+        from repro_torch.kernels import autotune
+
+        compiled = compiler.CompiledTM.load(resolve_path(tenant))
+        engine, blocks = autotune.plan_engine(
+            compiled, batch, device=device, policy=policy)
+        nbytes = (compiled.include_words.nbytes + compiled.word_ids.nbytes
+                  + compiled.votes.nbytes)
+        return {"compiled": compiled, "engine": engine,
+                "blocks": dict(blocks)}, nbytes
+    return load
 
 
 def _tenant_step(tenant: str) -> Optional[int]:

@@ -674,3 +674,150 @@ def test_cuda_online_steps_and_promotions_equal_cpu(cuda_device, threshold):
         got = compiler.run_compiled(dep, x, engine=eng)
         np.testing.assert_array_equal(got.cpu().numpy(), oracle.cpu().numpy(), err_msg=eng)
     assert sparse_infer.launches > n_s and term_infer.launches > n_t
+
+
+# -- the autotuner's launches (kernels/autotune.py) ------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64, 65, 512, 1030])
+def test_cuda_fused_infer_every_split_equals_plain(cuda_device, B):
+    """fused_infer at each word split the autotuner can pick (1, 2, 4 warps
+    a pair's words: blocks of 32 x 64, 32 x 32, 32 x 16) against its plain
+    version, tolerance 0, masked and unmasked, ragged clause and word
+    edges; occupancy reports the grid of the split it was given."""
+    from repro_torch.kernels import fused_infer
+    g = lambda t: t.to(cuda_device)
+    for C in (1, 2000, 2049):
+        for W in (1, 49, 513):
+            lit, inc = (g(t) for t in _chain_problem(B, C, W, B + C + W))
+            rng = np.random.default_rng(C + W)
+            votes = g(torch.from_numpy(rng.integers(-3, 4, (C, 10)).astype(np.int32)))
+            ne = g(torch.from_numpy(rng.integers(0, 2, C).astype(np.int32)))
+            for nonempty in (ne, None):
+                want = fused_infer.fused_forward_plain(
+                    lit, inc, votes, torch.ones_like(ne) if nonempty is None else nonempty)
+                for split in fused_infer.SPLITS:
+                    got = fused_infer.fused_tm_forward(lit, inc, votes, nonempty,
+                                                       **fused_infer.blocks_for(split, W))
+                    np.testing.assert_array_equal(
+                        got.cpu().numpy(), want.cpu().numpy(),
+                        err_msg=f"B={B} C={C} W={W} split={split}")
+    for split in fused_infer.SPLITS:
+        occ = fused_infer.occupancy(B, 2000, split)
+        assert occ["word_split"] == split, occ
+        assert (occ["grid_x"], occ["grid_y"]) == (-(-B // 32), -(-2000 // (64 // split))), occ
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,K,cpc,pad,p", [
+    _case(13, 17, 3, 7, 1), _case(97, 784, 10, 200, 256),
+    _case(3, 8200, 2, 8, 1),                                  # W = 513 words
+    _case(64, 784, 10, 200, 1, 1.0, "saturated-tm-mnist"),
+    _case(1030, 12, 3, 6, 1, 1.0, "saturated-1030"),
+    _case(70, 33, 3, 9, 1, 1.0, "odd-L-ragged-C"),           # C = 27: ragged at 2, 4, 8
+])
+def test_cuda_fused_train_every_clause_count_equals_plain(cuda_device, B, F, K, cpc, pad, p):
+    """fused_train at 2, 4 and 8 clauses a block (the autotuner's block_c)
+    against its plain version, tolerance 0, with offsets and a clause
+    shard; occupancy reports the launch it was given."""
+    from repro_torch.kernels import fused_train
+    cfg, ta, x, y, lits, lw, iw = _train_problem(B, F, K, cpc, B + 1, pad)
+    C, W = cfg.n_clauses_total, lw.shape[1]
+    g = lambda t: t.to(cuda_device) if torch.is_tensor(t) else t
+    for b_off, c_off, n_loc, c_total in [(0, 0, C, None), (2 ** 32 - 3, C // 2, C - C // 2, C)]:
+        sl = slice(c_off, c_off + n_loc)
+        args = _fused_inputs(cfg, ta, y, lits, lw, iw, 56, b_off, c_off, sl)
+        if p is not None:
+            args = args[:6] + (torch.full((B,), p), torch.full((B,), p)) + args[8:]
+        kw = dict(p_act=1.0, p_inact=0.25, b_offset=b_off, c_offset=c_off, c_total=c_total)
+        want = fused_train.fused_tm_train_delta(*args, **kw).numpy()
+        for clauses in fused_train.CLAUSES_A_BLOCK:
+            got = fused_train.fused_tm_train_delta(
+                *[g(a) for a in args], **kw, **fused_train.blocks_for(clauses, B, W))
+            np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                          err_msg=f"clauses={clauses} c_off={c_off}")
+    for clauses in fused_train.CLAUSES_A_BLOCK:
+        occ = fused_train.occupancy(B, cfg.n_literals, W, clauses)
+        assert occ["clauses_per_block"] == clauses, occ
+        assert occ["segment_samples"] == fused_train.segment(B, W), occ
+        assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B", [("asset", 1), ("asset", 97), ("asset", 512),
+                                    ("asset", 1030), ("empty_clause", 97),
+                                    ("long_clause", 33), ("ragged_U", 513), ("k32", 70)])
+def test_cuda_schedule_walks_every_slab_equal_plain(cuda_device, case, B):
+    """Both schedule kernels at 1, 2, 4 and 8 sample words a block (the
+    autotuner's block_s) against their plain versions, tolerance 0, exact
+    and early exit, at two tilings; occupancy reports the slab's grid."""
+    from repro_torch.kernels import anytime, sparse_infer, term_infer
+    if case == "asset":
+        comp = compiler.CompiledTM.load(ASSET)
+        iw, votes = comp.include_words, np.asarray(comp.votes, np.int32)
+    else:
+        iw, votes = _schedule_bank(case)
+    lit = _requests("random", B, iw.shape[1], B).to(cuda_device)
+    v = torch.from_numpy(votes).to(cuda_device)
+    for tiling in (dict(), dict(block_c=256, block_j=16)):
+        sched = sparse_infer.build_schedule(iw, **tiling)
+        fs = term_infer.build_factorized_schedule(iw, **tiling)
+        sm = torch.from_numpy(anytime.sparse_tile_margins(sched, votes).astype(np.int32))
+        fm = torch.from_numpy(anytime.factorized_tile_margins(fs, votes).astype(np.int32))
+        for margin_on in (False, True):
+            for slab in sparse_infer.SLAB_WORDS:
+                for mod, s, m in ((sparse_infer, sched, sm), (term_infer, fs, fm)):
+                    fwd = (sparse_infer.sparse_tm_forward if mod is sparse_infer
+                           else term_infer.factorized_tm_forward)
+                    tm_ = m.to(cuda_device) if margin_on else None
+                    want = fwd(lit.cpu(), v.cpu(), s, tile_margin=m if margin_on else None)
+                    got = fwd(lit, v, s, tile_margin=tm_, block_s=slab)
+                    np.testing.assert_array_equal(
+                        got.cpu().numpy(), want.numpy(),
+                        err_msg=f"{mod.__name__} {tiling} slab={slab} early={margin_on}")
+    for mod in (sparse_infer, term_infer):
+        for slab in sparse_infer.SLAB_WORDS:
+            occ = mod.occupancy(B, 4, 512, 10, block_s=slab)
+            assert occ["grid_y"] == -(-(-(-B // 32)) // slab), occ
+            assert occ["grid_x"] == 4 * -(-512 // (256 // slab)), occ
+            assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_infer", "fused_train", "sparse_infer",
+                                    "term_infer"])
+def test_cuda_every_autotune_candidate_equals_plain(cuda_device, kernel, tmp_path,
+                                                    monkeypatch):
+    """Every candidate of each registry, at its default grid, launched by
+    the tuner's own timed runs, against the plain version on the same
+    inputs, tolerance 0; then a sweep on the card records torch-cuda
+    observations and a winner that is one of the candidates."""
+    from repro_torch.kernels import autotune, cost_model
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNE_DATA", str(tmp_path / "td.json"))
+    cost_model._invalidate_model_cache()
+    comp = compiler.CompiledTM.load(ASSET)
+    shapes = dict(fused_infer=[dict(B=B, C=2000, W=49, K=10) for B in (1, 64, 512)],
+                  fused_train=[dict(B=B, C=2000, W=49, L=1568, K=10) for B in (1, 64)],
+                  sparse_infer=[dict(B=B, K=10, include_words=comp.include_words)
+                                for B in (33, 512)],
+                  term_infer=[dict(B=B, K=10, include_words=comp.include_words)
+                              for B in (33, 512)])[kernel]
+    tuner = autotune._REGISTRY[kernel]
+    for shape in shapes:
+        problem = tuner.prepare(**shape)
+        clipped = tuner.clip(tuner.default_candidates, problem)
+        assert len(clipped) >= 2
+        runs = tuner.make_runs(problem, clipped, cuda_device)
+        cpu_runs = tuner.make_runs(problem, clipped[:1], torch.device("cpu"))
+        want = next(iter(cpu_runs.values()))().numpy()
+        for cand, run in runs.items():
+            np.testing.assert_array_equal(run().cpu().numpy(), want,
+                                          err_msg=f"{kernel} {shape.get('B')} {cand}")
+    before = autotune.TIMING_RUNS
+    best = autotune.tune(kernel, device=cuda_device, policy="sweep", reps=1, **shapes[-1])
+    assert autotune.TIMING_RUNS > before
+    rows = cost_model.load_observations()
+    assert rows and all(r["mode"] == "torch-cuda" for r in rows)
+    assert best in [r["blocks"] for r in rows]

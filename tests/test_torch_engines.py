@@ -237,7 +237,11 @@ def test_run_compiled_rejects_unknown_and_mismatched_tilings():
     b = port_compiler.compile_tm(pcfg, ta)
     xt = port_pk.pack_literals(torch.zeros((2, 16), dtype=torch.uint8))
     with pytest.raises(TypeError, match="unknown block kwargs"):
-        port_compiler.run_compiled(b, xt, block_b=8)
+        port_compiler.run_compiled(b, xt, block_ww=8)
+    # the reference's dense keys are known; a launch the kernel cannot make
+    # is refused, never clamped
+    with pytest.raises(ValueError, match="fused_infer launches"):
+        port_compiler.run_compiled(b, xt, engine="dense", block_b=8)
     with pytest.raises(TypeError, match="factorized-only"):
         port_compiler.run_compiled(b, xt, engine="sparse", term_w=2)
     with pytest.raises(ValueError, match="unknown engine"):

@@ -3,6 +3,7 @@ and the package's isolation from JAX and from the reference package."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -200,7 +201,6 @@ def test_serve_cpu_ladder_drill(tiny_artifact):
 @pytest.mark.parametrize("extra, message", [
     ([], "later slice"),
     (["--mesh", "model=2"], "later slice"),
-    (["--autotune"], "later slice"),
 ])
 def test_serve_refuses_what_later_slices_bring(tiny_artifact, extra, message):
     from repro_torch.launch import serve
@@ -208,6 +208,60 @@ def test_serve_refuses_what_later_slices_bring(tiny_artifact, extra, message):
     argv = SERVE[2:] + (["--artifact", tiny_artifact] if extra else []) + extra
     with pytest.raises(SystemExit, match=message):
         serve.main(argv)
+
+
+@pytest.mark.parametrize("policy", ["predict", "verify", "sweep"])
+@pytest.mark.parametrize("rung", ["factorized", "sparse", "dense"])
+def test_serve_autotune_runs_on_cpu(tiny_artifact, tmp_path, policy, rung):
+    """``--autotune`` under each policy on each kernel rung of a copy of the
+    artifact (a fresh cache and sidecar): the answers equal an untuned
+    run's; a measured schedule tiling is saved with the artifact (its mode
+    ``torch-cpu``) and a second cold start recalls it with no sweep."""
+    art = str(tmp_path / "tiny.npz")
+    shutil.copy(tiny_artifact, art)
+    env = dict(REPRO_TORCH_AUTOTUNE_CACHE=str(tmp_path / "tune.json"),
+               REPRO_TORCH_TUNE_DATA=str(tmp_path / "data.json"))
+    pin = dict(factorized=["--factorize"], sparse=["--no-factorize"],
+               dense=["--no-sparse"])[rung]
+    base = SERVE + ["--artifact", art] + pin
+    r = _run(base + ["--autotune", "--tune-policy", policy], env_extra=env)
+    h = _health(r, "SERVE_HEALTH")
+    assert h["final_engine"] == rung and h["demotions"] == []
+    assert _histogram(r) == _untuned_histogram(tiny_artifact, rung) != []
+    assert f"autotuned {rung} blocks" in r.stdout
+    recorded = rung != "dense" and policy != "predict"
+    assert ("saved artifact" in r.stdout) == recorded
+    from repro_torch.core import compiler
+    tuned = compiler.CompiledTM.load(art).tuned
+    assert bool(tuned) == recorded
+    if recorded:
+        (key,) = tuned
+        assert key.endswith(":torch-cpu")
+        again = _run(base + ["--autotune", "--tune-policy", "predict"], env_extra=env)
+        assert f"artifact-recorded {rung} blocks" in _health_ok(again)
+        assert "autotuned" not in again.stdout and "saved artifact" not in again.stdout
+
+
+def _health_ok(r):
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+def _histogram(r):
+    return [l for l in _health_ok(r).splitlines() if l.startswith("pred class histogram")]
+
+
+_UNTUNED: dict = {}
+
+
+def _untuned_histogram(artifact, rung):
+    """The prediction histogram of an untuned serve of ``artifact`` on
+    ``rung`` (one run a rung per module)."""
+    if rung not in _UNTUNED:
+        pin = dict(factorized=["--factorize"], sparse=["--no-factorize"],
+                   dense=["--no-sparse"])[rung]
+        _UNTUNED[rung] = _histogram(_run(SERVE + ["--artifact", artifact] + pin))
+    return _UNTUNED[rung]
 
 
 @pytest.mark.parametrize("mode", ["zoo", "online"])

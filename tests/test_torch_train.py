@@ -448,7 +448,7 @@ def test_train_tm_flags_not_ported_and_device():
     from repro_torch.launch import train as t_launch
 
     base = ["--arch", "tm-tiny", "--steps", "1", "--device", "cpu"]
-    for extra in (["--mesh", "model=2"], ["--autotune"]):
+    for extra in (["--mesh", "model=2"],):
         args = t_launch.build_parser().parse_args(base + extra)
         with pytest.raises(SystemExit, match="later slice"):
             t_launch.train_tm(args)
@@ -456,3 +456,22 @@ def test_train_tm_flags_not_ported_and_device():
         args = t_launch.build_parser().parse_args(["--arch", "tm-tiny", "--steps", "1"])
         with pytest.raises(RuntimeError, match="cuda"):
             t_launch.train_tm(args)
+
+
+@pytest.mark.parametrize("extra", [[], ["--batch-chunk", "6"], ["--no-fuse"]])
+def test_train_tm_autotune_on_cpu(tmp_path, monkeypatch, extra):
+    """``train_tm --autotune`` on the CPU plain versions: the bank equals an
+    untuned run's bit for bit, and the fused run resolves its two training
+    shapes' launches in a fresh cache (the unfused step tunes nothing)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import train as t_launch
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNE_DATA", str(tmp_path / "data.json"))
+    base = ["--arch", "tm-tiny", "--steps", "3", "--device", "cpu",
+            "--batch-size", "16", "--log-every", "3", *extra]
+    want, _ = t_launch.train_tm(t_launch.build_parser().parse_args(base))
+    got, health = t_launch.train_tm(t_launch.build_parser().parse_args(base + ["--autotune"]))
+    assert torch.equal(got, want) and health["steps"] == 3
+    keys = sorted(k.split(":")[0] for k in autotune._load_cache())
+    assert keys == ([] if "--no-fuse" in extra else ["fused_infer", "fused_train"])

@@ -326,4 +326,9 @@ def test_zoo_exports_and_typed_errors():
     assert ArtifactZoo is port_zoo.ArtifactZoo
     assert TenantQuarantined.shed_reason == ref_zoo.TenantQuarantined.shed_reason
     assert port_zoo.ArtifactLoadError.shed_reason == "load_failed"
-    assert not hasattr(port_zoo, "artifact_loader")
+    # the loader plans through the port's autotuner: the reference's
+    # keywords, with the device in place of the interpret flag
+    import inspect
+    ref_kw = set(inspect.signature(ref_zoo.artifact_loader).parameters)
+    port_kw = set(inspect.signature(port_zoo.artifact_loader).parameters)
+    assert port_kw == ref_kw - {"interpret"} | {"device"}
