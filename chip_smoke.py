@@ -34,8 +34,15 @@ BMMA), times xnor_popcount at every BNN layer (``BNN_TIMES``, beside a
 float32 ``torch.matmul`` and an int8 ``torch._int_mm`` of the +-1 matrices,
 timed only) and prints its launch shape (``BNN_OCCUPANCY``), and holds and
 times the bf16 flash kernel at hd 128 (qwen3-32b's attention) beside
-``scaled_dot_product_attention``.  The online phase trains a live tm-mnist
-bank on the card (``fit(engine="kernel")``), drives the ``OnlineUpdater``
+``scaled_dot_product_attention``.  The JNP_TRAIN phase (``jnp_train_phase``)
+runs ``serve_tm`` without an artifact, with the README's recipe of the
+committed one: it trains tm-mnist on the card with the reference's
+``jax.random`` trainer (``fit(engine="jnp")``, threefry in torch ops),
+compiles and serves through ``term_infer``, and its artifact must equal
+the committed asset; ``batch_feedback_delta`` on the card must equal the
+CPU's at B 64, and ``train_step`` is timed beside the hash-RNG step.  The
+online phase trains a live tm-mnist bank on the card the same way
+(``fit(engine="jnp")``), drives the ``OnlineUpdater``
 (each step held to the plain versions, each recompiled candidate to a
 from-scratch compile, the promoted artifact to the oracle through both
 schedule kernels; ``ONLINE_DRILL``), then ``serve_tm --online --zoo 2``
@@ -131,6 +138,11 @@ TRAIN_KERNELS = {
 # batches (64 requests each, from the serving stream), and the zoo run's
 # tenants
 ONLINE_N_TRAIN, ONLINE_EPOCHS = 2000, 1
+# the JNP_TRAIN phase: serve_tm's train path with the README's recipe of the
+# committed artifact (tm-mnist at full width, 1 epoch on 600 synthetic
+# samples at batch 64: 9 steps), 256 requests in buckets of 256
+JNP_ARGV = ["--arch", "tm-mnist", "--device", "cuda", "--epochs", "1", "--n-train",
+            "600", "--requests", "256", "--bucket", "256"]
 ONLINE_DRIFT = 0.05
 ONLINE_STEPS = 24
 ONLINE_REQUESTS = 4096
@@ -458,7 +470,7 @@ def train_phases(dev, max_err, launches):
 
     import torch
 
-    from repro_torch.core import compiler, packetizer
+    from repro_torch.core import compiler, packetizer, prng
     from repro_torch.kernels import (class_sum, clause_eval, fused_infer, fused_train, ops,
                                      ta_update)
 
@@ -476,7 +488,7 @@ def train_phases(dev, max_err, launches):
             check(counts[name] > 0, f"{name} was never launched in the {label} run")
             if name in TRAIN_KERNELS:   # the first run that drives it
                 launches.setdefault(name, counts[name])
-    init = tr.tm.init(tr.config, torch.Generator().manual_seed(0), dev).ta_state
+    init = tr.tm.init(tr.config, prng.PRNGKey(0), dev).ta_state
     plain = tr.plain_run(init)
     for label, bank in banks.items():
         check(torch.equal(bank, plain),
@@ -625,9 +637,149 @@ def serve_run(argv):
     return (*out, float(m.group(1)))
 
 
+def artifact_diffs(path: str, want_path: str) -> list:
+    """The arrays and meta fields in which two artifact files differ,
+    leaving out the cost-model features and the checksum (a port-saved
+    artifact's features have no HLO terms, so both differ by design)."""
+    import numpy as np
+
+    a, b = np.load(path), np.load(want_path)
+    out = sorted(set(a.files) ^ set(b.files))
+    out += [k for k in sorted(set(a.files) & set(b.files))
+            if k != "meta" and not np.array_equal(a[k], b[k])]
+    ma, mb = (json.loads(bytes(z["meta"]).decode()) for z in (a, b))
+    for m in (ma, mb):
+        m.pop("features", None)
+        m.pop("checksum", None)
+    return out + ["meta." + k for k in sorted(set(ma) | set(mb)) if ma.get(k) != mb.get(k)]
+
+
+def jnp_train_phase(dev, card: str) -> dict:
+    """The reference's jax.random trainer on the card (JNP_TRAIN).
+
+    ``serve_tm`` with the README's recipe of the committed artifact
+    (``JNP_ARGV``) trains tm-mnist with ``fit(engine="jnp")``, compiles,
+    serves through ``term_infer`` and saves; the artifact must equal
+    ``ASSET``.  ``batch_feedback_delta`` on the card must equal the CPU's
+    at tm-mnist B 64 on the initial bank and on the bank ``fit`` trains.
+    Then ``train_step`` is timed beside ``train_step_kernel`` on the same
+    batch, and the share of a step's device time spent in threefry."""
+    import torch
+
+    from repro_torch.configs.matador_tm import TM_MNIST
+    from repro_torch.core import feedback, prng, tm, train
+    from repro_torch.data.synthetic import make_boolean_classification
+    from repro_torch.kernels import fused_infer, sparse_infer, term_infer
+
+    mods = {"fused_infer": fused_infer, "sparse_infer": sparse_infer,
+            "term_infer": term_infer}
+    c = TM_MNIST
+
+    # 1. the path: serve_tm trains, compiles, serves and writes the artifact
+    out_dir = os.path.join(ROOT, "build", "jnp_train")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "tm_mnist_e1.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    health, gw, _, serve_ms = serve_run(JNP_ARGV + ["--artifact", path])
+    serve_wall_s = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in mods.items()}
+    check(health["final_engine"] == "factorized" and health["demotions"] == [],
+          f"jnp_train: serve ended on {health['final_engine']}, {health['demotions']}")
+    check(gw["answered"] == 256 and gw["unaccounted"] == 0,
+          f"jnp_train: {gw['answered']} answered, {gw['unaccounted']} unaccounted")
+    check(counts["term_infer"] > 0, "jnp_train: the trained artifact was not "
+          "served through term_infer")
+    diffs = artifact_diffs(path, ASSET)
+    check(not diffs, f"jnp_train: the artifact trained on the card differs from "
+          f"the committed one in {diffs}")
+    print(f"jnp_train: serve_tm {' '.join(JNP_ARGV)} trained, compiled and served "
+          f"in {serve_wall_s:.2f} s, launches {counts}; its artifact == "
+          f"{os.path.relpath(ASSET, ROOT)} (every array and meta field but the "
+          "features and the checksum)")
+
+    # 2. fit's 9 steps on the host's clock, then batch_feedback_delta on the
+    # card against the CPU, bit for bit, on the initial and the trained bank
+    # (on the initial one no clause fires: only Type I penalties), with the
+    # epoch's first batch and step key of fit's stream
+    X, y = make_boolean_classification(600, c.n_features, c.n_classes, seed=0)
+    bank0 = tm.init(c, prng.PRNGKey(0), dev).ta_state
+    t0 = time.perf_counter()
+    trained = train.fit(c, tm.TMState(ta_state=bank0), torch.from_numpy(X),
+                        torch.from_numpy(y), epochs=1, batch_size=64,
+                        rng=prng.PRNGKey(1)).ta_state
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rng, rp = prng.split(prng.PRNGKey(1, dev)).unbind(0)
+    perm = prng.permutation(rp, 600)[:64]
+    xb, yb = torch.from_numpy(X).to(dev)[perm], torch.from_numpy(y).to(dev)[perm]
+    rs = prng.split(rng)[1]
+    cpu_s, moved = [], {}
+    for label, bank in (("initial", bank0), ("trained", trained)):
+        got = feedback.batch_feedback_delta(c, bank, xb, yb, rs)
+        t0 = time.perf_counter()
+        want = feedback.batch_feedback_delta(c, bank.cpu(), xb.cpu(), yb.cpu(), rs.cpu())
+        cpu_s.append(time.perf_counter() - t0)
+        check(torch.equal(got.cpu(), want),
+              f"jnp_train: batch_feedback_delta on the {label} bank differs from the "
+              f"CPU's by {int((got.cpu() - want).abs().max())}")
+        moved[label] = dict(up=int((want > 0).sum()), down=int((want < 0).sum()))
+    check(moved["trained"]["up"] > 0, "jnp_train: no automaton rose on the trained "
+          "bank: the comparison missed Type I rewards and Type II")
+    print(f"jnp_train: batch_feedback_delta at tm-mnist B=64 == the CPU's on the "
+          f"initial and the trained bank (automata moved: {moved})")
+
+    # 3. the step's times: train_step against train_step_kernel on the same
+    # batch and the trained bank
+    def jnp_step():
+        return train.train_step(c, tm.TMState(ta_state=trained), xb, yb, rs)
+
+    def kernel_step():
+        return train.train_step_kernel(c, tm.TMState(ta_state=trained), xb, yb, 0)
+    times = dict(train_step_ms=cuda_time_ms(jnp_step, reps=10),
+                 train_step_kernel_ms=cuda_time_ms(kernel_step))
+    dev_ms, per = profile_device(jnp_step, calls=3, key="train_step_device_ms")
+    kdev_ms, _ = profile_device(kernel_step, key="train_step_kernel_device_ms")
+    # threefry's share: the step's threefry2x32 calls, captured with their
+    # inputs and replayed alone under the profiler
+    plain_threefry, captured = prng.threefry2x32, []
+
+    def capturing(*a):
+        captured.append(tuple(t.clone() for t in a))
+        return plain_threefry(*a)
+
+    prng.threefry2x32 = capturing
+    try:
+        jnp_step()
+    finally:
+        prng.threefry2x32 = plain_threefry
+    words = sum(torch.broadcast_tensors(*a)[0].numel() for a in captured)
+
+    def threefry_alone():
+        for a in captured:
+            plain_threefry(*a)
+
+    tf_ms, _ = profile_device(threefry_alone, calls=3, key="threefry_device_ms")
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    step_ms = dev_ms["train_step_device_ms"]
+    row = dict(card=card, argv=JNP_ARGV, serve_wall_s=serve_wall_s, serve_ms=serve_ms,
+               launches=counts, fit_steps=600 // 64, fit_wall_s=fit_s,
+               feedback_delta_cpu_s=cpu_s, **times, **dev_ms, **kdev_ms,
+               threefry_calls=len(captured), threefry_words=words, **tf_ms,
+               threefry_share=(tf_ms["threefry_device_ms"] / step_ms
+                               if step_ms and tf_ms["threefry_device_ms"] else None),
+               step_idle_share=1 - step_ms / times["train_step_ms"] if step_ms else None,
+               top_us=[dict(name=k, us=u) for k, u in top])
+    print("JNP_TRAIN " + json.dumps(row))
+    return row
+
+
 def online_phase(dev) -> dict:
     """MATADOR's online loop on the card: a live tm-mnist bank trained by
-    the hash-RNG kernel trainer, the OnlineUpdater drill (every step held
+    the jax.random trainer (``fit(engine="jnp")``), the OnlineUpdater drill (every step held
     to the plain versions, every candidate to a from-scratch compile, the
     promoted artifact to the oracle), then ``serve_tm --online`` and
     ``serve_tm --zoo``.  Returns the drill's numbers."""
@@ -637,7 +789,7 @@ def online_phase(dev) -> dict:
     import torch
 
     from repro_torch.configs.matador_tm import TM_MNIST
-    from repro_torch.core import compiler, packetizer, tm, train
+    from repro_torch.core import compiler, packetizer, prng, tm, train
     from repro_torch.data.synthetic import make_boolean_classification
     from repro_torch.kernels import fused_infer, fused_train, sparse_infer, term_infer
     from repro_torch.runtime import online
@@ -659,18 +811,20 @@ def online_phase(dev) -> dict:
           f"of 64, live bank {ONLINE_EPOCHS} epoch on {ONLINE_N_TRAIN} samples "
           "(tm-mnist at full width; the cut is depth)")
 
-    # 1. the live bank on the card: fit(engine="kernel"), then compile
+    # 1. the live bank on the card, booted as serve_tm --online boots it:
+    # fit(engine="jnp") from the reference's keys, then compile
     X, y = make_boolean_classification(ONLINE_N_TRAIN, c.n_features, c.n_classes, seed=0)
     zero()
     t0 = time.perf_counter()
-    state = tm.init(c, torch.Generator().manual_seed(0), dev)
+    state = tm.init(c, prng.PRNGKey(0), dev)
+    init_bank = state.ta_state
     state = train.fit(c, state, torch.from_numpy(X), torch.from_numpy(y),
-                      epochs=ONLINE_EPOCHS, batch_size=64,
-                      generator=torch.Generator().manual_seed(1))
+                      epochs=ONLINE_EPOCHS, batch_size=64, rng=prng.PRNGKey(1))
     torch.cuda.synchronize()
     boot_s = time.perf_counter() - t0
     boot_counts = counts()
-    check(boot_counts["fused_train"] > 0, "the live bank's training launched no fused_train")
+    check(state.ta_state.device == dev and not torch.equal(state.ta_state, init_bank),
+          "the live bank's boot training did not train on the card")
     boot = compiler.compile_tm(c, state.ta_state)
     boot.schedule()
     print(f"online: live bank trained in {boot_s:.2f} s, launches {boot_counts}; "
@@ -1292,7 +1446,7 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core import packetizer, compiler as comp_mod
+    from repro_torch.core import packetizer, prng, compiler as comp_mod
     from repro_torch.data.synthetic import make_boolean_classification
     from repro_torch.kernels import (autotune, cost_model, fused_infer, fused_train,
                                      sparse_infer, term_infer)
@@ -1364,7 +1518,7 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
               "and early exit")
 
         tr = Training(dev)
-        init = tr.tm.init(tr.config, torch.Generator().manual_seed(0), dev).ta_state
+        init = tr.tm.init(tr.config, prng.PRNGKey(0), dev).ta_state
 
         def check_training_shapes(bank, label):
             for B in TRAIN_BATCHES:
@@ -1621,7 +1775,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     # 2. build every kernel from the checkout's sources
@@ -1805,6 +1960,10 @@ def main() -> None:
         max_err[name] = 0
     max_err["class_sum"] = cs_err
     train_times, train_work = train_phases(dev, max_err, launches)
+
+    # 7b. the reference's jax.random trainer: serve_tm trains the committed
+    # artifact again (JNP_TRAIN)
+    jnp_train_phase(dev, card)
 
     # 8. the online loop (live bank, drill, serve --online) and the zoo
     online_phase(dev)

@@ -1031,3 +1031,15 @@ def predict_compiled(compiled: CompiledTM, x: torch.Tensor, **kw) -> torch.Tenso
     """(B, F) raw boolean features -> predicted class ids (on x's device)."""
     return torch.argmax(run_compiled(compiled, packetizer.pack_literals(x), **kw),
                         dim=-1)
+
+
+# Re-exported so engine selection and artifact execution come from one
+# module, as in the reference.  Lazy (PEP 562): ``kernels/ops`` pulls in
+# the whole kernel stack, and kernel modules import ``repro_torch.core``,
+# so an eager import here is circular whenever a kernel module is the
+# first thing imported.
+def __getattr__(name):
+    if name in ("EngineSpec", "ENGINE_NAMES"):
+        from repro_torch.kernels import ops
+        return getattr(ops, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,7 +5,8 @@ The model is a bank of Tsetlin Automata, one per (class, clause, literal):
 ``int8`` states centred at zero, action *include* iff state >= 0.  A clause
 is the AND of its included literals; class sums are polarity-weighted
 clause votes; classification is the argmax over class sums.  Training
-(``core/train.py``) updates the bank through ``kernels/ops.py``.
+(``core/train.py``) updates the bank through ``core/feedback.py`` or the
+hash-RNG step of ``kernels/ops.py``.
 """
 
 from __future__ import annotations
@@ -62,18 +63,20 @@ class TMState:
     steps: int = 0
 
 
-def init(config: TMConfig, generator: torch.Generator, device="cuda") -> TMState:
-    """Random init in {-1, 0} from ``generator`` (a CPU generator; the bank
-    is drawn on the CPU and moved to ``device``): automata sit just either
-    side of the decision boundary.  Padded clauses are pinned to
-    ``-n_states`` (all-exclude, empty) forever."""
+def init(config: TMConfig, rng, device="cuda") -> TMState:
+    """Random init in {-1, 0} from the key ``rng`` (``prng.PRNGKey``; the
+    reference's ``jax.random.randint`` draw, bit for bit), drawn on
+    ``device``: automata sit just either side of the decision boundary.
+    Padded clauses are pinned to ``-n_states`` (all-exclude, empty)
+    forever."""
     from repro_torch import device as _device
+    from repro_torch.core import prng
 
     dev = _device.resolve(device)
     shape = (config.n_clauses_total, config.n_literals)
-    st = torch.randint(-1, 1, shape, generator=generator, dtype=torch.int8)
+    st = prng.randint(prng.as_key(rng, dev), shape, -1, 1, torch.int8)
     st[config.n_clauses_raw:] = -config.n_states
-    return TMState(ta_state=st.to(dev), steps=0)
+    return TMState(ta_state=st, steps=0)
 
 
 def state_from_numpy(ta: np.ndarray, steps: int = 0, device="cuda") -> TMState:

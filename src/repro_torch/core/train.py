@@ -1,14 +1,18 @@
 """Tsetlin-machine training and evaluation steps, and the ``fit`` loop.
 
-Every step is the hash-RNG batch step of ``kernels/ops.py``
-(``tm_train_step_kernel``): on a CUDA device the fused form is two kernel
-launches, the unfused form three; on the CPU the kernels' plain versions
-run.  Seeding a step by its global index makes runs reproducible and equal
-to the reference's bit for bit from the same bank.
+Two steps, both equal to the reference's bit for bit from the same bank:
 
-The reference's per-sample ``jax.random`` step (``engine="jnp"``) and its
-clause-sharded mesh step are not ported yet (ROADMAP queue 1, items 4 and
-6).
+  * ``train_step``: the per-sample ``jax.random`` step
+    (``feedback.batch_feedback_delta``), the paper-faithful trainer and
+    ``fit``'s default (``engine="jnp"``); its draws are torch ops on the
+    bank's device (``core/prng.py``);
+  * ``train_step_kernel``: the hash-RNG batch step of ``kernels/ops.py``
+    (``tm_train_step_kernel``, ``engine="kernel"``): on a CUDA device the
+    fused form is two kernel launches, the unfused form three; on the CPU
+    the kernels' plain versions run.
+
+The reference's clause-sharded mesh step is not ported yet (ROADMAP
+queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -18,12 +22,21 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import tm
+from repro_torch.core import feedback, prng, tm
 
 
 def _metrics(new_ta: torch.Tensor, delta: torch.Tensor) -> dict:
     return {"delta_abs_sum": int(delta.abs().sum()),
             "include_frac": float((new_ta >= 0).to(torch.float32).mean())}
+
+
+def train_step(config: tm.TMConfig, state: tm.TMState, x: torch.Tensor,
+               y: torch.Tensor, rng) -> Tuple[tm.TMState, dict]:
+    """One per-sample ``jax.random`` batch step of ``state`` from the key
+    ``rng`` -> ``(new_state, metrics)``."""
+    delta = feedback.batch_feedback_delta(config, state.ta_state, x, y, rng)
+    new_ta = feedback.apply_delta(config, state.ta_state, delta)
+    return tm.TMState(ta_state=new_ta, steps=state.steps + 1), _metrics(new_ta, delta)
 
 
 def train_step_kernel(config: tm.TMConfig, state: tm.TMState, x: torch.Tensor,
@@ -62,43 +75,46 @@ def fit(
     *,
     epochs: int,
     batch_size: int,
-    generator: torch.Generator,
+    rng,
     x_val=None,
     y_val=None,
     log_every: int = 0,
-    engine: str = "kernel",
+    engine: str = "jnp",
     batch_chunk: int | None = None,
     ckpt_manager=None,
     ckpt_every: int = 0,
     preemption=None,
     monitor=None,
 ) -> tm.TMState:
-    """Host loop over epochs on ``state.ta_state``'s device.
+    """Host loop over epochs on ``state.ta_state``'s device, with the
+    reference's key stream from the key ``rng`` (``prng.PRNGKey``).
 
-    Each epoch shuffles once (``torch.randperm`` from ``generator``, a CPU
-    generator) and slices contiguous batches; step ``g`` (counted over the
-    whole run) is seeded with ``g``.
+    Each epoch splits ``rng`` once and shuffles with
+    ``permutation(sub, n)``, then slices contiguous batches; each step
+    splits ``rng`` again.  ``engine="jnp"`` (the default) runs
+    ``train_step`` on the step's key; ``engine="kernel"`` runs the hash-RNG
+    step seeded by the global step index.  Either way the bank equals the
+    reference's ``fit`` with the same engine and key.
 
     **Fault tolerance.**  ``ckpt_manager`` with ``ckpt_every > 0`` saves
-    the bank, the generator's EPOCH-START state (``"rng"``) and the
-    ``(epoch, step_in_epoch, gstep)`` cursor, and resumes from the newest
-    checkpoint when the directory holds one: the epoch's permutation is
-    drawn again from the saved state, so an interrupted run ends on the
-    bank of an uninterrupted one.  ``preemption`` (a ``PreemptionHandler``)
-    turns SIGTERM into checkpoint + ``sys.exit(RESUME_EXIT_CODE)`` at the
-    next step boundary; ``monitor`` (a ``StragglerMonitor``) flags slow
-    steps.  Fault sites: ``train.sigterm`` and ``train.slow_step``, keyed
-    by the global step index.
+    the bank, the EPOCH-START key (``"rng"``, uint32 ``(2,)`` as the
+    reference saves it) and the ``(epoch, step_in_epoch, gstep)`` cursor,
+    and resumes from the newest checkpoint when the directory holds one:
+    the epoch's permutation is derived again from the saved key and the
+    consumed steps' splits are replayed, so an interrupted run ends on the
+    bank of an uninterrupted one, and a checkpoint of either package
+    resumes in the other.  ``preemption`` (a ``PreemptionHandler``) turns
+    SIGTERM into checkpoint + ``sys.exit(RESUME_EXIT_CODE)`` at the next
+    step boundary; ``monitor`` (a ``StragglerMonitor``) flags slow steps.
+    Fault sites: ``train.sigterm`` and ``train.slow_step``, keyed by the
+    global step index.
     """
     from repro_torch.runtime import faults
 
-    if engine != "kernel":
-        raise ValueError(
-            f"fit(engine={engine!r}): only the hash-RNG engine='kernel' is "
-            "ported; the per-sample jax.random trainer (engine='jnp') needs "
-            "distribution tests, not parity tests, and comes with a later "
-            "slice of the port")
+    if engine not in ("jnp", "kernel"):
+        raise ValueError(f"fit(engine={engine!r}): engine is 'jnp' or 'kernel'")
     dev = state.ta_state.device
+    rng = prng.as_key(rng, dev)
     x, y = x.to(dev), y.to(dev)
     n = x.shape[0]
     steps_per_epoch = max(1, n // batch_size)
@@ -106,9 +122,8 @@ def fit(
     start_epoch = start_step = 0
     if ckpt_manager is not None and ckpt_manager.latest_step() is not None:
         restored, extra = ckpt_manager.restore(
-            {"ta": state.ta_state, "rng": generator.get_state().numpy()})
-        generator.set_state(torch.from_numpy(
-            np.ascontiguousarray(restored["rng"], dtype=np.uint8)))
+            {"ta": state.ta_state, "rng": _key_np(rng)})
+        rng = prng.as_key(restored["rng"], dev)       # epoch-start key
         start_epoch = int(extra["epoch"])
         start_step = int(extra["step_in_epoch"])
         gstep = int(extra["gstep"])
@@ -118,22 +133,29 @@ def fit(
 
     def save_ckpt(ep, next_step, rng_epoch, blocking=True):
         ckpt_manager.save(
-            gstep, {"ta": state.ta_state, "rng": rng_epoch},
+            gstep, {"ta": state.ta_state, "rng": _key_np(rng_epoch)},
             extra={"epoch": ep, "step_in_epoch": next_step, "gstep": gstep},
             blocking=blocking)
 
     for ep in range(start_epoch, epochs):
-        rng_epoch = generator.get_state().numpy()   # resume anchor
-        perm = torch.randperm(n, generator=generator).to(dev)
+        rng_epoch = rng                    # resume anchor: key at epoch start
+        rng, rp = prng.split(rng).unbind(0)
+        perm = prng.permutation(rp, n)
         xs, ys = x[perm], y[perm]          # one shuffle per epoch
         i0 = start_step if ep == start_epoch else 0
+        for _ in range(i0):                # replay the consumed steps' splits
+            rng = prng.split(rng)[0]
         for i in range(i0, steps_per_epoch):
             if monitor is not None:
                 monitor.start_step()
             xb = xs[i * batch_size:(i + 1) * batch_size]
             yb = ys[i * batch_size:(i + 1) * batch_size]
-            state, _ = train_step_kernel(config, state, xb, yb, gstep,
-                                         batch_chunk)
+            rng, rs = prng.split(rng).unbind(0)
+            if engine == "kernel":
+                state, _ = train_step_kernel(config, state, xb, yb, gstep,
+                                             batch_chunk)
+            else:
+                state, _ = train_step(config, state, xb, yb, rs)
             faults.sleep_if("train.slow_step", step=gstep)
             gstep += 1
             if monitor is not None:
@@ -154,3 +176,8 @@ def fit(
     if ckpt_manager is not None:
         ckpt_manager.wait()              # surface any pending async failure
     return state
+
+
+def _key_np(key: torch.Tensor) -> np.ndarray:
+    """A key as the reference checkpoints it: uint32 (2,)."""
+    return key.cpu().numpy().astype(np.uint32)

@@ -12,7 +12,9 @@ the fused form is two launches (``fused_infer`` for the class sums, then
 ``fused_train``), the unfused form three (``clause_eval``, ``class_sum``
 inside the feedback plan, ``ta_update``).  Every draw is
 ``ref.hash_u32`` of global indices, so both forms, chunked or not, equal
-the reference's step bit for bit.
+the reference's step bit for bit.  ``tm_train_step_matmul`` is the
+reference's beyond-paper step: three 0/1 matrix products and binomial
+penalty counts, from the same hash draws.
 """
 
 from __future__ import annotations
@@ -371,8 +373,12 @@ def feedback_probs(
     kn = kn + (kn >= y).to(torch.int32)
     cols = torch.stack([y, kn], dim=1).to(torch.int64).clamp(0, n_classes - 1)
     picked = sums.gather(1, cols)
-    p_t = (T - picked[:, 0]).to(torch.float32) / (2.0 * T)
-    p_n = (T + picked[:, 1]).to(torch.float32) / (2.0 * T)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
+    # rounded reciprocal, which rounds some sums differently from the
+    # reference's (and the CPU's) division
+    two_t = torch.tensor(2.0 * T, dtype=torch.float32, device=y.device)
+    p_t = (T - picked[:, 0]).to(torch.float32) / two_t
+    p_n = (T + picked[:, 1]).to(torch.float32) / two_t
     return kn, p_t, p_n
 
 
@@ -559,6 +565,79 @@ def tm_train_step_kernel(
                                  (b_base + lo) & M32, valid)
     else:
         delta = chunk_delta(x, y, b_base, None)
+    new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
+                         config.n_states - 1).to(torch.int8)
+    return new_ta, delta
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: matmul + binomial-aggregation TM training step
+# ---------------------------------------------------------------------------
+
+def _binomial_approx(n: torch.Tensor, p: float, gidx: torch.Tensor,
+                     seed: int) -> torch.Tensor:
+    """~Binomial(n, p) per element via a moment-matched normal (triangular
+    z from two hash draws), in float32 as the reference computes it: ``p``
+    and ``1 - p`` are Python doubles rounded to float32, ``round`` is half
+    to even."""
+    dev = n.device
+    u1 = ref.hash_u32(gidx, seed).to(torch.float32) / 2 ** 32
+    u2 = ref.hash_u32(gidx, (int(seed) ^ 0xC2B2AE35) & M32).to(torch.float32) / 2 ** 32
+    z = (u1 + u2 - 1.0) * torch.tensor(2.449489742783178, dtype=torch.float32,
+                                       device=dev)        # sqrt(6): unit variance
+    nf = n.to(torch.float32)
+    pf = torch.tensor(p, dtype=torch.float32, device=dev)
+    qf = torch.tensor(1.0 - p, dtype=torch.float32, device=dev)
+    s = nf * pf + torch.sqrt(torch.clamp(nf * pf * qf, min=0.0)) * z
+    return torch.minimum(torch.clamp(torch.round(s), min=0.0), nf).to(torch.int32)
+
+
+def tm_train_step_matmul(config, ta_state: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor, seed: int):
+    """Batch TM training as three 0/1 matrix products and (C, L)
+    elementwise sampling -> ``(new_ta, delta)``, equal to the reference's.
+
+    With ``boost_true_positive`` (required), Type I on a firing clause's
+    1-literals is a deterministic +1 (``A = M1f^T @ lit``); its penalties
+    (p = 1/s) are ``~Binomial(n1, 1/s)`` with ``n1 = M1f^T @ (1 - lit) +
+    rowsum(M1n)``; Type II adds ``n2 = M2^T @ (1 - lit)`` on excluded
+    automata.  ``M1f``, ``M1n`` and ``M2`` are the (B, C) feedback masks of
+    the hash-RNG feedback plan, and clause evaluation is the violation
+    count ``include @ (1 - lit)^T``.  Memory is O(BC + BL + CL): no (B, C,
+    L) field exists.
+
+    The products are float32 ``torch.matmul`` of 0/1 matrices: exact
+    counts, with or without TF32, whose 10-bit mantissa holds 0 and 1 and
+    whose products accumulate in float32 (counts stay far below 2**24).
+    """
+    from repro_torch.core import tm
+
+    if not config.boost_true_positive:
+        raise ValueError("tm_train_step_matmul assumes boost_true_positive "
+                         "(p_act = 1)")
+    dev = ta_state.device
+    C, L = ta_state.shape
+    lit_f = tm.literals(x.to(dev)).to(torch.float32)            # (B, L)
+    off_f = 1.0 - lit_f
+    inc = (ta_state >= 0).to(torch.float32)                      # (C, L)
+    fire = (inc @ off_f.T).T < 0.5                               # (B, C)
+    ftype, _ = feedback_plan(
+        fire.to(torch.uint8), y.to(device=dev, dtype=torch.int32),
+        tm.vote_matrix(config, dev), tm.clause_class(config, dev),
+        tm.polarity(config, dev), config.threshold, seed)
+
+    f1 = ftype == 1
+    m1f = (f1 & fire).to(torch.float32)
+    m1n = (f1 & ~fire).to(torch.float32)
+    m2 = ((ftype == 2) & fire).to(torch.float32)
+    A = m1f.T @ lit_f                                            # reward counts
+    n1 = m1f.T @ off_f + m1n.sum(0)[:, None]
+    n2 = m2.T @ off_f
+    gidx = (torch.arange(C, dtype=torch.int64, device=dev)[:, None] * L
+            + torch.arange(L, dtype=torch.int64, device=dev)[None, :]) & M32
+    pen = _binomial_approx(n1, 1.0 / config.s, gidx, (int(seed) ^ 0x27D4EB2F) & M32)
+    excl = (ta_state < 0).to(torch.int32)
+    delta = A.to(torch.int32) - pen + n2.to(torch.int32) * excl
     new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
                          config.n_states - 1).to(torch.int8)
     return new_ta, delta

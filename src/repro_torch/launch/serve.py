@@ -7,16 +7,19 @@ port's kernels, and the LM substrate's prefill + decode loop.
         --swap-policy immediate --artifact /tmp/tiny_online.npz
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --batch-size 16 --seq-len 2048 --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tm-tiny --device cpu \\
+        --epochs 1 --n-train 200 --artifact /tmp/tiny.npz
 
-The TM loop mirrors the MATADOR runtime: load a compiled artifact, packetize
-requests, stream them through the clause datapath in fixed-size buckets
-behind the async gateway, argmax.  ``--zoo N`` serves N round-robin tenants
-through the artifact zoo; ``--online`` trains a live bank beside serving
-and hot-swaps recompiled artifacts (``runtime/online.py``).  Serving
-without an artifact and without ``--online`` trains first, as the
-reference does, with the per-sample ``jax.random`` trainer
-(``engine="jnp"``), which a later slice of the port brings.  Any other
-``--arch`` serves a language model with random weights (``serve_lm``).
+The TM loop mirrors the MATADOR runtime: train -> compile (or load a
+compiled artifact) -> packetize requests -> stream them through the clause
+datapath in fixed-size buckets behind the async gateway -> argmax.
+Without an existing ``--artifact`` it trains first, as the reference
+does, with the per-sample ``jax.random`` trainer (``fit(engine="jnp")``)
+on the serving device, and writes the artifact at exit.  ``--zoo N``
+serves N round-robin tenants through the artifact zoo; ``--online`` trains
+a live bank beside serving and hot-swaps recompiled artifacts
+(``runtime/online.py``).  Any other ``--arch`` serves a language model
+with random weights (``serve_lm``).
 """
 
 from __future__ import annotations
@@ -74,10 +77,16 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
 
     ``--zoo N`` serves N round-robin tenants through the artifact zoo
     (``runtime/zoo.py``): per-tenant circuit breakers and an LRU cache of
-    ``N - 1`` entries, so it churns (``N`` under ``--online``).  ``--online`` trains a live bank with
-    the hash-RNG kernel trainer (``fit(engine="kernel")``, ``--n-train``
-    samples, ``--epochs``, batch 64), serves its compiled artifact through
-    the zoo, and runs ``runtime/online.OnlineUpdater`` on its own thread:
+    ``N - 1`` entries, so it churns (``N`` under ``--online``).
+
+    Without ``--artifact``, or with a path that does not exist yet, the
+    run trains a bank as the reference does: ``tm.init`` from
+    ``PRNGKey(0)``, then ``fit(engine="jnp")`` for ``--epochs`` over
+    ``--n-train`` synthetic samples (seed 0) at batch 64 from
+    ``PRNGKey(1)``, on the device ``--device`` names; it then compiles
+    it, serves it and saves it to ``--artifact`` at exit.  ``--online``
+    always trains its live bank that way (an artifact has no automata to
+    train), serves its compiled artifact through the zoo, and runs ``runtime/online.OnlineUpdater`` on its own thread:
     the request stream's labels are its feedback, every batch is one
     fused training step on the card, and a drift past
     ``--drift-threshold`` recompiles incrementally, canaries the candidate
@@ -105,10 +114,6 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
         if getattr(args, flag, None):
             raise SystemExit(f"--{flag} needs {what}, which a later slice of "
                              "the port brings; serve without it")
-    if not args.artifact and not args.online:
-        raise SystemExit("--artifact is required: serving without one trains "
-                         "with the engine='jnp' trainer, which a later slice "
-                         "of the port brings")
     dev = _device.resolve(args.device)
     config = TM_CONFIGS[args.arch]
     path = None
@@ -116,34 +121,14 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
         path = (args.artifact if args.artifact.endswith(".npz")
                 else args.artifact + ".npz")
     bank = None
-    if args.online:
+    trained_this_run = False
+    if args.online and path and os.path.exists(path):
         # the updater trains a LIVE bank next to serving; a loaded artifact
-        # has no automata to train, so --online always trains one (with
-        # the hash-RNG kernel trainer) and the artifact is rewritten at exit
-        from repro_torch.core import tm, train
-
-        if path and os.path.exists(path):
-            print(f"--online: training a live bank (artifact {path} will be "
-                  "refreshed at exit)")
-        X, y = make_boolean_classification(
-            args.n_train, config.n_features, config.n_classes, seed=0)
-        state = tm.init(config, torch.Generator().manual_seed(0), dev)
-        state = train.fit(config, state, torch.from_numpy(X), torch.from_numpy(y),
-                          epochs=args.epochs, batch_size=64,
-                          generator=torch.Generator().manual_seed(1))
-        bank = state.ta_state
-        compiled = compiler.compile_tm(config, bank)
-        # the default chain schedule, so that a rebuild can reuse its rows
-        # (incremental_recompile takes the incremental branch only then)
-        compiled.schedule()
-        print(f"trained a live bank: {args.epochs} epochs on {args.n_train} "
-              f"samples; compiled U={compiled.n_unique} on {dev}")
-    else:
-        if not os.path.exists(path):
-            raise SystemExit(f"artifact {path} not found; compile one with the "
-                             "reference (python -m repro.launch.serve --artifact "
-                             "...) or with core.compiler.compile_tm on a bank "
-                             "from repro_torch.launch.train")
+        # has no automata to train, so --online always trains one and the
+        # artifact is rewritten at exit
+        print(f"--online: training a live bank (artifact {path} will be "
+              "refreshed at exit)")
+    if path and os.path.exists(path) and not args.online:
         try:
             compiled = compiler.CompiledTM.load(path)
         except compiler.ArtifactError as e:
@@ -155,6 +140,25 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
                 f"K={compiled.n_classes}, but --arch {args.arch} is "
                 f"F={config.n_features}/K={config.n_classes}")
         print(f"loaded artifact {path} (U={compiled.n_unique}) on {dev}")
+    else:
+        # the reference's train path: the per-sample jax.random trainer
+        from repro_torch.core import prng, tm, train
+
+        X, y = make_boolean_classification(
+            args.n_train, config.n_features, config.n_classes, seed=0)
+        state = tm.init(config, prng.PRNGKey(0), dev)
+        state = train.fit(config, state, torch.from_numpy(X), torch.from_numpy(y),
+                          epochs=args.epochs, batch_size=64, rng=prng.PRNGKey(1))
+        bank = state.ta_state
+        compiled = compiler.compile_tm(config, bank)
+        trained_this_run = True
+        if args.online:
+            # the default chain schedule, so that a rebuild can reuse its
+            # rows (incremental_recompile takes the incremental branch only
+            # then)
+            compiled.schedule()
+        print(f"trained a bank: {args.epochs} epochs on {args.n_train} samples "
+              f"(engine jnp); compiled U={compiled.n_unique} on {dev}")
     print("compile stats:", compiled.stats.as_dict())
     tuned_at_start = dict(compiled.tuned)
     # the serving artifact, as a mutable cell: the online updater promotes
@@ -461,13 +465,10 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
         print("SIGTERM: gateway drained "
               f"({gw_health['answered']}/{gw_health['offered']} answered, "
               f"{gw_health['shed_total']} typed-shed)")
-    if args.online and path:
-        # the PROMOTED artifact (with its schedules) for the next cold start
-        current["compiled"].save(path)
-        print(f"saved artifact (schedules) to {path}")
-    elif path and current["compiled"].tuned != tuned_at_start:
-        # newly recorded tilings persist for cold starts (saved after the
-        # stream, so tilings recorded lazily by ladder builders persist too)
+    if path and (trained_this_run or current["compiled"].tuned != tuned_at_start):
+        # a trained artifact (under --online the PROMOTED one) and newly
+        # recorded tilings persist for cold starts (saved after the stream,
+        # so tilings recorded lazily by ladder builders persist too)
         current["compiled"].save(path)
         print(f"saved artifact (schedules + tuned tilings) to {path}")
     engine_labels = {"factorized": "factorized-schedule",
@@ -512,9 +513,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="a TM config of configs/matador_tm.py (e.g. tm-mnist) "
                          "or an LM of configs.ARCH_IDS (e.g. tinyllama-1.1b)")
     ap.add_argument("--artifact", default=None,
-                    help="TM: compiled-artifact .npz to serve (required "
-                         "without --online; under --online the promoted "
-                         "artifact is saved there at exit)")
+                    help="TM: compiled-artifact .npz, loaded instead of "
+                         "train + compile when it exists, saved at exit when "
+                         "this run trained it (under --online the promoted "
+                         "artifact) or recorded a tuned tiling")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                          "(the kernels' plain PyTorch versions)")
@@ -582,10 +584,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "drain writes the live bank + pending feedback "
                          "through (a restart resumes from it)")
     ap.add_argument("--epochs", type=int, default=3,
-                    help="TM --online: epochs of the live bank's training")
+                    help="TM: epochs of training when the run trains a bank")
     ap.add_argument("--n-train", type=int, default=2000,
-                    help="TM --online: synthetic samples the live bank "
-                         "trains on")
+                    help="TM: synthetic samples the trained bank learns")
     ap.add_argument("--autotune", action="store_true",
                     help="TM: pick each rung's kernel launch through the "
                          "autotuner (kernels/autotune.py)")

@@ -30,8 +30,8 @@ _LATER = {"mesh": "clause-sharded multi-GPU training"}
 def train_tm(args) -> tuple[torch.Tensor, dict]:
     """Train ``args.arch`` for ``args.steps`` steps -> ``(bank, health)``.
 
-    The initial bank is ``tm.init`` with a CPU generator seeded by
-    ``--seed``; step ``s`` is seeded with ``s``; batches come from the
+    The initial bank is ``tm.init`` from ``PRNGKey(--seed)``, the
+    reference's bank; step ``s`` is seeded with ``s``; batches come from the
     reference's ``ShardedBatcher`` over its synthetic datasets.  Prints a
     test-accuracy line every ``--log-every`` steps and the ``TRAIN_HEALTH``
     JSON line at the end (also returned).
@@ -39,7 +39,7 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
     from repro_torch import device as _device
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.matador_tm import TM_CONFIGS
-    from repro_torch.core import tm
+    from repro_torch.core import prng, tm
     from repro_torch.data.loader import ShardedBatcher
     from repro_torch.data.synthetic import (make_boolean_classification,
                                             paper_dataset)
@@ -67,7 +67,7 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
     y_test = torch.from_numpy(yte).to(dev)
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    ta = tm.init(config, torch.Generator().manual_seed(args.seed), dev).ta_state
+    ta = tm.init(config, prng.PRNGKey(args.seed), dev).ta_state
     start_step = 0
     loader = ShardedBatcher((X, y), args.batch_size, seed=args.seed)
     if mgr and mgr.latest_step() is not None:

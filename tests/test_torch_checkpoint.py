@@ -117,16 +117,16 @@ def _run(argv, env_extra=None, timeout=300):
 _FIT_CODE = """
 import numpy as np, torch
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.core import tm, train
+from repro_torch.core import prng, tm, train
 from repro_torch.data.synthetic import make_boolean_classification
 from repro_torch.runtime.preemption import PreemptionHandler
 from repro_torch.runtime.straggler import StragglerMonitor
 
 config = tm.TMConfig(n_features=32, n_classes=3, clauses_per_class=8)
 X, y = make_boolean_classification(256, 32, 3, seed=0)
-state = tm.init(config, torch.Generator().manual_seed(0), "cpu")
+state = tm.init(config, prng.PRNGKey(0), "cpu")
 state = train.fit(config, state, torch.from_numpy(X), torch.from_numpy(y),
-                  epochs=3, batch_size=32, generator=torch.Generator().manual_seed(1),
+                  epochs=3, batch_size=32, rng=prng.PRNGKey(1),
                   ckpt_manager=CheckpointManager({ckpt!r}), ckpt_every=2,
                   preemption=PreemptionHandler().install(),
                   monitor=StragglerMonitor())

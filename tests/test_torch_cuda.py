@@ -821,3 +821,108 @@ def test_cuda_every_autotune_candidate_equals_plain(cuda_device, kernel, tmp_pat
     rows = cost_model.load_observations()
     assert rows and all(r["mode"] == "torch-cuda" for r in rows)
     assert best in [r["blocks"] for r in rows]
+
+
+# -- the jax.random trainer's draws and the matmul step on the card ------------------
+
+@pytest.mark.cuda
+def test_cuda_prng_draws_equal_cpu(cuda_device):
+    from repro_torch.core import prng
+
+    key = prng.PRNGKey(7)
+    keys = prng.split(key, 64)           # batched: 64 streams in one pass
+    for k, fn in ((keys, lambda k: prng.split(k, 3)),
+                  (keys, lambda k: prng.random_bits(k, 8, (5, 9))),
+                  (keys, lambda k: prng.uniform(k, (200,))),
+                  (keys, lambda k: prng.randint(k, (), 0, 9, torch.int32)),
+                  (key, lambda k: prng.random_bits(k, 32, (200, 1568))),
+                  (key, lambda k: prng.uniform(k, (200, 1568))),
+                  (key, lambda k: prng.randint(k, (2000, 1568), -1, 1, torch.int8))):
+        want = fn(k)
+        got = fn(k.to(cuda_device))
+        assert got.device.type == cuda_device.type
+        assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    for n in (7, 70000):
+        assert torch.equal(prng.permutation(key.to(cuda_device), n).cpu(),
+                           prng.permutation(key, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, B", [("tm-tiny", 40), ("tm-mnist", 64)])
+def test_cuda_batch_feedback_delta_equals_cpu(cuda_device, arch, B):
+    from repro_torch.configs.matador_tm import TM_CONFIGS
+    from repro_torch.core import feedback, prng
+
+    cfg = TM_CONFIGS[arch]
+    rng = np.random.default_rng(B)
+    ta = torch.from_numpy(rng.integers(-3, 3, (cfg.n_clauses_total, cfg.n_literals),
+                                       dtype=np.int8))
+    x = torch.from_numpy(rng.integers(0, 2, (B, cfg.n_features), dtype=np.uint8))
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, B).astype(np.int32))
+    for c in (cfg, cfg.replace(s=3.9, boost_true_positive=False)):
+        want = feedback.batch_feedback_delta(c, ta, x, y, prng.PRNGKey(3))
+        got = feedback.batch_feedback_delta(c, ta.to(cuda_device), x, y, prng.PRNGKey(3))
+        assert got.device.type == cuda_device.type and int(want.abs().sum()) > 0
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, B", [("tm-tiny", 40), ("tm-mnist", 64)])
+def test_cuda_tm_train_step_matmul_equals_cpu(cuda_device, arch, B):
+    from repro_torch.configs.matador_tm import TM_CONFIGS
+    from repro_torch.kernels import ops
+
+    cfg = TM_CONFIGS[arch]
+    rng = np.random.default_rng(B + 1)
+    ta = torch.from_numpy(rng.integers(-3, 3, (cfg.n_clauses_total, cfg.n_literals),
+                                       dtype=np.int8))
+    x = torch.from_numpy(rng.integers(0, 2, (B, cfg.n_features), dtype=np.uint8))
+    y = torch.from_numpy(rng.integers(0, cfg.n_classes, B).astype(np.int32))
+    want_ta, want_d = ops.tm_train_step_matmul(cfg, ta, x, y, 5)
+    got_ta, got_d = ops.tm_train_step_matmul(cfg, ta.to(cuda_device), x, y, 5)
+    assert torch.equal(got_d.cpu(), want_d) and torch.equal(got_ta.cpu(), want_ta)
+
+
+@pytest.mark.cuda
+def test_cuda_serve_tm_trains_the_committed_asset(cuda_device, tmp_path):
+    """``serve_tm`` with the README's flags trains tm-mnist on the card with
+    the jax.random trainer and writes an artifact equal to the committed
+    one, array for array and in its meta (but for the cost-model features
+    and the checksum, which the port's artifacts hold without HLO terms)."""
+    import json
+
+    from repro_torch.kernels import term_infer
+    from repro_torch.launch import serve
+
+    path = str(tmp_path / "tm_mnist.npz")
+    term_infer.launches = 0
+    health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(
+        ["--arch", "tm-mnist", "--device", "cuda", "--epochs", "1", "--n-train",
+         "600", "--requests", "256", "--bucket", "256", "--artifact", path]))
+    assert health["final_engine"] == "factorized" and gw["answered"] == 256
+    assert term_infer.launches > 0
+    got, want = np.load(path), np.load(ASSET)
+    assert sorted(got.files) == sorted(want.files)
+    for k in want.files:
+        if k != "meta":
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    metas = [json.loads(bytes(z["meta"]).decode()) for z in (got, want)]
+    for m in metas:
+        m.pop("features")
+        m.pop("checksum")
+    assert metas[0] == metas[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 15, 50])
+def test_cuda_feedback_probs_equal_cpu(cuda_device, T):
+    """The hash-RNG step's selection probabilities (T -/+ sum) / 2T on the
+    card equal the CPU's, bit for bit, over every clamped class sum."""
+    from repro_torch.kernels import ops
+
+    sums = torch.arange(-T, T + 1, dtype=torch.int32)[:, None].repeat(1, 3)
+    y = (torch.arange(2 * T + 1) % 3).to(torch.int32)
+    want = ops.feedback_probs(sums, y, 3, T, 11)
+    got = ops.feedback_probs(sums.to(cuda_device), y.to(cuda_device), 3, T, 11)
+    for a, b in zip(got, want):
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes()

@@ -566,3 +566,33 @@ def test_end_to_end_drift_canary_swap_through_gateway():
     assert all(r.ok for r in res)
     assert set(served_ids) <= {id(compiled), id(upd.deployed)}
     assert id(compiled) in served_ids and id(upd.deployed) in served_ids
+
+
+# -- the live bank's boot -------------------------------------------------------------
+
+def test_serve_online_boot_bank_equals_reference(monkeypatch):
+    """``serve_tm --online`` boots its live bank as the reference does
+    (``tm.init`` from key 0, ``fit(engine="jnp")`` from key 1 at batch 64):
+    the bank the port's updater starts from equals the reference's."""
+    from repro.configs.matador_tm import TM_TINY as R_TINY
+    from repro.core import train as ref_train
+    from repro.data import make_boolean_classification
+    from repro_torch.launch import serve
+
+    booted = []
+
+    class Recording(port_online.OnlineUpdater):
+        def __init__(self, config, bank, *a, **kw):
+            booted.append(bank.clone())
+            super().__init__(config, bank, *a, **kw)
+
+    monkeypatch.setattr(port_online, "OnlineUpdater", Recording)
+    serve.main(["--arch", "tm-tiny", "--device", "cpu", "--online", "--epochs", "2",
+                "--n-train", "256", "--requests", "128", "--bucket", "64",
+                "--swap-policy", "immediate"])
+    X, y = make_boolean_classification(256, 32, 3, seed=0)
+    want = ref_train.fit(R_TINY, ref_tm.init(R_TINY, jax.random.PRNGKey(0)),
+                         jax.numpy.asarray(X), jax.numpy.asarray(y), epochs=2,
+                         batch_size=64, rng=jax.random.PRNGKey(1))
+    assert len(booted) == 1
+    np.testing.assert_array_equal(booted[0].numpy(), np.asarray(want.ta_state))

@@ -199,15 +199,51 @@ def test_serve_cpu_ladder_drill(tiny_artifact):
 
 
 @pytest.mark.parametrize("extra, message", [
-    ([], "later slice"),
     (["--mesh", "model=2"], "later slice"),
 ])
 def test_serve_refuses_what_later_slices_bring(tiny_artifact, extra, message):
     from repro_torch.launch import serve
 
-    argv = SERVE[2:] + (["--artifact", tiny_artifact] if extra else []) + extra
+    argv = SERVE[2:] + ["--artifact", tiny_artifact] + extra
     with pytest.raises(SystemExit, match=message):
         serve.main(argv)
+
+
+def _artifact_arrays_and_meta(path):
+    """An artifact's arrays and its meta without the cost-model features
+    and the checksum (the port has no HLO features, so both differ)."""
+    z = np.load(path)
+    meta = json.loads(bytes(z["meta"]).decode())
+    meta.pop("features")
+    meta.pop("checksum")
+    return {k: z[k] for k in z.files if k != "meta"}, meta
+
+
+def test_serve_without_artifact_trains_like_reference(tmp_path):
+    """Without an existing ``--artifact`` the port trains as the reference
+    does (``tm.init`` from key 0, ``fit(engine="jnp")`` from key 1),
+    compiles, serves and writes an artifact equal to the reference's;
+    without ``--artifact`` at all it trains and serves, writing nothing."""
+    flags = ["--arch", "tm-tiny", "--epochs", "1", "--n-train", "200",
+             "--requests", "256", "--bucket", "128"]
+    ref_path, port_path = str(tmp_path / "ref.npz"), str(tmp_path / "port.npz")
+    ref = _run(["-m", "repro.launch.serve", *flags, "--artifact", ref_path],
+               env_extra={"JAX_PLATFORMS": "cpu"})
+    assert ref.returncode == 0, ref.stdout + ref.stderr
+    r = _run(["-m", "repro_torch.launch.serve", *flags, "--device", "cpu",
+              "--artifact", port_path])
+    assert _health(r, "GATEWAY_HEALTH")["answered"] == 256
+    assert "trained a bank: 1 epochs on 200 samples (engine jnp)" in r.stdout
+    assert "saved artifact" in r.stdout
+    (ra, rm), (pa, pm) = map(_artifact_arrays_and_meta, (ref_path, port_path))
+    assert sorted(ra) == sorted(pa)
+    for k in ra:
+        np.testing.assert_array_equal(pa[k], ra[k], err_msg=k)
+    assert pm == rm
+    assert _histogram(r) == _histogram(ref)
+    r = _run(["-m", "repro_torch.launch.serve", *flags, "--device", "cpu"])
+    assert _health(r, "SERVE_HEALTH")["demotions"] == []
+    assert "saved artifact" not in r.stdout
 
 
 @pytest.mark.parametrize("policy", ["predict", "verify", "sweep"])

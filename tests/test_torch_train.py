@@ -19,6 +19,7 @@ from repro.kernels import fused_train as r_fused_train
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro_torch.core import packetizer as t_pk
+from repro_torch.core import prng as t_prng
 from repro_torch.core import tm as t_tm
 from repro_torch.kernels import class_sum as t_class_sum
 from repro_torch.kernels import clause_eval as t_clause_eval
@@ -361,12 +362,11 @@ def test_init_predict_accuracy_and_apply_delta():
 
     rc, tc = _cfgs(n_features=20, n_classes=3, clauses_per_class=5,
                    clause_pad_multiple=8)
-    st = t_tm.init(tc, torch.Generator().manual_seed(0), "cpu")
+    st = t_tm.init(tc, t_prng.PRNGKey(0), "cpu")
     assert st.ta_state.dtype == torch.int8 and st.ta_state.shape == (16, 40)
     assert set(st.ta_state[:15].unique().tolist()) == {-1, 0}
     assert (st.ta_state[15:] == -tc.n_states).all()
-    again = t_tm.init(tc, torch.Generator().manual_seed(0), "cpu")
-    assert torch.equal(st.ta_state, again.ta_state)
+    _eq(st.ta_state, r_tm.init(rc, jax.random.PRNGKey(0)).ta_state)
     with pytest.raises(ValueError):
         t_tm.state_from_numpy(np.zeros((3, 4), np.int32), device="cpu")
 
@@ -418,30 +418,38 @@ def test_run_compiled_unfused_dense_engine():
 # -- fit and the launcher ------------------------------------------------------------
 
 def test_fit_matches_manual_loop():
+    from repro_torch.core import feedback as t_feedback
     from repro_torch.core import train as t_train
     from repro_torch.data.synthetic import make_noisy_xor
 
     X, y = make_noisy_xor(120, noise=0.05, seed=11)
     cfg = t_tm.TMConfig(n_features=12, n_classes=2, clauses_per_class=10,
                         threshold=15, s=3.9)
-    st0 = t_tm.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    st0 = t_tm.init(cfg, t_prng.PRNGKey(0), "cpu")
     bs, epochs = 30, 2
-    st = t_train.fit(cfg, st0, _t(X), _t(y), epochs=epochs, batch_size=bs,
-                     generator=torch.Generator().manual_seed(7))
-    g = torch.Generator().manual_seed(7)
-    ta, gstep = st0.ta_state, 0
-    for _ in range(epochs):
-        perm = torch.randperm(120, generator=g)
-        xs, ys = _t(X)[perm], _t(y)[perm]
-        for i in range(120 // bs):
-            ta, _ = t_ops.tm_train_step_kernel(cfg, ta, xs[i * bs:(i + 1) * bs],
-                                               ys[i * bs:(i + 1) * bs], gstep)
-            gstep += 1
-    _eq(st.ta_state, ta.numpy())
-    assert st.steps == gstep
-    with pytest.raises(ValueError, match="jnp"):
+    for engine in ("kernel", "jnp"):
+        st = t_train.fit(cfg, st0, _t(X), _t(y), epochs=epochs, batch_size=bs,
+                         rng=t_prng.PRNGKey(7), engine=engine)
+        rng = t_prng.PRNGKey(7)
+        ta, gstep = st0.ta_state, 0
+        for _ in range(epochs):
+            rng, rp = t_prng.split(rng)
+            perm = t_prng.permutation(rp, 120)
+            xs, ys = _t(X)[perm], _t(y)[perm]
+            for i in range(120 // bs):
+                xb, yb = xs[i * bs:(i + 1) * bs], ys[i * bs:(i + 1) * bs]
+                rng, rs = t_prng.split(rng)
+                if engine == "kernel":
+                    ta, _ = t_ops.tm_train_step_kernel(cfg, ta, xb, yb, gstep)
+                else:
+                    ta = t_feedback.apply_delta(
+                        cfg, ta, t_feedback.batch_feedback_delta(cfg, ta, xb, yb, rs))
+                gstep += 1
+        _eq(st.ta_state, ta.numpy())
+        assert st.steps == gstep
+    with pytest.raises(ValueError, match="engine"):
         t_train.fit(cfg, st0, _t(X), _t(y), epochs=1, batch_size=bs,
-                    generator=g, engine="jnp")
+                    rng=t_prng.PRNGKey(7), engine="mesh")
 
 
 def test_train_tm_flags_not_ported_and_device():
@@ -475,3 +483,196 @@ def test_train_tm_autotune_on_cpu(tmp_path, monkeypatch, extra):
     assert torch.equal(got, want) and health["steps"] == 3
     keys = sorted(k.split(":")[0] for k in autotune._load_cache())
     assert keys == ([] if "--no-fuse" in extra else ["fused_infer", "fused_train"])
+
+
+# -- the jax.random trainer (engine="jnp") and the matmul step ----------------------
+
+@pytest.mark.parametrize("pad", [1, 8])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_init_matches_reference(pad, seed):
+    rc, tc = _cfgs(n_features=23, n_classes=3, clauses_per_class=5,
+                   clause_pad_multiple=pad)
+    st = t_tm.init(tc, t_prng.PRNGKey(seed), "cpu")
+    assert st.steps == 0
+    _eq(st.ta_state, r_tm.init(rc, jax.random.PRNGKey(seed)).ta_state)
+
+
+FEEDBACK_CASES = {
+    "s3.9": dict(F=12, K=3, cpc=6, T=5, s=3.9, B=16),       # float32(1/s) trap
+    "K2": dict(F=10, K=2, cpc=8, T=7, s=4.0, B=40),         # two passes of 32
+    "padded": dict(F=14, K=3, cpc=5, T=6, s=3.0, B=12, pad=8),
+    "no_boost": dict(F=12, K=4, cpc=6, T=5, s=3.9, B=16, boost=False),
+}
+
+
+def _feedback_problem(F, K, cpc, T, s, B, pad=1, boost=True, seed=0):
+    rc, tc = _cfgs(n_features=F, n_classes=K, clauses_per_class=cpc, threshold=T,
+                   s=s, boost_true_positive=boost, clause_pad_multiple=pad)
+    rng = np.random.default_rng(seed)
+    ta = rng.integers(-3, 3, (rc.n_clauses_total, rc.n_literals), dtype=np.int8)
+    x = rng.integers(0, 2, (B, F), dtype=np.uint8)
+    y = rng.integers(0, K, B).astype(np.int32)
+    return rc, tc, ta, x, y
+
+
+@pytest.mark.parametrize("case", list(FEEDBACK_CASES))
+def test_batch_feedback_delta_matches_reference(case):
+    from repro.core import feedback as r_feedback
+    from repro_torch.core import feedback as t_feedback
+
+    for seed in (0, 1):
+        rc, tc, ta, x, y = _feedback_problem(**FEEDBACK_CASES[case], seed=seed)
+        want = r_feedback.batch_feedback_delta(rc, jnp.asarray(ta), jnp.asarray(x),
+                                               jnp.asarray(y), jax.random.PRNGKey(seed))
+        got = t_feedback.batch_feedback_delta(tc, _t(ta), _t(x), _t(y),
+                                              t_prng.PRNGKey(seed))
+        assert got.dtype == torch.int32 and got.shape == ta.shape
+        _eq(got, want)
+        assert int(np.abs(np.asarray(want)).sum()) > 0
+        if rc.n_clauses_total != rc.n_clauses_raw:     # padded clauses: no feedback
+            assert not got[rc.n_clauses_raw:].any()
+
+
+def test_class_feedback_delta_entries_match_reference_samples():
+    """The port's batched per-class delta, entry by entry, against the
+    reference's per-sample ``_class_feedback_delta``; with its fire and
+    polarity helpers."""
+    from repro.core import feedback as r_feedback
+    from repro_torch.core import feedback as t_feedback
+
+    rc, tc, ta, x, _ = _feedback_problem(F=12, K=3, cpc=6, T=5, s=3.9, B=8, seed=4)
+    cpc = rc.clauses_per_class
+    rng = np.random.default_rng(5)
+    cls = rng.integers(0, 3, 8)
+    is_t = np.arange(8) % 2 == 0
+    slices = np.stack([ta[c * cpc:(c + 1) * cpc] for c in cls])
+    lits = t_tm.literals(_t(x))
+    keys = t_prng.split(t_prng.PRNGKey(9), 8)
+    got = t_feedback._class_feedback_delta(tc, _t(slices), lits, _t(is_t), keys)
+    _eq(t_feedback._clause_polarity(cpc), r_feedback._clause_polarity(cpc))
+    for e in range(8):
+        sl, li = jnp.asarray(slices[e]), jnp.asarray(lits[e].numpy())
+        _eq(t_feedback._clause_fire(_t(slices[e]), lits[e]), r_feedback._clause_fire(sl, li))
+        want = r_feedback._class_feedback_delta(
+            rc, sl, li, jnp.asarray(bool(is_t[e])),
+            jnp.asarray(keys[e].numpy().astype(np.uint32)))
+        _eq(got[e], want)
+
+
+def test_train_step_matches_reference_jnp():
+    from repro.configs.matador_tm import TM_TINY as R_TINY
+    from repro.core import train as r_train
+    from repro_torch.configs.matador_tm import TM_TINY as T_TINY
+    from repro_torch.core import train as t_train
+
+    rng = np.random.default_rng(6)
+    xs = rng.integers(0, 2, (3, 20, 32), dtype=np.uint8)
+    ys = rng.integers(0, 3, (3, 20), dtype=np.int32)
+    r_state = r_tm.init(R_TINY, jax.random.PRNGKey(2))
+    t_state = t_tm.init(T_TINY, t_prng.PRNGKey(2), "cpu")
+    for s in range(3):
+        r_state, r_m = r_train.train_step(R_TINY, r_state, jnp.asarray(xs[s]),
+                                          jnp.asarray(ys[s]), jax.random.PRNGKey(10 + s))
+        t_state, t_m = t_train.train_step(T_TINY, t_state, _t(xs[s]), _t(ys[s]),
+                                          t_prng.PRNGKey(10 + s))
+        _eq(t_state.ta_state, r_state.ta_state)
+        assert t_state.steps == int(r_state.steps) == s + 1
+        assert t_m["delta_abs_sum"] == int(r_m["delta_abs_sum"]) > 0
+        # a float32 mean in both packages, summed in different orders
+        assert t_m["include_frac"] == pytest.approx(float(r_m["include_frac"]), rel=1e-6)
+
+
+@pytest.mark.parametrize("engine", ["jnp", "kernel"])
+def test_fit_matches_reference(engine):
+    """Two epochs of tm-tiny from the same keys: the reference's shuffle and
+    step stream, and the same bank, for either engine."""
+    from repro.configs.matador_tm import TM_TINY as R_TINY
+    from repro.core import train as r_train
+    from repro.data import make_boolean_classification
+    from repro_torch.configs.matador_tm import TM_TINY as T_TINY
+    from repro_torch.core import train as t_train
+
+    X, y = make_boolean_classification(200, 32, 3, seed=0)
+    want = r_train.fit(R_TINY, r_tm.init(R_TINY, jax.random.PRNGKey(0)),
+                       jnp.asarray(X), jnp.asarray(y), epochs=2, batch_size=32,
+                       rng=jax.random.PRNGKey(1), engine=engine)
+    got = t_train.fit(T_TINY, t_tm.init(T_TINY, t_prng.PRNGKey(0), "cpu"), _t(X),
+                      _t(y), epochs=2, batch_size=32, rng=t_prng.PRNGKey(1),
+                      engine=engine)
+    _eq(got.ta_state, want.ta_state)
+    assert got.steps == int(want.steps) == 12
+
+
+@pytest.mark.parametrize("B, F, K, cpc, T, s, seed", [
+    (13, 17, 3, 7, 9, 4.0, 0),
+    (64, 30, 4, 10, 15, 3.9, 1),
+    (200, 100, 5, 40, 20, 3.0, 3),     # penalty counts in the tens
+])
+def test_tm_train_step_matmul_matches_reference(B, F, K, cpc, T, s, seed):
+    rc, tc = _cfgs(n_features=F, n_classes=K, clauses_per_class=cpc, threshold=T, s=s)
+    rng = np.random.default_rng(seed)
+    ta = rng.integers(-3, 3, (rc.n_clauses_total, rc.n_literals), dtype=np.int8)
+    x = rng.integers(0, 2, (B, F), dtype=np.uint8)
+    y = rng.integers(0, K, B).astype(np.int32)
+    want_ta, want_d = r_ops.tm_train_step_matmul(rc, jnp.asarray(ta), jnp.asarray(x),
+                                                 jnp.asarray(y), jnp.uint32(seed + 7))
+    got_ta, got_d = t_ops.tm_train_step_matmul(tc, _t(ta), _t(x), _t(y), seed + 7)
+    assert got_d.dtype == torch.int32 and got_ta.dtype == torch.int8
+    _eq(got_d, want_d)
+    _eq(got_ta, want_ta)
+    with pytest.raises(ValueError, match="boost"):
+        t_ops.tm_train_step_matmul(tc.replace(boost_true_positive=False), _t(ta),
+                                   _t(x), _t(y), 0)
+
+
+def test_train_tm_bank_equals_reference(tmp_path, monkeypatch):
+    """``train_tm`` starts from the reference's ``tm.init`` bank: after 20
+    tm-tiny steps its bank equals ``repro.launch.train``'s."""
+    import sys
+
+    from repro.launch import train as r_launch
+    from repro_torch.launch import train as t_launch
+
+    common = ["--arch", "tm-tiny", "--steps", "20", "--batch-size", "16",
+              "--n-train", "200", "--seed", "3", "--log-every", "100"]
+    monkeypatch.setattr(sys, "argv", ["train", *common, "--ckpt-dir", str(tmp_path)])
+    r_launch.main()
+    want = np.load(tmp_path / "step_0000000020" / "arrays.npz")["ta"]
+    got, _ = t_launch.train_tm(t_launch.build_parser().parse_args(common + ["--device", "cpu"]))
+    _eq(got, want)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_fit_checkpoint_resumes_across_packages(tmp_path, writer, capsys):
+    """A ``fit(engine="jnp")`` checkpoint written mid-run (global step 10
+    of 12, epoch 1) by either package resumes in the other's ``fit`` and
+    ends on the reference's uninterrupted bank."""
+    from repro.checkpoint import CheckpointManager as RMgr
+    from repro.configs.matador_tm import TM_TINY as R_TINY
+    from repro.core import train as r_train
+    from repro.data import make_boolean_classification
+    from repro_torch.checkpoint import CheckpointManager as TMgr
+    from repro_torch.configs.matador_tm import TM_TINY as T_TINY
+    from repro_torch.core import train as t_train
+
+    X, y = make_boolean_classification(192, 32, 3, seed=0)
+
+    def ref_fit(**kw):
+        return np.asarray(r_train.fit(
+            R_TINY, r_tm.init(R_TINY, jax.random.PRNGKey(0)), jnp.asarray(X),
+            jnp.asarray(y), epochs=2, batch_size=32, rng=jax.random.PRNGKey(1),
+            **kw).ta_state)
+
+    def port_fit(**kw):
+        return t_train.fit(T_TINY, t_tm.init(T_TINY, t_prng.PRNGKey(0), "cpu"),
+                           _t(X), _t(y), epochs=2, batch_size=32,
+                           rng=t_prng.PRNGKey(1), **kw).ta_state.numpy()
+
+    want = ref_fit()
+    d = str(tmp_path / "ck")
+    write, read = (ref_fit, port_fit) if writer == "reference" else (port_fit, ref_fit)
+    write_mgr, read_mgr = (RMgr, TMgr) if writer == "reference" else (TMgr, RMgr)
+    write(ckpt_manager=write_mgr(d), ckpt_every=5)
+    assert read_mgr(d).latest_step() == 10
+    np.testing.assert_array_equal(read(ckpt_manager=read_mgr(d)), want)
+    assert "fit: resumed at epoch 1 step 4 (global step 10)" in capsys.readouterr().out
