@@ -51,7 +51,11 @@ beside the same requests served without it (``ONLINE_SERVE``) and
 AUTOTUNE phase (``autotune_phase``) holds every candidate launch of the
 four tuned kernels to its plain version, sweeps them in a fresh cache,
 refits the ``torch-cuda`` cost model, and drives ``serve_tm --autotune``
-under every policy, a zoo cold load and ``train_tm --autotune``.
+under every policy, a zoo cold load and ``train_tm --autotune``.  The
+MESH phase (``mesh_phase``) lays ``MESH_DEVICES`` logical devices over the
+card and holds the clause-sharded forwards (padded tile tables included),
+training steps, ``fit(mesh=)``, ``train_tm --mesh`` and ``serve_tm
+--mesh`` to their unsharded runs, each kernel launched once a shard.
 Prints the card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
@@ -624,8 +628,8 @@ class _Tee(io.TextIOBase):
 
 def serve_run(argv):
     """``serve_tm`` on ``argv`` -> (SERVE_HEALTH, GATEWAY_HEALTH,
-    ONLINE_HEALTH, ms from the first offer to the drained gateway, as the
-    serve line prints it)."""
+    ONLINE_HEALTH, the predictions, ms from the first offer to the drained
+    gateway, as the serve line prints it)."""
     from repro_torch.launch import serve
 
     buf = io.StringIO()
@@ -684,7 +688,7 @@ def jnp_train_phase(dev, card: str) -> dict:
     for m in mods.values():
         m.launches = 0
     t0 = time.perf_counter()
-    health, gw, _, serve_ms = serve_run(JNP_ARGV + ["--artifact", path])
+    health, gw, _, _, serve_ms = serve_run(JNP_ARGV + ["--artifact", path])
     serve_wall_s = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     check(health["final_engine"] == "factorized" and health["demotions"] == [],
@@ -994,7 +998,7 @@ def online_phase(dev) -> dict:
         runs = []
         for label, extra in turns:
             zero()
-            sh, sg, oh, ms = serve_run(common + extra)
+            sh, sg, oh, _, ms = serve_run(common + extra)
             runs.append(dict(run=label, ms=ms, latency_ms=sg["latency_ms"],
                              launches=counts(), health=sh, gateway=sg, online=oh))
         saved = compiler.CompiledTM.load(os.path.join(d, "online.npz"))
@@ -1027,7 +1031,7 @@ def online_phase(dev) -> dict:
                     zoo_swaps=r["gateway"]["zoo"]["swaps"]) for r in runs])))
 
     # 4. serve_tm --zoo on the committed artifact: the LRU churns
-    zh, zg, _, z_ms = serve_run(["--arch", "tm-mnist", "--artifact", ASSET,
+    zh, zg, _, _, z_ms = serve_run(["--arch", "tm-mnist", "--artifact", ASSET,
                                  "--device", "cuda", "--requests", "4096",
                                  "--bucket", str(BUCKET), "--zoo", str(ZOO_TENANTS)])
     check(zg["unaccounted"] == 0 and zg["answered"] == 4096,
@@ -1657,7 +1661,7 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
             r0 = autotune.TIMING_RUNS
             buf = io.StringIO()
             with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
-                health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(argv))
+                health, gw, *_ = serve.serve_tm(serve.build_parser().parse_args(argv))
             text = buf.getvalue()
             counts = {k: m.launches for k, m in mods.items()}
             check(health["final_engine"] == "factorized" and health["demotions"] == [],
@@ -1742,6 +1746,336 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
         autotune._PROC_CACHE.clear()
         cost_model._invalidate_model_cache()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the MESH phase: REPRO_TORCH_FORCE_DEVICE_COUNT logical devices over the
+# card, the forward meshes, the training meshes (B 64, and a chunk of 24
+# that leaves a ragged tail), fit's steps and the launchers' short runs
+MESH_DEVICES = 4
+MESH_FORWARD = ("model=2", "model=4", "data=2,model=2")
+MESH_TRAIN = ("model=2", "data=2,model=2")
+MESH_CHUNK = 24
+MESH_FIT_N, MESH_TRAIN_STEPS = 256, 5
+# profiler windows and calls a window of the MESH phase's device times
+# (fewer than WINDOWS x WINDOW_CALLS: a window of sharded steps holds
+# thousands of small launches, and the profiler's summary of them costs
+# seconds); serve runs in turns a side
+MESH_WINDOWS, MESH_WINDOW_CALLS, MESH_SERVE_TURNS = 3, 10, 3
+MESH_NOTE = ("one card: the mesh's logical devices share it and its shards run "
+             "one after another, so these times are the overhead of sharding, "
+             "not a multi-GPU rate")
+
+
+def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
+    """The clause-sharded mesh (``core/sharding.py``) on the card, with
+    ``MESH_DEVICES`` logical devices laid over it (MESH):
+
+    (a) the three sharded forward builders on the committed artifact at the
+        serve bucket, at each of ``MESH_FORWARD``: class sums equal the
+        unsharded kernel's and the oracle's, each kernel launched once a
+        shard, each shard's real and padded tile counts (one shard at
+        least walks fewer real tiles than its table holds);
+    (b) ``sharded_train_step_fn(engine="kernel")`` at tm-mnist's full width,
+        B 64, fused, unfused and chunked by ``MESH_CHUNK``, on each of
+        ``MESH_TRAIN``: the bank equals the single-device step's, each
+        kernel launched once a shard and chunk; ``algorithm="matmul"``
+        equals the single-device ``tm_train_step_matmul``;
+    (c) ``fit(engine="kernel", mesh=)`` equals ``fit`` without a mesh;
+    (d) ``train_tm --mesh data=2,model=2`` ends on the unsharded run's bank,
+        and ``serve_tm --mesh model=2`` on the committed artifact (4096
+        requests in buckets of 512) predicts what the unsharded run does,
+        every bucket on ``mesh-factorized``, two ``term_infer`` launches a
+        bucket.
+
+    Prints ``MESH``: each case's mesh, ``C_loc``, launches, equality flags
+    and wall (event) ms beside the unsharded run's (the serve runs in
+    ``MESH_SERVE_TURNS`` pairs of turns), with ``profile_device``
+    device ms for (b) and the serve runs' profiled device ms for (d), and
+    each part's seconds.
+    """
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.matador_tm import TM_MNIST
+    from repro_torch.core import compiler as comp_mod, prng, sharding, tm, train
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import (class_sum, clause_eval, fused_infer, fused_train,
+                                     ops, sparse_infer, ta_update, term_infer)
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launch
+
+    mods = {"fused_infer": fused_infer, "sparse_infer": sparse_infer,
+            "term_infer": term_infer, "fused_train": fused_train,
+            "clause_eval": clause_eval, "class_sum": class_sum, "ta_update": ta_update}
+
+    def zero():
+        for m in mods.values():
+            m.launches = 0
+
+    def counts():
+        return {k: m.launches for k, m in mods.items() if m.launches}
+
+    saved_env = os.environ.get(mesh_mod.FORCE_ENV)
+    os.environ[mesh_mod.FORCE_ENV] = str(MESH_DEVICES)
+    t_phase = time.perf_counter()
+    line = dict(note=MESH_NOTE, card=card,
+                physical_devices=torch.cuda.device_count(),
+                logical_devices=MESH_DEVICES)
+    try:
+        logical = mesh_mod.visible_devices(dev)
+        print(f"mesh: {torch.cuda.device_count()} physical device(s), "
+              f"{len(logical)} logical devices over them: "
+              f"{sorted({str(d) for d in logical})}")
+
+        # (a) the forward builders at the serve bucket
+        B = BUCKET
+        xp = xp_all[:B].contiguous()
+        tabs = compiled.tensors(dev)
+        oracle = comp_mod.run_compiled(compiled, xp, engine="oracle")
+        U = compiled.n_unique
+        stacks, fwd_rows, padded_any, single_ms = {}, [], False, {}
+        seconds = {}
+        t_part = time.perf_counter()
+        for spec in MESH_FORWARD:
+            mesh = mesh_mod.parse_mesh_spec(spec, dev)
+            n = mesh.shape["model"]
+            if n not in stacks:
+                fs, *fst, fC = term_infer.stack_shard_factorized(
+                    compiled.include_words, compiled.votes, n)
+                ss, *sst, sC = sparse_infer.stack_shard_schedules(
+                    compiled.include_words, compiled.votes, n)
+                Up = -(-U // n) * n
+                dst = [np.pad(compiled.include_words, ((0, Up - U), (0, 0))).view(np.int32),
+                       np.pad(compiled.votes, ((0, Up - U), (0, 0))).astype(np.int32),
+                       np.ones(Up, np.int32)]
+                tiles = {}
+                for label, sched, st, rows, off in (("factorized", fs, fst, (2, 5), True),
+                                                    ("sparse", ss, sst, (0, 3), False)):
+                    tl = st[-1]
+                    per = []
+                    for s in range(n):
+                        ntt = int((tl[s, 0] == 0).sum()) if off else 0
+                        ip = sparse_infer.tile_indptr(
+                            tl[s, rows[0]], tl[s, rows[1]],
+                            st[-3].shape[1] // sched[0].block_c, ntt)
+                        per.append(dict(real=ntt + int(ip[-1]),
+                                        padded=tl.shape[-1] - ntt - int(ip[-1])))
+                    tiles[label] = per
+                    padded_any |= any(p["padded"] > 0 for p in per)
+                print(f"mesh model={n}: tiles a shard (real, padded) "
+                      + json.dumps(tiles))
+
+                def on_card(arrs):
+                    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
+                stacks[n] = dict(
+                    factorized=(fs, on_card(fst), fC), sparse=(ss, on_card(sst), sC),
+                    dense=(None, on_card(dst), Up // n), tiles=tiles)
+            st = stacks[n]
+            builders = {
+                "factorized": (term_infer, "term_infer", sharding.sharded_factorized_forward_fn(
+                    mesh, block_t=st["factorized"][0][0].block_t,
+                    block_c=st["factorized"][0][0].block_c,
+                    block_j=st["factorized"][0][0].block_j)),
+                "sparse": (sparse_infer, "sparse_infer", sharding.sharded_schedule_forward_fn(
+                    mesh, block_c=st["sparse"][0][0].block_c,
+                    block_j=st["sparse"][0][0].block_j)),
+                "dense": (fused_infer, "fused_infer", sharding.sharded_forward_fn(mesh)),
+            }
+            for eng, (mod, kname, fwd) in builders.items():
+                t_in = st[eng][1]
+
+                def sharded(fwd=fwd, t_in=t_in):
+                    return fwd(*t_in, xp[:, tabs["word_ids"]])
+
+                def single(eng=eng):
+                    return comp_mod.run_compiled(compiled, xp, engine=eng)
+                zero()
+                got = sharded()
+                torch.cuda.synchronize()
+                n_launch = counts()
+                want = single()
+                torch.cuda.synchronize()
+                if eng not in single_ms:
+                    single_ms[eng] = cuda_time_ms(single)
+                eq_kernel, eq_oracle = torch.equal(got, want), torch.equal(got, oracle)
+                check(eq_kernel and eq_oracle, f"mesh {spec} {eng}: sharded class sums "
+                      f"differ (== unsharded kernel {eq_kernel}, == oracle {eq_oracle})")
+                check(n_launch.get(kname) == mesh.size,
+                      f"mesh {spec} {eng}: launches {n_launch}, expected {kname} "
+                      f"{mesh.size} (one a shard)")
+                fwd_rows.append(dict(
+                    case="forward", engine=eng, mesh=dict(mesh.shape), shards=mesh.size,
+                    C_loc=st[eng][2], B=B, launches=n_launch,
+                    equal_unsharded_kernel=eq_kernel, equal_oracle=eq_oracle,
+                    ms=cuda_time_ms(sharded), unsharded_ms=single_ms[eng]))
+        check(padded_any, "mesh: no shard carried padding tiles")
+        print(f"mesh forward: {len(fwd_rows)} sharded forwards == unsharded kernels "
+              "== oracle, one launch a shard")
+        line["forward"] = fwd_rows
+        line["tiles"] = {str(n): s["tiles"] for n, s in stacks.items()}
+        seconds["forward"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (b) the sharded step at tm-mnist's full width, B 64
+        cfg = TM_MNIST
+        X, Y, _, _ = paper_dataset("mnist", n_train=MESH_FIT_N)
+        x = torch.from_numpy(X[:TRAIN_BATCH]).to(dev)
+        y = torch.from_numpy(Y[:TRAIN_BATCH]).to(dev)
+        ta = tm.init(cfg, prng.PRNGKey(0), dev).ta_state
+        seed = 3
+        train_rows = []
+        variants = {"fused": dict(fuse=True, batch_chunk=None),
+                    "unfused": dict(fuse=False, batch_chunk=None),
+                    f"chunk{MESH_CHUNK}": dict(fuse=True, batch_chunk=MESH_CHUNK)}
+        for vname, kw in variants.items():
+            def single(kw=kw):
+                return ops.tm_train_step_kernel(cfg, ta, x, y, seed, **kw)[0]
+            want = single()
+            single_ms = cuda_time_ms(single, reps=10)
+            single_dev = profile_device(single, calls=MESH_WINDOW_CALLS,
+                                        windows=MESH_WINDOWS)[0]
+            for spec in MESH_TRAIN:
+                mesh = mesh_mod.parse_mesh_spec(spec, dev)
+                step = sharding.sharded_train_step_fn(cfg, mesh, engine="kernel", **kw)
+                zero()
+                got = step(ta, x, y, seed)
+                torch.cuda.synchronize()
+                n_launch = counts()
+                B_loc = TRAIN_BATCH // mesh.shape.get("data", 1)
+                chunks = -(-B_loc // kw["batch_chunk"]) if kw["batch_chunk"] else 1
+                names = (("fused_infer", "fused_train") if kw["fuse"]
+                         else ("clause_eval", "class_sum", "ta_update"))
+                eq = torch.equal(got, want)
+                check(eq, f"mesh {spec} train {vname}: bank != the single-device step's")
+                check(all(n_launch.get(k) == mesh.size * chunks for k in names),
+                      f"mesh {spec} train {vname}: launches {n_launch}, expected "
+                      f"{mesh.size * chunks} of each of {names}")
+                train_rows.append(dict(
+                    case="train_step", variant=vname, mesh=dict(mesh.shape),
+                    shards=mesh.size, C_loc=cfg.n_clauses_total // mesh.shape["model"],
+                    B_loc=B_loc, chunks=chunks, launches=n_launch, equal_single=eq,
+                    ms=cuda_time_ms(lambda: step(ta, x, y, seed), reps=10),
+                    single_ms=single_ms,
+                    **profile_device(lambda: step(ta, x, y, seed), calls=MESH_WINDOW_CALLS,
+                                     windows=MESH_WINDOWS)[0],
+                    **{f"single_{k}": v for k, v in single_dev.items()}))
+        mesh = mesh_mod.parse_mesh_spec("data=2,model=2", dev)
+        mm_want = ops.tm_train_step_matmul(cfg, ta, x, y, seed)[0]
+        mm_step = sharding.sharded_train_step_fn(cfg, mesh, algorithm="matmul")
+        mm_eq = torch.equal(mm_step(ta, x, y, seed), mm_want)
+        check(mm_eq, "mesh data=2,model=2 matmul: bank != tm_train_step_matmul's")
+        train_rows.append(dict(
+            case="train_step", variant="matmul", mesh=dict(mesh.shape), shards=mesh.size,
+            C_loc=cfg.n_clauses_total // 2, equal_single=mm_eq,
+            ms=cuda_time_ms(lambda: mm_step(ta, x, y, seed), reps=5),
+            single_ms=cuda_time_ms(lambda: ops.tm_train_step_matmul(cfg, ta, x, y, seed),
+                                   reps=5)))
+        print(f"mesh train: {len(train_rows)} sharded steps == single-device steps")
+        line["train_step"] = train_rows
+        seconds["train_step"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (c) fit on the mesh, a few steps
+        Xf, Yf = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+        fit_kw = dict(epochs=1, batch_size=TRAIN_BATCH, rng=prng.PRNGKey(7), engine="kernel")
+        st0 = tm.init(cfg, prng.PRNGKey(0), dev)
+        t0 = time.perf_counter()
+        plain = train.fit(cfg, st0, Xf, Yf, **fit_kw)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        zero()
+        t0 = time.perf_counter()
+        meshed = train.fit(cfg, st0, Xf, Yf, mesh=mesh, **fit_kw)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        fit_eq = torch.equal(plain.ta_state, meshed.ta_state)
+        check(fit_eq, "mesh fit: the bank differs from fit without a mesh")
+        line["fit"] = dict(mesh=dict(mesh.shape), steps=meshed.steps, equal_single=fit_eq,
+                           launches=counts(), wall_s=mesh_s, single_wall_s=plain_s)
+        print(f"mesh fit: {meshed.steps} steps on {dict(mesh.shape)} == fit without a mesh")
+        seconds["fit"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (d) the launchers
+        targs = ["--arch", "tm-mnist", "--device", dev.type, "--steps", str(MESH_TRAIN_STEPS),
+                 "--batch-size", str(TRAIN_BATCH), "--n-train", "1000",
+                 "--log-every", str(MESH_TRAIN_STEPS)]
+        t0 = time.perf_counter()
+        bank_plain, _ = train_launch.train_tm(train_launch.build_parser().parse_args(targs))
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        zero()
+        t0 = time.perf_counter()
+        bank_mesh, _ = train_launch.train_tm(train_launch.build_parser().parse_args(
+            targs + ["--mesh", "data=2,model=2"]))
+        torch.cuda.synchronize()
+        tm_s = time.perf_counter() - t0
+        tt_counts = counts()
+        tt_eq = torch.equal(bank_plain, bank_mesh)
+        check(tt_eq, "mesh train_tm --mesh data=2,model=2: bank != the unsharded run's")
+        check(tt_counts.get("fused_train") == 4 * MESH_TRAIN_STEPS,
+              f"mesh train_tm: launches {tt_counts}")
+        line["train_tm"] = dict(mesh="data=2,model=2", steps=MESH_TRAIN_STEPS,
+                                equal_unsharded=tt_eq, launches=tt_counts,
+                                wall_s=tm_s, unsharded_wall_s=tp_s)
+
+        from torch.profiler import ProfilerActivity, profile
+
+        sargv = ["--arch", "tm-mnist", "--artifact", ASSET, "--device", dev.type,
+                 "--requests", "4096", "--bucket", str(BUCKET)]
+        # in turns (unsharded, mesh, mesh, unsharded, ...), then each once
+        # under the profiler for its device time
+        runs = {"unsharded": dict(ms=[]), "mesh": dict(ms=[])}
+        turns = [("unsharded", "mesh") if i % 2 == 0 else ("mesh", "unsharded")
+                 for i in range(MESH_SERVE_TURNS)]
+        for label in [lb for pair in turns for lb in pair]:
+            extra = ["--mesh", "model=2"] if label == "mesh" else []
+            zero()
+            health, gw, _, preds, ms = serve_run(sargv + extra)
+            runs[label].update(health=health, gw=gw, preds=preds, launches=counts())
+            runs[label]["ms"].append(ms)
+        for label in ("unsharded", "mesh"):
+            extra = ["--mesh", "model=2"] if label == "mesh" else []
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                serve.serve_tm(serve.build_parser().parse_args(sargv + extra))
+                torch.cuda.synchronize()
+            runs[label]["device_ms"] = sum(u for u, _ in device_us(prof).values()) / 1e3
+        h = runs["mesh"]["health"]
+        n_b = h["buckets"]
+        check(h["final_engine"] == "mesh-factorized" and h["demotions"] == []
+              and h["probe_failures"] == []
+              and h["engine_buckets"]["mesh-factorized"] == n_b,
+              f"mesh serve_tm: {h['engine_buckets']}, demotions {h['demotions']}")
+        check(runs["mesh"]["gw"]["answered"] == 4096 and runs["mesh"]["gw"]["unaccounted"] == 0,
+              f"mesh serve_tm: gateway {runs['mesh']['gw']}")
+        sv_eq = bool(np.array_equal(runs["mesh"]["preds"], runs["unsharded"]["preds"]))
+        check(sv_eq, "mesh serve_tm --mesh model=2: predictions != the unsharded run's")
+        check(runs["mesh"]["launches"].get("term_infer") == 2 * (n_b + 1),
+              f"mesh serve_tm: launches {runs['mesh']['launches']}, expected term_infer "
+              f"{2 * (n_b + 1)} (two shards, {n_b} buckets and the warm probe)")
+        line["serve_tm"] = dict(
+            mesh="model=2", requests=4096, bucket=BUCKET, buckets=n_b,
+            engine_buckets=h["engine_buckets"], demotions=h["demotions"],
+            equal_unsharded=sv_eq, launches=runs["mesh"]["launches"],
+            unsharded_launches=runs["unsharded"]["launches"],
+            ms=runs["mesh"]["ms"], unsharded_ms=runs["unsharded"]["ms"],
+            median_ms=statistics.median(runs["mesh"]["ms"]),
+            unsharded_median_ms=statistics.median(runs["unsharded"]["ms"]),
+            device_ms=runs["mesh"]["device_ms"],
+            unsharded_device_ms=runs["unsharded"]["device_ms"])
+        print(f"mesh serve_tm --mesh model=2: {n_b} buckets on mesh-factorized, "
+              "predictions == the unsharded run's")
+        seconds["launchers"] = time.perf_counter() - t_part
+        line["seconds"] = seconds
+    finally:
+        if saved_env is None:
+            os.environ.pop(mesh_mod.FORCE_ENV, None)
+        else:
+            os.environ[mesh_mod.FORCE_ENV] = saved_env
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("MESH " + json.dumps(line))
+    return line
 
 
 def main() -> None:
@@ -1925,7 +2259,7 @@ def main() -> None:
                 "--requests", "4096", "--bucket", str(BUCKET), *extra]
         for m in mods.values():
             m.launches = 0
-        health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(argv))
+        health, gw, *_ = serve.serve_tm(serve.build_parser().parse_args(argv))
         counts = {k: m.launches for k, m in mods.items()}
         print(f"serve {' '.join(extra) or '(default)'}: launches {counts}")
         check(health["final_engine"] == expect[name],
@@ -1974,6 +2308,9 @@ def main() -> None:
 
     # 10. the autotuner and its cost model (AUTOTUNE)
     autotune_phase(dev, compiled, xp_all, xw_all)
+
+    # 10b. the clause-sharded mesh over logical devices on the card (MESH)
+    mesh_phase(dev, card, compiled, xp_all)
 
     # 11. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the

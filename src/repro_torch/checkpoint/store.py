@@ -13,10 +13,10 @@ array count and the caller's ``extra`` dict).
   * **async**: ``CheckpointManager.save(..., blocking=False)`` copies the
     arrays to the host and hands them to a writer thread; a failed write
     surfaces on the next ``wait()`` or ``save()``;
-  * retention: keep the newest ``max_to_keep`` steps.
-
-Restoring onto a different device layout (the reference's ``shardings``)
-waits for the multi-GPU slice.
+  * retention: keep the newest ``max_to_keep`` steps;
+  * elastic restore: ``shardings`` places arrays block by block on a
+    mesh's devices (``core/sharding.NamedSharding``), whatever layout
+    wrote them.
 """
 
 from __future__ import annotations
@@ -87,11 +87,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def load_checkpoint(directory: str, target: dict, *,
-                    step: Optional[int] = None) -> tuple:
+                    step: Optional[int] = None,
+                    shardings: Optional[dict] = None) -> tuple:
     """Restore the keys of ``target`` -> ``(arrays, extra)``.
 
     A key whose target value is a tensor comes back as a tensor of that
     dtype on that device; any other target value gives a numpy array.
+    A key that ``shardings`` maps to a ``core/sharding.NamedSharding``
+    comes back as a ``ShardedTensor``: each mesh coordinate's block on its
+    device (elastic restore onto any mesh).
     """
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -103,11 +107,12 @@ def load_checkpoint(directory: str, target: dict, *,
     with np.load(os.path.join(path, "arrays.npz")) as z:
         for key, like in target.items():
             host = z[key]
+            shd = (shardings or {}).get(key)
             if isinstance(like, torch.Tensor):
-                out[key] = torch.from_numpy(np.ascontiguousarray(host)).to(
-                    device=like.device, dtype=like.dtype)
+                t = torch.from_numpy(np.ascontiguousarray(host)).to(dtype=like.dtype)
+                out[key] = t.to(like.device) if shd is None else shd.place(t)
             else:
-                out[key] = host
+                out[key] = host if shd is None else shd.place(host)
     return out, manifest.get("extra", {})
 
 
@@ -160,8 +165,10 @@ class CheckpointManager:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
-    def restore(self, target: dict, step: Optional[int] = None) -> tuple:
-        return load_checkpoint(self.directory, target, step=step)
+    def restore(self, target: dict, shardings: Optional[dict] = None,
+                step: Optional[int] = None) -> tuple:
+        return load_checkpoint(self.directory, target, step=step,
+                               shardings=shardings)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)

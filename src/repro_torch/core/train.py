@@ -11,8 +11,8 @@ Two steps, both equal to the reference's bit for bit from the same bank:
     fused form is two kernel launches, the unfused form three; on the CPU
     the kernels' plain versions run.
 
-The reference's clause-sharded mesh step is not ported yet (ROADMAP
-queue 1, item 6).
+``fit(mesh=...)`` runs the hash-RNG step clause-sharded over a device
+mesh (``core/sharding.py``), with the same bits.
 """
 
 from __future__ import annotations
@@ -81,6 +81,7 @@ def fit(
     log_every: int = 0,
     engine: str = "jnp",
     batch_chunk: int | None = None,
+    mesh=None,
     ckpt_manager=None,
     ckpt_every: int = 0,
     preemption=None,
@@ -95,6 +96,13 @@ def fit(
     ``train_step`` on the step's key; ``engine="kernel"`` runs the hash-RNG
     step seeded by the global step index.  Either way the bank equals the
     reference's ``fit`` with the same engine and key.
+
+    ``mesh`` (a ``launch/mesh.Mesh``, with ``engine="kernel"``) runs every
+    step through ``core/sharding.py:sharded_train_step_fn(engine="kernel")``:
+    automata split over ``model``, the batch over the data axes.  The
+    shuffle stream and per-step seeds are unchanged and the sharded step
+    gives the single-device step's bits, so the bank does not depend on
+    the mesh.
 
     **Fault tolerance.**  ``ckpt_manager`` with ``ckpt_every > 0`` saves
     the bank, the EPOCH-START key (``"rng"``, uint32 ``(2,)`` as the
@@ -113,6 +121,15 @@ def fit(
 
     if engine not in ("jnp", "kernel"):
         raise ValueError(f"fit(engine={engine!r}): engine is 'jnp' or 'kernel'")
+    sharded_step = None
+    if mesh is not None:
+        if engine != "kernel":
+            raise ValueError("fit(mesh=...) requires engine='kernel' "
+                             "(the hash-RNG step; no cross-shard RNG state)")
+        from repro_torch.core import sharding
+
+        sharded_step = sharding.sharded_train_step_fn(
+            config, mesh, batch_chunk=batch_chunk, engine="kernel")
     dev = state.ta_state.device
     rng = prng.as_key(rng, dev)
     x, y = x.to(dev), y.to(dev)
@@ -151,7 +168,10 @@ def fit(
             xb = xs[i * batch_size:(i + 1) * batch_size]
             yb = ys[i * batch_size:(i + 1) * batch_size]
             rng, rs = prng.split(rng).unbind(0)
-            if engine == "kernel":
+            if sharded_step is not None:
+                state = tm.TMState(ta_state=sharded_step(state.ta_state, xb, yb, gstep),
+                                   steps=state.steps + 1)
+            elif engine == "kernel":
                 state, _ = train_step_kernel(config, state, xb, yb, gstep,
                                              batch_chunk)
             else:

@@ -446,6 +446,129 @@ def feedback_plan(
     return ftype, sums
 
 
+class StepShard:
+    """The hash-RNG batch step of one bank or clause shard, in two phases a
+    batch chunk, so that a clause-sharded caller can complete every shard's
+    partial class sums between them (``core/sharding.py`` runs the shards
+    of a mesh one after another in one process):
+
+    * :meth:`sums`: the chunk's class sums over this shard's clauses,
+      unclamped (``fused_infer`` fused, ``clause_eval`` + ``class_sum``
+      unfused);
+    * :meth:`delta`: the chunk's (C_loc, L) int32 delta from the completed
+      sums (``fused_train`` fused, the feedback plan + ``ta_update``
+      unfused).
+
+    ``use_kernel=False`` runs the plain versions on any device (the
+    oracle route) and is unfused.  The bank is read, never written.
+    """
+
+    def __init__(self, config, ta_state, seed, *, fuse=True, autotune=False,
+                 blocks=None, chunk_b=None, c_offset=0, c_total=None,
+                 use_kernel=True):
+        from repro_torch.core import packetizer, tm
+
+        dev = ta_state.device
+        self.config, self.ta, self.seed = config, ta_state, seed
+        self.fuse = bool(fuse and use_kernel)
+        self.use_kernel = use_kernel
+        self.inc_words = packetizer.pack_include_masks(ta_state)
+        C_loc = ta_state.shape[0]
+        votes = tm.vote_matrix(config, dev)
+        cls = tm.clause_class(config, dev)
+        pol = tm.polarity(config, dev)
+        if c_total is not None:   # clause shard: local slices of the bank metadata
+            if c_total != config.n_clauses_total:
+                raise ValueError(f"c_total {c_total} != the config's "
+                                 f"{config.n_clauses_total} clauses")
+            sl = slice(c_offset, c_offset + C_loc)
+            votes, cls, pol = votes[sl], cls[sl], pol[sl]
+        self.votes, self.cls, self.pol = votes, cls, pol
+        p_act = 1.0 if config.boost_true_positive else (config.s - 1.0) / config.s
+        self.step_kw = dict(p_act=p_act, p_inact=1.0 / config.s,
+                            c_offset=c_offset, c_total=c_total)
+        self.blocks, self.infer_blocks = blocks, {}
+        if self.fuse and autotune:
+            from repro_torch.kernels import autotune as _autotune
+
+            W = packetizer.n_words(config.n_literals)
+            K = config.n_classes
+            if blocks is None:
+                self.blocks = _autotune.autotune_fused_train_blocks(
+                    chunk_b, C_loc, W, ta_state.shape[1], K, device=dev)
+            self.infer_blocks = _autotune.autotune_fused_blocks(chunk_b, C_loc, W, K,
+                                                                device=dev)
+
+    def sums(self, xc):
+        """Phase 1 -> ``(prep, sums)``: what phase 2 reuses and the (B, K)
+        int32 class sums over this shard's clauses."""
+        from repro_torch.core import packetizer, tm
+
+        lits = tm.literals(xc)
+        lit_words = packetizer.pack_bits(lits)
+        if self.fuse:
+            # launch 1: class sums (no empty-clause mask in training)
+            sums = _fused_infer_kernel.fused_tm_forward(
+                lit_words, self.inc_words, self.votes, None, **self.infer_blocks)
+            return (lits, lit_words, None), sums
+        if self.use_kernel:
+            fire = clause_fire(lit_words, self.inc_words).to(torch.uint8)
+            return (lits, lit_words, fire), class_sums(fire, self.votes)
+        fire = _clause_eval_kernel.clause_fire_plain(
+            lit_words.contiguous(), self.inc_words.contiguous()).to(torch.uint8)
+        return (lits, lit_words, fire), _class_sum_kernel.class_sum_plain(fire, self.votes)
+
+    def delta(self, prep, sums, yc, b_off, valid):
+        """Phase 2 -> the chunk's (C_loc, L) int32 delta; ``sums`` are the
+        completed class sums, ``valid`` masks a padded tail (or None)."""
+        lits, lit_words, fire = prep
+        T, K, seed = self.config.threshold, self.config.n_classes, self.seed
+        sums = torch.clamp(sums, -T, T)
+        if self.fuse:
+            kn, p_t, p_n = feedback_probs(sums, yc, K, T, seed, b_offset=b_off)
+            if valid is not None:     # padded tail samples select nothing
+                p_t = torch.where(valid, p_t, 0.0)
+                p_n = torch.where(valid, p_n, 0.0)
+            # launch 2: fire -> feedback type -> delta
+            return _fused_train_kernel.fused_tm_train_delta(
+                self.ta, lits, lit_words, self.inc_words, yc, kn, p_t, p_n,
+                self.cls, self.pol, seed, b_offset=b_off, **self.step_kw,
+                **(self.blocks or {}))
+        ftype, _ = feedback_plan(fire, yc, self.votes, self.cls, self.pol, T, seed,
+                                 b_offset=b_off, c_offset=self.step_kw["c_offset"],
+                                 sums=sums)
+        if valid is not None:
+            ftype = torch.where(valid[:, None], ftype, 0).to(torch.uint8)
+        if self.use_kernel:
+            return ta_delta(self.ta, lits, fire, ftype, seed, b_offset=b_off,
+                            **self.step_kw)
+        return _ta_update_kernel.ta_delta_plain(
+            self.ta.contiguous(), lits.contiguous(), fire.contiguous(),
+            ftype.contiguous(), seed, b_offset=b_off, **self.step_kw)
+
+
+def batch_chunks(x, y, batch_chunk, b_offset=0) -> list:
+    """``[(x, y, b_offset, valid)]``, the slices a batch is stepped in:
+    one without a mask unless ``batch_chunk`` is below ``B``; a ragged tail
+    is padded with zero samples whose ``y = -1``, masked by ``valid``."""
+    B = x.shape[0]
+    b_base = int(b_offset) & M32
+    if not (batch_chunk and B > batch_chunk):
+        return [(x, y, b_base, None)]
+    n = -(-B // batch_chunk)
+    pad = n * batch_chunk - B
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        y = torch.cat([y, y.new_full((pad,), -1)])
+    out = []
+    for i in range(n):
+        lo = i * batch_chunk
+        valid = (torch.arange(lo, lo + batch_chunk, device=x.device) < B) if pad else None
+        out.append((x[lo:lo + batch_chunk], y[lo:lo + batch_chunk],
+                    (b_base + lo) & M32, valid))
+    return out
+
+
 def tm_train_step_kernel(
     config,
     ta_state: torch.Tensor,  # (C, L) int8: the full bank OR a clause shard
@@ -461,6 +584,7 @@ def tm_train_step_kernel(
     c_offset: int = 0,       # global index of clause 0 (clause-sharded caller)
     c_total: int | None = None,  # set when ta_state is a clause shard
     sums_reduce=None,        # completes a shard's partial class sums
+    use_kernel: bool = True,
 ):
     """One hash-RNG batch training step on ``ta_state``'s device ->
     ``(new_ta, delta)``, the (C, L) int8 bank and its int32 delta.
@@ -470,7 +594,8 @@ def tm_train_step_kernel(
     fused training kernel (fire -> feedback type -> delta, nothing of
     (B, C) in device memory).  ``fuse=False`` runs ``clause_fire``, the
     feedback plan (``class_sums``) and ``ta_delta``.  CPU tensors run the
-    kernels' plain versions.  Every form gives the same bits.
+    kernels' plain versions; ``use_kernel=False`` runs them on any device
+    (unfused).  Every form gives the same bits.
 
     ``autotune=True`` picks the two fused kernels' launches from
     ``kernels/autotune.py``'s cached sweeps (training shapes cache under
@@ -482,89 +607,24 @@ def tm_train_step_kernel(
     feedback is masked.  For a clause shard pass ``c_offset``,
     ``c_total=config.n_clauses_total`` and ``sums_reduce`` (the sum of the
     partial class sums over the shards); the delta is then the full bank's
-    rows, and ``new_ta`` applies only this batch's delta.
+    rows, and ``new_ta`` applies only this batch's delta.  The two phases
+    of each chunk are :class:`StepShard`'s.
     """
-    from repro_torch.core import packetizer, tm
-
     dev = ta_state.device
-    inc_words = packetizer.pack_include_masks(ta_state)
-    C_loc = ta_state.shape[0]
-    votes = tm.vote_matrix(config, dev)
-    cls = tm.clause_class(config, dev)
-    pol = tm.polarity(config, dev)
-    if c_total is not None:   # clause shard: local slices of the bank metadata
-        if c_total != config.n_clauses_total:
-            raise ValueError(f"c_total {c_total} != the config's "
-                             f"{config.n_clauses_total} clauses")
-        sl = slice(c_offset, c_offset + C_loc)
-        votes, cls, pol = votes[sl], cls[sl], pol[sl]
-    p_act = 1.0 if config.boost_true_positive else (config.s - 1.0) / config.s
-    p_inact = 1.0 / config.s
-    K, T = config.n_classes, config.threshold
     x = x.to(dev)
     y = y.to(device=dev, dtype=torch.int32)
     B = x.shape[0]
-    step_kw = dict(p_act=p_act, p_inact=p_inact, c_offset=c_offset,
-                   c_total=c_total)
-    infer_blocks = {}
-    if fuse and autotune:
-        from repro_torch.kernels import autotune as _autotune
-
-        chunk_b = batch_chunk if (batch_chunk and B > batch_chunk) else B
-        W = packetizer.n_words(config.n_literals)
-        if blocks is None:
-            blocks = _autotune.autotune_fused_train_blocks(
-                chunk_b, C_loc, W, ta_state.shape[1], K, device=dev)
-        infer_blocks = _autotune.autotune_fused_blocks(chunk_b, C_loc, W, K,
-                                                       device=dev)
-
-    def chunk_delta(xc, yc, b_off, valid):
-        lits = tm.literals(xc)
-        lit_words = packetizer.pack_bits(lits)
-        if fuse:
-            # launch 1: class sums (no empty-clause mask in training)
-            sums = _fused_infer_kernel.fused_tm_forward(lit_words, inc_words,
-                                                        votes, None, **infer_blocks)
-            if sums_reduce is not None:
-                sums = sums_reduce(sums)
-            kn, p_t, p_n = feedback_probs(torch.clamp(sums, -T, T), yc, K, T,
-                                          seed, b_offset=b_off)
-            if valid is not None:     # padded tail samples select nothing
-                p_t = torch.where(valid, p_t, 0.0)
-                p_n = torch.where(valid, p_n, 0.0)
-            # launch 2: fire -> feedback type -> delta
-            return _fused_train_kernel.fused_tm_train_delta(
-                ta_state, lits, lit_words, inc_words, yc, kn, p_t, p_n, cls,
-                pol, seed, b_offset=b_off, **step_kw, **(blocks or {}))
-        fire = clause_fire(lit_words, inc_words).to(torch.uint8)
-        sums = None
-        if sums_reduce is not None:   # clause shard: complete the partials
-            sums = torch.clamp(sums_reduce(class_sums(fire, votes)), -T, T)
-        ftype, _ = feedback_plan(fire, yc, votes, cls, pol, T, seed,
-                                 b_offset=b_off, c_offset=c_offset, sums=sums)
-        if valid is not None:
-            ftype = torch.where(valid[:, None], ftype, 0).to(torch.uint8)
-        return ta_delta(ta_state, lits, fire, ftype, seed, b_offset=b_off,
-                        **step_kw)
-
-    b_base = int(b_offset) & M32
-    if batch_chunk and B > batch_chunk:
-        n = -(-B // batch_chunk)
-        pad = n * batch_chunk - B
-        xs, ys = x, y
-        if pad:   # ragged tail: zero samples with y = -1, feedback masked
-            xs = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-            ys = torch.cat([y, y.new_full((pad,), -1)])
-        delta = torch.zeros(ta_state.shape, dtype=torch.int32, device=dev)
-        for i in range(n):
-            lo = i * batch_chunk
-            valid = None
-            if pad:
-                valid = torch.arange(lo, lo + batch_chunk, device=dev) < B
-            delta += chunk_delta(xs[lo:lo + batch_chunk], ys[lo:lo + batch_chunk],
-                                 (b_base + lo) & M32, valid)
-    else:
-        delta = chunk_delta(x, y, b_base, None)
+    chunk_b = batch_chunk if (batch_chunk and B > batch_chunk) else B
+    shard = StepShard(config, ta_state, seed, fuse=fuse, autotune=autotune,
+                      blocks=blocks, chunk_b=chunk_b, c_offset=c_offset,
+                      c_total=c_total, use_kernel=use_kernel)
+    delta = None
+    for xc, yc, b_off, valid in batch_chunks(x, y, batch_chunk, b_offset):
+        prep, sums = shard.sums(xc)
+        if sums_reduce is not None:
+            sums = sums_reduce(sums)
+        d = shard.delta(prep, sums, yc, b_off, valid)
+        delta = d if delta is None else delta + d
     new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
                          config.n_states - 1).to(torch.int8)
     return new_ta, delta
@@ -641,3 +701,85 @@ def tm_train_step_matmul(config, ta_state: torch.Tensor, x: torch.Tensor,
     new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
                          config.n_states - 1).to(torch.int8)
     return new_ta, delta
+
+
+def tm_train_step_matmul_local(config, ta_grid, x_loc, y_loc, seed):
+    """The matmul step on a (data, model) grid of dual-axis shards -> the
+    grid of new shards, equal to :func:`tm_train_step_matmul` on the whole
+    bank bit for bit (every count is an exact float32 integer and every
+    draw is indexed by global (clause, literal) and sample ids).
+
+    ``ta_grid[d][m]`` is the (C_loc, L_loc) int8 shard of clause block
+    ``m`` and literal block ``d``, on its shard's device; ``x_loc[d]`` and
+    ``y_loc[d]`` are data shard ``d``'s samples.  The reference's shard
+    body runs its collectives inside; one process driving every shard runs
+    them as phases across the shards instead:
+
+      1. gather the int8 automata over ``data`` -> (C_loc, L) a shard;
+      2. fire and the (B_loc, K) partial class sums; their sum over ``model``;
+      3. the feedback masks and the three (C_loc, L) float32 count products;
+      4. their sum over ``data``, scattered by literal block -> (C_loc, L_loc);
+      5. the penalty draws and the clamped update of each shard.
+    """
+    from repro_torch.core import tm
+    from repro_torch.core.sharding import psum
+
+    if not config.boost_true_positive:
+        raise ValueError("tm_train_step_matmul_local assumes boost_true_positive "
+                         "(p_act = 1)")
+    n_data, n_model = len(ta_grid), len(ta_grid[0])
+    C_loc, L_loc = ta_grid[0][0].shape
+    L = L_loc * n_data
+    B_loc = x_loc[0].shape[0]
+    T = config.threshold
+    grid = [(d, m) for d in range(n_data) for m in range(n_model)]
+
+    def meta(fn, m, dev):
+        return fn(config, dev)[m * C_loc:(m + 1) * C_loc]
+
+    st = {}
+    for d, m in grid:                                         # phases 1 and 2
+        dev = ta_grid[d][m].device
+        ta_full = torch.cat([ta_grid[e][m].to(dev) for e in range(n_data)], dim=1)
+        lit_f = tm.literals(x_loc[d].to(dev)).to(torch.float32)   # (B_loc, L)
+        off_f = 1.0 - lit_f
+        fire = ((ta_full >= 0).to(torch.float32) @ off_f.T).T < 0.5
+        fire_u8 = fire.to(torch.uint8)
+        st[d, m] = dict(dev=dev, lit_f=lit_f, off_f=off_f, fire=fire, fire_u8=fire_u8,
+                        sums=class_sums(fire_u8, meta(tm.vote_matrix, m, dev)))
+    for d in range(n_data):                                   # sum over model
+        total = psum([st[d, m]["sums"] for m in range(n_model)],
+                           st[d, 0]["dev"])
+        for m in range(n_model):
+            st[d, m]["sums"] = torch.clamp(total.to(st[d, m]["dev"]), -T, T)
+    for d, m in grid:                                         # phase 3
+        s = st[d, m]
+        dev = s["dev"]
+        ftype, _ = feedback_plan(
+            s["fire_u8"], y_loc[d].to(device=dev, dtype=torch.int32),
+            meta(tm.vote_matrix, m, dev), meta(tm.clause_class, m, dev),
+            meta(tm.polarity, m, dev), T, seed, b_offset=d * B_loc,
+            c_offset=m * C_loc, sums=s["sums"])
+        f1 = ftype == 1
+        m1f = (f1 & s["fire"]).to(torch.float32)
+        m1n = (f1 & ~s["fire"]).to(torch.float32)
+        m2 = ((ftype == 2) & s["fire"]).to(torch.float32)
+        s["counts"] = torch.stack([m1f.T @ s["lit_f"],
+                                   m1f.T @ s["off_f"] + m1n.sum(0)[:, None],
+                                   m2.T @ s["off_f"]])        # (3, C_loc, L)
+    new = [[None] * n_model for _ in range(n_data)]
+    for d, m in grid:                                         # phases 4 and 5
+        ta_loc = ta_grid[d][m]
+        dev = ta_loc.device
+        lo = d * L_loc
+        A, n1, n2 = psum([st[e, m]["counts"][:, :, lo:lo + L_loc]
+                                for e in range(n_data)], dev)
+        c_idx = torch.arange(C_loc, dtype=torch.int64, device=dev) + m * C_loc
+        l_idx = torch.arange(L_loc, dtype=torch.int64, device=dev) + lo
+        gidx = (c_idx[:, None] * L + l_idx[None, :]) & M32
+        pen = _binomial_approx(n1, 1.0 / config.s, gidx, (int(seed) ^ 0x27D4EB2F) & M32)
+        excl = (ta_loc < 0).to(torch.int32)
+        delta = A.to(torch.int32) - pen + n2.to(torch.int32) * excl
+        new[d][m] = torch.clamp(ta_loc.to(torch.int32) + delta, -config.n_states,
+                                config.n_states - 1).to(torch.int8)
+    return new

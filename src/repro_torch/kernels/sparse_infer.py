@@ -175,10 +175,11 @@ def build_schedule_cached(
     return _SCHEDULE_CACHE[key]
 
 
-def _layout(iw: np.ndarray, block_c: int, block_j: int):
+def _layout(iw: np.ndarray, block_c: int, block_j: int, pad_tiles_to=None):
     """What a chain schedule of ``iw`` holds besides its chains: the
     effective ``block_c``, the padded include bits, the tile counts and
-    CSR pointers, the chain width and the flat tile table."""
+    CSR pointers, the chain width and the flat tile table, padded with
+    no-op tiles to ``pad_tiles_to``."""
     U, Wa = iw.shape
     n_lit_bits = Wa * 32
     block_c = max(min(block_c, _rup(max(U, 1), 8)), 1)
@@ -195,10 +196,12 @@ def _layout(iw: np.ndarray, block_c: int, block_j: int):
         counts[b] = -(-j_max // block_j)
     indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
-    T = int(counts.sum())
-    n_jblocks = int(counts.max()) if T else 0
-    if n_jblocks == 0:
-        n_jblocks = 1                     # one all-sentinel block
+    T_real = int(counts.sum())
+    T = max(T_real, pad_tiles_to or 0)
+    n_jblocks = int(counts.max()) if T_real else 0
+    pad_jblock = n_jblocks if T > T_real or n_jblocks == 0 else None
+    if pad_jblock is not None:
+        n_jblocks += 1                    # an all-sentinel block (no-op tiles)
     Jp = n_jblocks * block_j
 
     tiles = np.zeros((4, T), np.int32)    # clause block, chain block, first, last
@@ -208,6 +211,8 @@ def _layout(iw: np.ndarray, block_c: int, block_j: int):
         for j in range(n):
             tiles[:, t] = (b, j, int(j == 0), int(j == n - 1))
             t += 1
+    # no-op padding tiles: the all-sentinel chain block, never first/last
+    tiles[1, t:] = pad_jblock if pad_jblock is not None else 0
     return block_c, bits, counts, indptr, Jp, tiles
 
 
@@ -225,15 +230,18 @@ def build_schedule(
     *,
     block_c: int = DEFAULT_BLOCK_C,
     block_j: int = DEFAULT_BLOCK_J,
+    pad_tiles_to: int | None = None,
 ) -> SparseSchedule:
     """Compile ``(U, Wa)`` packed include rows into a chain schedule.
 
     Rows are taken in the given order (``compile_tm`` has already applied
-    :func:`cluster_order`).  Identical, table for table, to the reference
-    ``build_schedule`` without shard padding.
+    :func:`cluster_order`).  ``pad_tiles_to`` appends no-op tiles so shards
+    of one artifact can share a common tile-table shape.  Identical, table
+    for table, to the reference ``build_schedule``.
     """
     iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
-    block_c, bits, counts, indptr, Jp, tiles = _layout(iw, block_c, block_j)
+    block_c, bits, counts, indptr, Jp, tiles = _layout(iw, block_c, block_j,
+                                                       pad_tiles_to)
     chain_ids = np.full((bits.shape[0], Jp), bits.shape[1], np.int32)
     for c in range(bits.shape[0]):
         (lids,) = np.nonzero(bits[c])
@@ -300,6 +308,74 @@ def build_schedule_incremental(
         tiles_reused=int(counts[block_clean].sum()),
     )
     return sched, info
+
+
+def stack_shard_schedules(
+    include_words: np.ndarray,      # (U, Wa) — compile_tm row order
+    votes: np.ndarray,              # (U, K)
+    n_shards: int,
+    *,
+    block_c: int = DEFAULT_BLOCK_C,
+    block_j: int = DEFAULT_BLOCK_J,
+):
+    """Clause-shard a compiled schedule: each shard carries its own tile
+    table, padded to common shapes so the stacks split over ``model``.
+
+    Returns ``(schedules, chain_stack, votes_stack, tile_stack, C_loc)``:
+    per-shard :class:`SparseSchedule` objects, the ``(n_shards, Cp, Jp)``
+    chain-id stack, the matching vote stack and the ``(n_shards, 4, T)``
+    tile table (cb, jb, first, last), the reference's arrays.  Shards with
+    fewer real tiles carry no-op padding tiles after them, which the walk
+    never reaches: :func:`tile_indptr` gives each shard's CSR pointers over
+    its real tiles.
+    """
+    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+    U, Wa = iw.shape
+    K = votes.shape[1]
+    C_loc = _rup(-(-max(U, 1) // n_shards), 8)
+    Up = C_loc * n_shards
+    iw = np.pad(iw, ((0, Up - U), (0, 0)))
+    vt = np.pad(np.asarray(votes, np.int32), ((0, Up - U), (0, 0)))
+
+    def build_all(pad=None):
+        return [build_schedule(iw[s * C_loc:(s + 1) * C_loc], block_c=block_c,
+                               block_j=block_j, pad_tiles_to=pad)
+                for s in range(n_shards)]
+
+    schedules = build_all()
+    T = max(max(s.n_tiles for s in schedules), 1)
+    Jp = max(max(s.chain_ids.shape[1] for s in schedules), block_j)
+    schedules = build_all(T)
+    Jp = max(max(s.chain_ids.shape[1] for s in schedules), Jp)
+    Cp = max(s.chain_ids.shape[0] for s in schedules)
+
+    chain_stack = np.full((n_shards, Cp, Jp), Wa * 32, np.int32)
+    votes_stack = np.zeros((n_shards, Cp, K), np.int32)
+    tile_stack = np.zeros((n_shards, 4, T), np.int32)
+    for s, sched in enumerate(schedules):
+        cp, jp = sched.chain_ids.shape
+        chain_stack[s, :cp, :jp] = sched.chain_ids
+        votes_stack[s, :C_loc] = vt[s * C_loc:(s + 1) * C_loc]
+        tile_stack[s] = np.stack([sched.tile_cb, sched.tile_jb,
+                                  sched.tile_first, sched.tile_last])
+    return schedules, chain_stack, votes_stack, tile_stack, C_loc
+
+
+def tile_indptr(tile_cb: np.ndarray, tile_last: np.ndarray, n_cblocks: int,
+                tile_off: int = 0) -> np.ndarray:
+    """(n_cblocks + 1,) int32 CSR pointers of a (possibly padded) tile
+    table, relative to ``tile_off``: the real tiles end at the last tile
+    flagged last, and the no-op padding after them is left out, so the
+    walk folds nothing from it.  Raises ``ValueError`` on a table whose
+    real tiles are not in clause-block order."""
+    cb = np.asarray(tile_cb)[tile_off:]
+    (ends,) = np.nonzero(np.asarray(tile_last)[tile_off:])
+    cb = cb[:int(ends[-1]) + 1 if ends.size else 0]
+    if cb.size and (cb.min() < 0 or cb.max() >= n_cblocks or (np.diff(cb) < 0).any()):
+        raise ValueError(f"tile table's clause blocks {np.unique(cb).tolist()} "
+                         f"are not in order over {n_cblocks} blocks")
+    counts = np.bincount(cb, minlength=n_cblocks)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
 
 
 def bit_transpose_literals(lit_words: torch.Tensor, n_lit_bits: int) -> torch.Tensor:

@@ -157,13 +157,16 @@ def build_factorized_schedule(
     block_j: int = DEFAULT_BLOCK_J,
     block_t: int = DEFAULT_BLOCK_T,
     term_w: int | None = None,
+    pad_tiles_to: int | None = None,
 ) -> FactorizedSchedule:
     """Compile ``(U, Wa)`` packed include rows into a factorized schedule.
 
     Terms are ordered by (word, value); a term whose popcount exceeds
     ``term_w`` splits into deduped pieces of ``<= term_w`` bits, and the
-    owning clauses chain every piece.  Identical, table for table, to the
-    reference ``build_factorized_schedule`` without shard padding.
+    owning clauses chain every piece.  ``pad_tiles_to`` appends no-op
+    clause tiles so shards of one artifact can share a common tile-table
+    shape.  Identical, table for table, to the reference
+    ``build_factorized_schedule``.
     """
     iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
     U, Wa = iw.shape
@@ -223,10 +226,12 @@ def build_factorized_schedule(
 
     n_term_tiles = Tp // block_t
     T_clause = int(counts.sum())
-    T = n_term_tiles + T_clause
+    T_real = n_term_tiles + T_clause
+    T = max(T_real, pad_tiles_to or 0)
     n_jblocks = int(counts.max()) if T_clause else 0
-    if n_jblocks == 0:
-        n_jblocks = 1                     # one all-sentinel block
+    pad_jblock = n_jblocks if T > T_real or n_jblocks == 0 else None
+    if pad_jblock is not None:
+        n_jblocks += 1                    # an all-sentinel block (no-op tiles)
     Jp = n_jblocks * block_j
 
     clause_chain = np.full((Cp, Jp), n_terms, np.int32)
@@ -252,6 +257,8 @@ def build_factorized_schedule(
             tile_first[t] = int(j == 0)
             tile_last[t] = int(j == n - 1)
             t += 1
+    # no-op padding tiles: the all-sentinel clause chain block, never first/last
+    tile_jb[t:] = pad_jblock if pad_jblock is not None else 0
 
     return FactorizedSchedule(
         block_c=block_c, block_j=block_j, block_t=block_t, term_w=term_w,
@@ -288,6 +295,72 @@ def build_factorized_schedule_cached(
             block_c=block_c, block_j=block_j, block_t=block_t,
             term_w=term_w)
     return _FSCHEDULE_CACHE[key]
+
+
+def stack_shard_factorized(
+    include_words: np.ndarray,      # (U, Wa) — compile_tm row order
+    votes: np.ndarray,              # (U, K)
+    n_shards: int,
+    *,
+    block_c: int = DEFAULT_BLOCK_C,
+    block_j: int = DEFAULT_BLOCK_J,
+    block_t: int = DEFAULT_BLOCK_T,
+    term_w: int | None = None,
+):
+    """Clause-shard a factorized schedule: each shard carries its OWN term
+    table (terms extracted from its own rows) and tile table, padded to
+    common shapes so the stacks split over ``model``.  ``term_w`` defaults
+    to the FULL artifact's :func:`pick_term_width`; ``block_t`` is the
+    smallest any shard clips it to, and every shard is built at it.
+
+    Returns ``(schedules, term_stack, chain_stack, votes_stack, tile_stack,
+    C_loc)``, the reference's arrays: the ``(n_shards, Tp, term_w)`` term
+    stack (padding rows all sentinel: they evaluate to all ones), the
+    ``(n_shards, Cp, Jp)`` clause-chain stack (each shard's own sentinel,
+    its ``n_terms``, everywhere past its chains), the vote stack and the
+    ``(n_shards, 6, T)`` tile table.  No-op padding tiles follow each
+    shard's real ones; ``sparse_infer.tile_indptr`` leaves them out.
+    """
+    iw = np.ascontiguousarray(np.asarray(include_words, dtype=np.uint32))
+    U, Wa = iw.shape
+    K = votes.shape[1]
+    if term_w is None:
+        term_w = pick_term_width(iw)
+    C_loc = _rup(-(-max(U, 1) // n_shards), 8)
+    Up = C_loc * n_shards
+    iw = np.pad(iw, ((0, Up - U), (0, 0)))
+    vt = np.pad(np.asarray(votes, np.int32), ((0, Up - U), (0, 0)))
+
+    def build_all(bt, pad=None):
+        return [build_factorized_schedule(iw[s * C_loc:(s + 1) * C_loc],
+                                          block_c=block_c, block_j=block_j,
+                                          block_t=bt, term_w=term_w,
+                                          pad_tiles_to=pad)
+                for s in range(n_shards)]
+
+    # one block_t serves every shard's term tiles: the smallest post-clip
+    # value, then every shard is rebuilt at it
+    block_t = min(s.block_t for s in build_all(block_t))
+    schedules = build_all(block_t)
+    T = max(max(s.n_tiles for s in schedules), 1)
+    schedules = build_all(block_t, pad=T)
+    Tp = max(s.term_chain.shape[0] for s in schedules)
+    Jp = max(s.clause_chain.shape[1] for s in schedules)
+    Cp = max(s.clause_chain.shape[0] for s in schedules)
+
+    term_stack = np.full((n_shards, Tp, term_w), Wa * 32, np.int32)
+    chain_stack = np.zeros((n_shards, Cp, Jp), np.int32)
+    votes_stack = np.zeros((n_shards, Cp, K), np.int32)
+    tile_stack = np.zeros((n_shards, 6, T), np.int32)
+    for s, sched in enumerate(schedules):
+        cp, jp = sched.clause_chain.shape
+        term_stack[s, :sched.term_chain.shape[0]] = sched.term_chain
+        chain_stack[s] = sched.n_terms   # the shard's own sentinel everywhere
+        chain_stack[s, :cp, :jp] = sched.clause_chain
+        votes_stack[s, :C_loc] = vt[s * C_loc:(s + 1) * C_loc]
+        tile_stack[s] = np.stack([sched.tile_stage, sched.tile_tb, sched.tile_cb,
+                                  sched.tile_jb, sched.tile_first, sched.tile_last])
+    return schedules, term_stack, chain_stack, votes_stack, tile_stack, C_loc
 
 
 def _check_terms(lit_words, term_chain):

@@ -9,6 +9,8 @@ port's kernels, and the LM substrate's prefill + decode loop.
         --batch-size 16 --seq-len 2048 --new-tokens 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tm-tiny --device cpu \\
         --epochs 1 --n-train 200 --artifact /tmp/tiny.npz
+    REPRO_TORCH_FORCE_DEVICE_COUNT=2 PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch tm-mnist --artifact src/repro_torch/assets/tm_mnist_e1.npz --mesh model=2
 
 The TM loop mirrors the MATADOR runtime: train -> compile (or load a
 compiled artifact) -> packetize requests -> stream them through the clause
@@ -18,8 +20,9 @@ does, with the per-sample ``jax.random`` trainer (``fit(engine="jnp")``)
 on the serving device, and writes the artifact at exit.  ``--zoo N``
 serves N round-robin tenants through the artifact zoo; ``--online`` trains
 a live bank beside serving and hot-swaps recompiled artifacts
-(``runtime/online.py``).  Any other ``--arch`` serves a language model
-with random weights (``serve_lm``).
+(``runtime/online.py``); ``--mesh`` serves the clause bank sharded over
+a device mesh (``core/sharding.py``).  Any other ``--arch`` serves a
+language model with random weights (``serve_lm``).
 """
 
 from __future__ import annotations
@@ -36,11 +39,8 @@ import time
 import numpy as np
 import torch
 
-# serve_tm options that need modules not yet ported
-_LATER = {"mesh": "clause-sharded multi-GPU serving"}
 
-
-def serve_tm(args) -> tuple[dict, dict, dict | None]:
+def serve_tm(args) -> tuple[dict, dict, dict | None, np.ndarray]:
     """Chunked streaming TM serve loop with an engine degradation ladder.
 
     Requests stream through fixed-size buckets of ``--bucket`` datapoints
@@ -79,6 +79,16 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     (``runtime/zoo.py``): per-tenant circuit breakers and an LRU cache of
     ``N - 1`` entries, so it churns (``N`` under ``--online``).
 
+    ``--mesh SPEC`` (``launch/mesh.parse_mesh_spec``) puts a ``mesh-<top>``
+    rung above the ladder: the artifact's unique clauses split over
+    ``model`` (the schedule rungs stack one padded tile table a shard,
+    ``stack_shard_*``; the dense rung pads the clauses to a multiple of
+    ``model`` with zero rows and votes), each shard runs the top rung's
+    kernel on its block, one int32 sum over ``model`` completes the class
+    sums, and buckets split over the data axes.  A failure of the mesh
+    rung demotes to the unsharded ladder.  With ``--autotune`` each shard's
+    launch is tuned on ``C_loc`` rows (recorded under those rows).
+
     Without ``--artifact``, or with a path that does not exist yet, the
     run trains a bank as the reference does: ``tm.init`` from
     ``PRNGKey(0)``, then ``fit(engine="jnp")`` for ``--epochs`` over
@@ -99,7 +109,8 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     The run ends with the ``SERVE_HEALTH`` and ``GATEWAY_HEALTH`` JSON lines
     (the reference's schema; ``GATEWAY_HEALTH["zoo"]`` under the zoo) and,
     under ``--online``, ``ONLINE_HEALTH``; returns the three dicts (the
-    last None without ``--online``).
+    last None without ``--online``) and the answered requests' predicted
+    classes in request order.
     """
     from repro_torch import device as _device
     from repro_torch.configs.matador_tm import TM_CONFIGS
@@ -110,10 +121,10 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     from repro_torch.runtime.gateway import BrownoutController, Gateway
     from repro_torch.runtime.straggler import StragglerMonitor
 
-    for flag, what in _LATER.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag} needs {what}, which a later slice of "
-                             "the port brings; serve without it")
+    if args.online and args.mesh:
+        raise SystemExit("--online hot-swaps the unsharded engine ladder; "
+                         "combine it with --mesh once the sharded builders "
+                         "read the swapped artifact")
     dev = _device.resolve(args.device)
     config = TM_CONFIGS[args.arch]
     path = None
@@ -182,30 +193,34 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     quality_bounds: dict = {}
     quality_served: dict = {}
 
-    def tuned_blocks(art):
-        # the dense rung's launch at the shape it runs: the whole unique bank
+    def tuned_blocks(art, n_clauses=None):
+        # the dense rung's launch at the shape it runs: the whole unique
+        # bank, or a shard's C_loc clauses on the mesh
         if not args.autotune:
             return {}
         from repro_torch.kernels import autotune
 
+        C = art.n_unique if n_clauses is None else n_clauses
         blocks = autotune.tune(
-            "fused_infer", B=bucket, C=art.n_unique, W=art.n_words_active,
+            "fused_infer", B=bucket, C=C, W=art.n_words_active,
             K=art.n_classes, device=dev, policy=args.tune_policy)
-        print(f"autotuned dense blocks (C={art.n_unique}, "
+        print(f"autotuned dense blocks (C={C}, "
               f"policy={args.tune_policy}):", blocks)
         return blocks
 
-    def tuned_schedule_blocks(art, kernel, label):
-        # the schedule tiling is swept on the artifact's rows under
-        # artifact-hashed cache keys; a tiling recorded in the artifact (by
-        # an earlier run's save) for this bucket, row count and mode answers
-        # a cold start with no sweep (one recorded on another device or by
-        # the reference never does)
+    def tuned_schedule_blocks(art, kernel, label, inc_rows=None):
+        # the schedule tiling is swept on the rows the rung serves (the
+        # artifact's, or a shard's C_loc on the mesh) under artifact-hashed
+        # cache keys; a tiling recorded in the artifact (by an earlier
+        # run's save) for this bucket, row count and mode answers a cold
+        # start with no sweep (one recorded on another device or by the
+        # reference never does)
         if not args.autotune:
             return {}
         from repro_torch.kernels import autotune
 
-        inc_rows = art.include_words
+        if inc_rows is None:
+            inc_rows = art.include_words
         ctx = dict(rows=inc_rows.shape[0], mode=autotune._mode_backend(dev))
         recorded = art.tuned_blocks(kernel, bucket, **ctx)
         if recorded is not None:
@@ -239,12 +254,74 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
         run.supports_quality = True
         return run
 
+    def build_mesh(art):
+        # clause-sharded serve: the artifact's unique-clause bank splits
+        # over `model`, each shard runs the top rung's kernel on its block
+        # (the schedule rungs with their own padded tile tables), one (B, K)
+        # int32 sum over `model` completes the class sums, and buckets split
+        # over the data axes
+        from repro_torch.core import sharding as tm_sharding
+        from repro_torch.kernels import sparse_infer, term_infer
+        from repro_torch.launch.mesh import parse_mesh_spec
+
+        mesh = parse_mesh_spec(args.mesh, dev)
+        n_model = mesh.shape["model"]
+        U = art.n_unique
+        # the rows one shard serves, for its launch's tuning
+        shard_rows = np.ascontiguousarray(
+            art.include_words[:sparse_infer._rup(-(-max(U, 1) // n_model), 8)])
+        if args.autotune:
+            tuned_blocks(art, -(-U // n_model))
+        if factorize:
+            fb = tuned_schedule_blocks(art, "term_infer", "factorized", shard_rows)
+            scheds, *stacks, C_loc = term_infer.stack_shard_factorized(
+                art.include_words, art.votes, n_model,
+                block_c=fb.get("block_c", term_infer.DEFAULT_BLOCK_C),
+                block_j=fb.get("block_j", term_infer.DEFAULT_BLOCK_J),
+                block_t=fb.get("block_t", term_infer.DEFAULT_BLOCK_T),
+                term_w=fb.get("term_w"))
+            fwd = tm_sharding.sharded_factorized_forward_fn(
+                mesh, block_t=scheds[0].block_t, block_c=scheds[0].block_c,
+                block_j=scheds[0].block_j, block_s=fb.get("block_s"))
+            print(f"mesh {dict(mesh.shape)}: {C_loc * n_model} unique clauses "
+                  f"sharded over model={n_model} ({C_loc}/shard, "
+                  f"{stacks[3].shape[-1]} tiles/shard, "
+                  f"{stacks[0].shape[1]} term rows/shard)")
+        elif sparse:
+            sb = tuned_schedule_blocks(art, "sparse_infer", "sparse", shard_rows)
+            scheds, *stacks, C_loc = sparse_infer.stack_shard_schedules(
+                art.include_words, art.votes, n_model,
+                block_c=sb.get("block_c", sparse_infer.DEFAULT_BLOCK_C),
+                block_j=sb.get("block_j", sparse_infer.DEFAULT_BLOCK_J))
+            fwd = tm_sharding.sharded_schedule_forward_fn(
+                mesh, block_c=scheds[0].block_c, block_j=scheds[0].block_j,
+                block_s=sb.get("block_s"))
+            print(f"mesh {dict(mesh.shape)}: {C_loc * n_model} unique clauses "
+                  f"sharded over model={n_model} ({C_loc}/shard, "
+                  f"{stacks[2].shape[-1]} chain tiles/shard)")
+        else:
+            Up = -(-U // n_model) * n_model
+            blocks = tuned_blocks(art, Up // n_model)
+            # zero include words never violate: the padding clauses fire but
+            # carry zero votes, so the class sums are unchanged
+            stacks = [np.pad(art.include_words, ((0, Up - U), (0, 0))).view(np.int32),
+                      np.pad(art.votes, ((0, Up - U), (0, 0))).astype(np.int32),
+                      np.ones((Up,), np.int32)]
+            fwd = tm_sharding.sharded_forward_fn(mesh, blocks=blocks or None)
+            print(f"mesh {dict(mesh.shape)}: {Up} unique clauses sharded "
+                  f"over model={n_model} ({Up // n_model}/shard)")
+        tabs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in stacks]
+        word_ids = art.tensors(dev)["word_ids"]
+        return lambda xw: fwd(*tabs, xw[:, word_ids]).argmax(-1)
+
     def build_engine(name):
         # lazy per-level builders: engines the ladder never reaches cost
         # nothing, neither their CUDA build (at the first kernel launch) nor
         # their sweep; the artifact is read from the `current` cell at
         # build time
         art = current["compiled"]
+        if name.startswith("mesh-"):
+            return build_mesh(art)
         if name in ("factorized", "sparse"):
             kernel = "term_infer" if name == "factorized" else "sparse_infer"
             return _quality_engine(art, name, tuned_schedule_blocks(art, kernel, name))
@@ -260,6 +337,10 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     if sparse:
         levels.append("sparse")
     levels += ["dense", "oracle"]
+    if args.mesh:
+        # the sharded engine degrades to the unsharded ladder: a mesh-only
+        # failure (bad spec, a shard's launch) still serves every bucket
+        levels.insert(0, f"mesh-{levels[0]}")
     ladder = ops.EngineLadder(
         [(name, (lambda n=name: build_engine(n))) for name in levels],
         promote_after=args.promote_after)
@@ -474,10 +555,13 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     engine_labels = {"factorized": "factorized-schedule",
                      "sparse": "sparse-schedule",
                      "dense": "fused-kernel", "oracle": "oracle"}
+    eng = ladder.engine
+    label = (f"clause-sharded {engine_labels[eng[len('mesh-'):]]} ({args.mesh})"
+             if eng.startswith("mesh-") else engine_labels[eng])
     n_answered = gw_health["answered"]
     n_buckets = gw_health["buckets"]
     print(f"{n_answered} inferences in {n_buckets} buckets of {bucket} "
-          f"[{engine_labels[ladder.engine]}, {dev}] in {dt * 1e3:.2f} ms "
+          f"[{label}, {dev}] in {dt * 1e3:.2f} ms "
           f"({max(n_answered, 1) / dt:,.0f} inf/s, "
           f"{dt / max(n_answered, 1) * 1e6:.2f} us/inf)")
     health = dict(
@@ -504,7 +588,7 @@ def serve_tm(args) -> tuple[dict, dict, dict | None]:
     preds = np.asarray([r.pred for r in responses if r.ok], np.int64)
     hist = np.bincount(preds, minlength=config.n_classes)
     print("pred class histogram:", hist.tolist())
-    return health, gw_health, online_health
+    return health, gw_health, online_health, preds
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -595,9 +679,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="TM --autotune mode: 'predict' trusts the cost "
                          "model (zero timing runs), 'verify' (default) times "
                          "the model's top-3, 'sweep' times every candidate")
-    for flag, what in _LATER.items():
-        ap.add_argument(f"--{flag}", default=None, nargs="?", const=True,
-                        help=f"not yet ported ({what}); exits with a message")
+    ap.add_argument("--mesh", default=None,
+                    help="TM: mesh spec, e.g. 'model=2' or 'data=2,model=2': "
+                         "shard the compiled clause bank over model (the top "
+                         "rung's kernel per shard) and buckets over data")
     ap.add_argument("--batch-size", type=int, default=4, help="LM: prompts")
     ap.add_argument("--seq-len", type=int, default=64,
                     help="LM: KV-cache length; the prompts take half of it")

@@ -10,7 +10,10 @@ restart-resume, preemption handling and the straggler monitor around the
 hash-RNG batch step (``ops.tm_train_step_kernel``): fused (two kernel
 launches per step) by default, unfused with ``--no-fuse``; ``--autotune``
 launches the two fused kernels as ``kernels/autotune.py``'s cached sweeps
-pick (the bank is the same bits either way).  A checkpoint
+pick (the bank is the same bits either way).  ``--mesh`` runs the step
+clause-sharded over a device mesh (``core/sharding.py``, the same bits;
+on one card set ``REPRO_TORCH_FORCE_DEVICE_COUNT`` to lay logical devices
+over it).  A checkpoint
 written by the reference's ``repro.launch.train`` resumes here and the
 reverse: the layout, the loader and every draw are the same.  It runs on
 the card unless ``--device cpu`` asks for the kernels' plain versions.
@@ -22,9 +25,6 @@ import argparse
 import json
 
 import torch
-
-# train options that need modules not yet ported
-_LATER = {"mesh": "clause-sharded multi-GPU training"}
 
 
 def train_tm(args) -> tuple[torch.Tensor, dict]:
@@ -49,10 +49,6 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
                                                 PreemptionHandler)
     from repro_torch.runtime.straggler import StragglerMonitor
 
-    for flag, what in _LATER.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f"--{flag} needs {what}, which a later slice of "
-                             "the port brings; train without it")
     dev = _device.resolve(args.device)
     config = TM_CONFIGS[args.arch]
     name = args.arch.replace("tm-", "")
@@ -82,6 +78,9 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
                  extra={"step": step, "loader": loader.state_dict()},
                  blocking=blocking)
 
+    sharded_step = None
+    if args.mesh:
+        sharded_step = _mesh_step(args, config, dev)
     # chains to any handler the host process already registered and is
     # uninstalled in the finally below, so embedding this loop in a
     # serving process never clobbers the gateway's SIGTERM drain
@@ -92,11 +91,13 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
         for step in range(start_step, args.steps):
             mon.start_step()
             xb, yb = next(it)
-            ta, _ = ops.tm_train_step_kernel(
-                config, ta, torch.from_numpy(xb).to(dev),
-                torch.from_numpy(yb).to(dev), step,
-                batch_chunk=args.batch_chunk, fuse=not args.no_fuse,
-                autotune=args.autotune)
+            xt, yt = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).to(dev)
+            if sharded_step is not None:
+                ta = sharded_step(ta, xt, yt, step)
+            else:
+                ta, _ = ops.tm_train_step_kernel(
+                    config, ta, xt, yt, step, batch_chunk=args.batch_chunk,
+                    fuse=not args.no_fuse, autotune=args.autotune)
             faults.sleep_if("train.slow_step", step=step)  # straggler drill
             flag = mon.end_step(step)
             if flag:
@@ -129,6 +130,45 @@ def train_tm(args) -> tuple[torch.Tensor, dict]:
     return ta, health
 
 
+def _mesh_step(args, config, dev):
+    """``--mesh``: the clause-sharded step (automata over ``model``, the
+    batch over the data axes, the kernels per shard); ``--autotune`` tunes
+    the per-shard shape (C_loc clauses, B_loc samples) here, outside the
+    step, and pins it."""
+    from repro_torch.core import packetizer
+    from repro_torch.core import sharding as tm_sharding
+    from repro_torch.launch.mesh import parse_mesh_spec
+
+    mesh = parse_mesh_spec(args.mesh, dev)
+    n_model = mesh.shape["model"]
+    if config.n_clauses_total % n_model:
+        raise SystemExit(
+            f"clause axis ({config.n_clauses_total}) not divisible by mesh "
+            f"model={n_model}; pick a divisor (configs pad via "
+            "clause_pad_multiple)")
+    blocks = None
+    if args.autotune:
+        if args.no_fuse:
+            print("--autotune ignored: the unfused step has no launch to tune")
+        else:
+            from repro_torch.kernels import autotune
+
+            d_size = mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
+            B_loc = max(1, args.batch_size // d_size)
+            if args.batch_chunk and B_loc > args.batch_chunk:
+                B_loc = args.batch_chunk
+            blocks = autotune.autotune_fused_train_blocks(
+                B_loc, config.n_clauses_total // n_model,
+                packetizer.n_words(config.n_literals), config.n_literals,
+                config.n_classes, device=dev)
+            print("autotuned sharded blocks:", blocks)
+    step = tm_sharding.sharded_train_step_fn(
+        config, mesh, batch_chunk=args.batch_chunk, engine="kernel",
+        fuse=not args.no_fuse, blocks=blocks)
+    print(f"mesh {dict(mesh.shape)}: clause axis sharded over model={n_model}")
+    return step
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
@@ -150,7 +190,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="launch the fused kernels as the autotuner's cached "
                          "sweeps pick (resolved on the first step)")
     ap.add_argument("--mesh", default=None,
-                    help="not ported yet (multi-GPU slice)")
+                    help="mesh spec, e.g. 'model=2' or 'data=2,model=2': shard "
+                         "the clause axis over model and the batch over data")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=20)

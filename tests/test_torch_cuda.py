@@ -896,7 +896,7 @@ def test_cuda_serve_tm_trains_the_committed_asset(cuda_device, tmp_path):
 
     path = str(tmp_path / "tm_mnist.npz")
     term_infer.launches = 0
-    health, gw, _ = serve.serve_tm(serve.build_parser().parse_args(
+    health, gw, *_ = serve.serve_tm(serve.build_parser().parse_args(
         ["--arch", "tm-mnist", "--device", "cuda", "--epochs", "1", "--n-train",
          "600", "--requests", "256", "--bucket", "256", "--artifact", path]))
     assert health["final_engine"] == "factorized" and gw["answered"] == 256
@@ -926,3 +926,96 @@ def test_cuda_feedback_probs_equal_cpu(cuda_device, T):
     got = ops.feedback_probs(sums.to(cuda_device), y.to(cuda_device), 3, T, 11)
     for a, b in zip(got, want):
         assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+
+
+# -- the clause-sharded mesh (core/sharding.py) on one card ----------------------
+
+@pytest.fixture
+def card_mesh(cuda_device, monkeypatch):
+    """Meshes of logical devices laid over the one card."""
+    from repro_torch.launch import mesh
+
+    monkeypatch.setenv(mesh.FORCE_ENV, "4")
+    return lambda spec: mesh.parse_mesh_spec(spec, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["model=2", "model=4", "data=2,model=2"])
+def test_cuda_sharded_forward_equals_unsharded(card_mesh, cuda_device, spec):
+    """The three sharded forward builders launch their kernel once a shard
+    (padded tile tables included: some shard walks fewer real tiles than the
+    stack holds) and equal the unsharded kernels."""
+    from repro_torch.core import sharding
+    from repro_torch.kernels import fused_infer, sparse_infer, term_infer
+
+    comp = _bank(48, 4, 40, 0.08, 3)
+    mesh = card_mesh(spec)
+    n = mesh.shape["model"]
+    x = packetizer.pack_literals(torch.from_numpy(np.random.default_rng(4).integers(
+        0, 2, (96, 48), dtype=np.uint8))).to(cuda_device)
+    xw = x[:, comp.tensors(cuda_device)["word_ids"]]
+    want = compiler.run_compiled(comp, x, engine="factorized")
+    for eng in ("sparse", "dense"):
+        np.testing.assert_array_equal(want.cpu().numpy(), compiler.run_compiled(
+            comp, x, engine=eng).cpu().numpy())
+
+    def t(stacks):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in stacks]
+
+    fs, *fst, _ = term_infer.stack_shard_factorized(comp.include_words, comp.votes, n,
+                                                    block_c=8, block_j=8)
+    ss, *sst, _ = sparse_infer.stack_shard_schedules(comp.include_words, comp.votes, n,
+                                                     block_c=8, block_j=8)
+    real = [int(sparse_infer.tile_indptr(sst[2][s, 0], sst[2][s, 3],
+                                         sst[0].shape[1] // 8)[-1]) for s in range(n)]
+    assert min(real) < sst[2].shape[-1], real          # a shard carries padding
+    U = comp.n_unique
+    Up = -(-U // n) * n
+    dense = [np.pad(comp.include_words, ((0, Up - U), (0, 0))).view(np.int32),
+             np.pad(comp.votes, ((0, Up - U), (0, 0))).astype(np.int32),
+             np.ones(Up, np.int32)]
+    cases = [
+        (term_infer, sharding.sharded_factorized_forward_fn(
+            mesh, block_t=fs[0].block_t, block_c=fs[0].block_c, block_j=fs[0].block_j),
+         t(fst)),
+        (sparse_infer, sharding.sharded_schedule_forward_fn(
+            mesh, block_c=ss[0].block_c, block_j=ss[0].block_j), t(sst)),
+        (fused_infer, sharding.sharded_forward_fn(mesh), t(dense)),
+    ]
+    for mod, fwd, tabs in cases:
+        n0 = mod.launches
+        got = fwd(*tabs, xw)
+        torch.cuda.synchronize()
+        assert mod.launches - n0 == mesh.size, mod.__name__
+        np.testing.assert_array_equal(want.cpu().numpy(), got.cpu().numpy(),
+                                      err_msg=mod.__name__)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["model=2", "data=2,model=2"])
+@pytest.mark.parametrize("fuse, chunk", [(True, None), (False, None), (True, 5)])
+def test_cuda_sharded_train_step_equals_unsharded(card_mesh, cuda_device, spec, fuse,
+                                                  chunk):
+    """The clause-sharded step launches each kernel once a shard and chunk
+    and ends on the single-device step's bank."""
+    from repro_torch.core import prng, sharding
+    from repro_torch.kernels import class_sum, clause_eval, fused_infer, fused_train, ops
+    from repro_torch.kernels import ta_update
+
+    cfg = tm.TMConfig(n_features=48, n_classes=4, clauses_per_class=16,
+                      clause_pad_multiple=8, threshold=15, s=5.0)
+    ta = tm.init(cfg, prng.PRNGKey(0), cuda_device).ta_state
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 2, (24, 48), dtype=np.uint8)).to(cuda_device)
+    y = torch.from_numpy(rng.integers(0, 4, 24, dtype=np.int32)).to(cuda_device)
+    want, _ = ops.tm_train_step_kernel(cfg, ta, x, y, 9, batch_chunk=chunk, fuse=fuse)
+    mesh = card_mesh(spec)
+    mods = ((fused_infer, fused_train) if fuse else (clause_eval, class_sum, ta_update))
+    n0 = [m.launches for m in mods]
+    got = sharding.sharded_train_step_fn(cfg, mesh, batch_chunk=chunk, engine="kernel",
+                                         fuse=fuse)(ta, x, y, 9)
+    torch.cuda.synchronize()
+    n_data = mesh.shape.get("data", 1)
+    chunks = -(-(24 // n_data) // chunk) if chunk else 1
+    assert [m.launches - a for m, a in zip(mods, n0)] == [mesh.size * chunks] * len(mods)
+    np.testing.assert_array_equal(want.cpu().numpy(), got.cpu().numpy())

@@ -199,9 +199,12 @@ def test_serve_cpu_ladder_drill(tiny_artifact):
 
 
 @pytest.mark.parametrize("extra, message", [
-    (["--mesh", "model=2"], "later slice"),
+    (["--online", "--mesh", "model=2"],
+     "combine it with --mesh once the sharded builders read the swapped artifact"),
 ])
 def test_serve_refuses_what_later_slices_bring(tiny_artifact, extra, message):
+    """``--online`` with ``--mesh`` exits with the reference's message: the
+    updater hot-swaps the unsharded ladder only."""
     from repro_torch.launch import serve
 
     argv = SERVE[2:] + ["--artifact", tiny_artifact] + extra

@@ -452,13 +452,17 @@ def test_fit_matches_manual_loop():
                     rng=t_prng.PRNGKey(7), engine="mesh")
 
 
-def test_train_tm_flags_not_ported_and_device():
+def test_train_tm_flags_not_ported_and_device(monkeypatch):
+    """``--mesh`` needs the devices it names (``device_count`` in the
+    error; ``REPRO_TORCH_FORCE_DEVICE_COUNT`` lays logical ones), and
+    ``--device cuda`` raises without a card."""
     from repro_torch.launch import train as t_launch
 
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
     base = ["--arch", "tm-tiny", "--steps", "1", "--device", "cpu"]
     for extra in (["--mesh", "model=2"],):
         args = t_launch.build_parser().parse_args(base + extra)
-        with pytest.raises(SystemExit, match="later slice"):
+        with pytest.raises(ValueError, match="device_count"):
             t_launch.train_tm(args)
     if not torch.cuda.is_available():
         args = t_launch.build_parser().parse_args(["--arch", "tm-tiny", "--steps", "1"])
