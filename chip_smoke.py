@@ -1761,6 +1761,7 @@ MESH_FIT_N, MESH_TRAIN_STEPS = 256, 5
 # thousands of small launches, and the profiler's summary of them costs
 # seconds); serve runs in turns a side
 MESH_WINDOWS, MESH_WINDOW_CALLS, MESH_SERVE_TURNS = 3, 10, 3
+MESH_SPLIT_TOP = 8          # kernels and copies kept in a serve run's device split
 MESH_NOTE = ("one card: the mesh's logical devices share it and its shards run "
              "one after another, so these times are the overhead of sharding, "
              "not a multi-GPU rate")
@@ -1780,7 +1781,8 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
         ``MESH_TRAIN``: the bank equals the single-device step's, each
         kernel launched once a shard and chunk; ``algorithm="matmul"``
         equals the single-device ``tm_train_step_matmul``;
-    (c) ``fit(engine="kernel", mesh=)`` equals ``fit`` without a mesh;
+    (c) ``fit(engine="kernel", mesh=)`` equals ``fit`` without a mesh, with
+        one ``fused_infer`` and one ``fused_train`` a shard and step;
     (d) ``train_tm --mesh data=2,model=2`` ends on the unsharded run's bank,
         and ``serve_tm --mesh model=2`` on the committed artifact (4096
         requests in buckets of 512) predicts what the unsharded run does,
@@ -1790,8 +1792,8 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
     Prints ``MESH``: each case's mesh, ``C_loc``, launches, equality flags
     and wall (event) ms beside the unsharded run's (the serve runs in
     ``MESH_SERVE_TURNS`` pairs of turns), with ``profile_device``
-    device ms for (b) and the serve runs' profiled device ms for (d), and
-    each part's seconds.
+    device ms for (b) and the serve runs' profiled device ms for (d) with
+    its largest kernels and copies, and each part's seconds.
     """
     import numpy as np
     import torch
@@ -1833,7 +1835,6 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
         xp = xp_all[:B].contiguous()
         tabs = compiled.tensors(dev)
         oracle = comp_mod.run_compiled(compiled, xp, engine="oracle")
-        U = compiled.n_unique
         stacks, fwd_rows, padded_any, single_ms = {}, [], False, {}
         seconds = {}
         t_part = time.perf_counter()
@@ -1845,22 +1846,12 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
                     compiled.include_words, compiled.votes, n)
                 ss, *sst, sC = sparse_infer.stack_shard_schedules(
                     compiled.include_words, compiled.votes, n)
-                Up = -(-U // n) * n
-                dst = [np.pad(compiled.include_words, ((0, Up - U), (0, 0))).view(np.int32),
-                       np.pad(compiled.votes, ((0, Up - U), (0, 0))).astype(np.int32),
-                       np.ones(Up, np.int32)]
+                dst = sharding.stack_shard_dense(compiled.include_words, compiled.votes, n)
                 tiles = {}
-                for label, sched, st, rows, off in (("factorized", fs, fst, (2, 5), True),
-                                                    ("sparse", ss, sst, (0, 3), False)):
+                for label, sched, st in (("factorized", fs, fst), ("sparse", ss, sst)):
                     tl = st[-1]
-                    per = []
-                    for s in range(n):
-                        ntt = int((tl[s, 0] == 0).sum()) if off else 0
-                        ip = sparse_infer.tile_indptr(
-                            tl[s, rows[0]], tl[s, rows[1]],
-                            st[-3].shape[1] // sched[0].block_c, ntt)
-                        per.append(dict(real=ntt + int(ip[-1]),
-                                        padded=tl.shape[-1] - ntt - int(ip[-1])))
+                    per = [dict(real=r, padded=tl.shape[-1] - r) for r in sharding.real_tiles(
+                        tl, st[-3].shape[1], sched[0].block_c)]
                     tiles[label] = per
                     padded_any |= any(p["padded"] > 0 for p in per)
                 print(f"mesh model={n}: tiles a shard (real, padded) "
@@ -1870,7 +1861,7 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
                     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrs]
                 stacks[n] = dict(
                     factorized=(fs, on_card(fst), fC), sparse=(ss, on_card(sst), sC),
-                    dense=(None, on_card(dst), Up // n), tiles=tiles)
+                    dense=(None, on_card(dst), dst[0].shape[0] // n), tiles=tiles)
             st = stacks[n]
             builders = {
                 "factorized": (term_infer, "term_infer", sharding.sharded_factorized_forward_fn(
@@ -1991,8 +1982,13 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
         mesh_s = time.perf_counter() - t0
         fit_eq = torch.equal(plain.ta_state, meshed.ta_state)
         check(fit_eq, "mesh fit: the bank differs from fit without a mesh")
-        line["fit"] = dict(mesh=dict(mesh.shape), steps=meshed.steps, equal_single=fit_eq,
-                           launches=counts(), wall_s=mesh_s, single_wall_s=plain_s)
+        fit_counts, fit_steps = counts(), int(meshed.steps) - int(st0.steps)
+        check(all(fit_counts.get(k) == mesh.size * fit_steps
+                  for k in ("fused_infer", "fused_train")),
+              f"mesh fit: launches {fit_counts}, expected {mesh.size * fit_steps} of "
+              f"fused_infer and fused_train ({mesh.size} shards x {fit_steps} steps)")
+        line["fit"] = dict(mesh=dict(mesh.shape), steps=fit_steps, equal_single=fit_eq,
+                           launches=fit_counts, wall_s=mesh_s, single_wall_s=plain_s)
         print(f"mesh fit: {meshed.steps} steps on {dict(mesh.shape)} == fit without a mesh")
         seconds["fit"] = time.perf_counter() - t_part
         t_part = time.perf_counter()
@@ -2040,7 +2036,12 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 serve.serve_tm(serve.build_parser().parse_args(sargv + extra))
                 torch.cuda.synchronize()
-            runs[label]["device_ms"] = sum(u for u, _ in device_us(prof).values()) / 1e3
+            split = device_us(prof)
+            runs[label]["device_ms"] = sum(u for u, _ in split.values()) / 1e3
+            # the device time by kernel and by copy, largest first
+            runs[label]["device_split_ms"] = {
+                k: round(u / 1e3, 5) for k, (u, _) in
+                sorted(split.items(), key=lambda kv: -kv[1][0])[:MESH_SPLIT_TOP]}
         h = runs["mesh"]["health"]
         n_b = h["buckets"]
         check(h["final_engine"] == "mesh-factorized" and h["demotions"] == []
@@ -2063,7 +2064,9 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
             median_ms=statistics.median(runs["mesh"]["ms"]),
             unsharded_median_ms=statistics.median(runs["unsharded"]["ms"]),
             device_ms=runs["mesh"]["device_ms"],
-            unsharded_device_ms=runs["unsharded"]["device_ms"])
+            unsharded_device_ms=runs["unsharded"]["device_ms"],
+            device_split_ms=runs["mesh"]["device_split_ms"],
+            unsharded_device_split_ms=runs["unsharded"]["device_split_ms"])
         print(f"mesh serve_tm --mesh model=2: {n_b} buckets on mesh-factorized, "
               "predictions == the unsharded run's")
         seconds["launchers"] = time.perf_counter() - t_part

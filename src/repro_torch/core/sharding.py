@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tm
+from repro_torch.kernels.ops import psum
 
 
 def data_axes(mesh) -> tuple:
@@ -66,16 +67,6 @@ def _engine_dispatch(engine, use_kernel, *, allowed, fuse: bool = True) -> tuple
             f"engine {spec.name!r} does not apply to this sharded builder; "
             f"one of {allowed}")
     return spec.name == "oracle", spec.fuse
-
-
-def psum(parts, device) -> torch.Tensor:
-    """The mesh's one collective, the reference's ``psum``: the exact sum
-    of per-shard partial results, as a new tensor on ``device`` (no shard's
-    tensor is written)."""
-    out = parts[0].to(device, copy=True)
-    for p in parts[1:]:
-        out += p.to(device)
-    return out
 
 
 @contextlib.contextmanager
@@ -278,12 +269,49 @@ def sharded_forward_fn(mesh, *, engine=None, use_kernel: bool | None = None,
     return fwd
 
 
-def _schedule_tables(mesh, block_c, tile_rows, *tables):
-    """Per-shard schedule tables with each shard's CSR pointers (and, for a
-    factorized table, its term-tile count) derived from its rows of the
-    tile stack: the walk then never reaches its no-op padding tiles."""
+def stack_shard_dense(include_words, votes, n: int) -> list:
+    """The dense mesh rung's tables for ``n`` model shards, as the
+    reference's serve pads them: ``[include words (Up, W) int32, votes
+    (Up, K) int32, nonempty (Up,) int32]`` with ``U`` rows padded up to a
+    multiple ``Up`` of ``n``.  Zero include words never violate, so the
+    padding clauses fire, but they carry zero votes and the class sums are
+    unchanged.  :func:`sharded_forward_fn` splits each table by clause
+    block."""
+    U = include_words.shape[0]
+    Up = -(-U // n) * n
+    return [np.pad(include_words, ((0, Up - U), (0, 0))).view(np.int32),
+            np.pad(votes, ((0, Up - U), (0, 0))).astype(np.int32),
+            np.ones((Up,), np.int32)]
+
+
+def _shard_tile_walk(tiles: np.ndarray, n_blocks: int) -> tuple:
+    """``(indptr, n_term_tiles)`` of one shard's (4, T) sparse or (6, T)
+    factorized tile rows over ``n_blocks`` clause blocks: the CSR pointers
+    of its real clause tiles (they end at the last ``last`` flag) and its
+    term-tile count, so the walk never reaches the no-op padding tiles.
+    The shard's real tiles are ``n_term_tiles + indptr[-1]``."""
     from repro_torch.kernels import sparse_infer
 
+    cb, last = (0, 3) if tiles.shape[0] == 4 else (2, 5)
+    n_term_tiles = int((tiles[0] == 0).sum()) if tiles.shape[0] == 6 else 0
+    return (sparse_infer.tile_indptr(tiles[cb], tiles[last], n_blocks, n_term_tiles),
+            n_term_tiles)
+
+
+def real_tiles(tile_stack, n_chain_rows: int, block_c: int) -> list:
+    """Each shard's real tiles in a stacked (n, 4|6, T) tile table; the
+    rest of its ``T`` are no-op padding."""
+    out = []
+    for t in np.asarray(tile_stack):
+        indptr, n_term_tiles = _shard_tile_walk(t, n_chain_rows // block_c)
+        out.append(n_term_tiles + int(indptr[-1]))
+    return out
+
+
+def _schedule_tables(mesh, block_c, *tables):
+    """Per-shard schedule tables with each shard's CSR pointers (and, for a
+    factorized table, its term-tile count) derived from its rows of the
+    tile stack (:func:`_shard_tile_walk`)."""
     pieces = _model_pieces(mesh, tables, _stack_entry(mesh))
     out = {}
     for key, ts in pieces.items():
@@ -291,11 +319,8 @@ def _schedule_tables(mesh, block_c, tile_rows, *tables):
         if chain.shape[0] % block_c:
             raise ValueError(f"{chain.shape[0]} chain rows are not blocks of "
                              f"block_c={block_c}")
-        t = tiles.cpu().numpy()
-        cb, last = tile_rows
-        n_term_tiles = int((t[0] == 0).sum()) if t.shape[0] == 6 else 0
-        indptr = sparse_infer.tile_indptr(t[cb], t[last], chain.shape[0] // block_c,
-                                          n_term_tiles)
+        indptr, n_term_tiles = _shard_tile_walk(tiles.cpu().numpy(),
+                                               chain.shape[0] // block_c)
         out[key] = ts + (torch.from_numpy(indptr).to(tiles.device), n_term_tiles)
     return out
 
@@ -320,7 +345,7 @@ def sharded_schedule_forward_fn(mesh, *, block_c: int, block_j: int,
     oracle, _ = _engine_dispatch(engine, use_kernel,
                                  allowed=("auto", "sparse", "oracle"))
     sparse_infer.slab_words(block_s)
-    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, (0, 3), *t))
+    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, *t))
 
     def fwd(chain_stack, votes_stack, tile_stack, lit_words):
         pieces = place(chain_stack, votes_stack, tile_stack)
@@ -361,7 +386,7 @@ def sharded_factorized_forward_fn(mesh, *, block_t: int, block_c: int,
     oracle, _ = _engine_dispatch(engine, use_kernel,
                                  allowed=("auto", "factorized", "oracle"))
     sparse_infer.slab_words(block_s)
-    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, (2, 5), *t))
+    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, *t))
 
     def fwd(term_stack, chain_stack, votes_stack, tile_stack, lit_words):
         pieces = place(term_stack, chain_stack, votes_stack, tile_stack)
@@ -458,7 +483,7 @@ def sharded_train_step_fn(config: tm.TMConfig, mesh,
         for d, m, dev in shards:
             grid[d][m] = ta[m * C_loc:(m + 1) * C_loc,
                             d * L_loc:(d + 1) * L_loc].to(dev).contiguous()
-        new = ops.tm_train_step_matmul_local(
+        new, _ = ops.tm_train_step_matmul_local(
             config, grid, [x[d * B_loc:(d + 1) * B_loc] for d in range(n_data)],
             [y[d * B_loc:(d + 1) * B_loc] for d in range(n_data)], seed)
         return torch.cat([torch.cat([new[d][m].to(ta.device) for d in range(n_data)], 1)

@@ -652,6 +652,19 @@ def _binomial_approx(n: torch.Tensor, p: float, gidx: torch.Tensor,
     return torch.minimum(torch.clamp(torch.round(s), min=0.0), nf).to(torch.int32)
 
 
+def psum(parts, device) -> torch.Tensor:
+    """The exact sum of per-shard partial results on ``device``, the
+    reference's ``psum``: the mesh's one collective.  A lone part comes
+    back as it is (moved, not copied); callers never write the result in
+    place, so no shard's tensor is changed."""
+    out = parts[0].to(device)
+    if len(parts) > 1:
+        out = out.clone()
+        for p in parts[1:]:
+            out += p.to(device)
+    return out
+
+
 def tm_train_step_matmul(config, ta_state: torch.Tensor, x: torch.Tensor,
                          y: torch.Tensor, seed: int):
     """Batch TM training as three 0/1 matrix products and (C, L)
@@ -664,50 +677,23 @@ def tm_train_step_matmul(config, ta_state: torch.Tensor, x: torch.Tensor,
     automata.  ``M1f``, ``M1n`` and ``M2`` are the (B, C) feedback masks of
     the hash-RNG feedback plan, and clause evaluation is the violation
     count ``include @ (1 - lit)^T``.  Memory is O(BC + BL + CL): no (B, C,
-    L) field exists.
+    L) field exists.  It is :func:`tm_train_step_matmul_local` on a grid of
+    one shard.
 
     The products are float32 ``torch.matmul`` of 0/1 matrices: exact
     counts, with or without TF32, whose 10-bit mantissa holds 0 and 1 and
     whose products accumulate in float32 (counts stay far below 2**24).
     """
-    from repro_torch.core import tm
-
-    if not config.boost_true_positive:
-        raise ValueError("tm_train_step_matmul assumes boost_true_positive "
-                         "(p_act = 1)")
-    dev = ta_state.device
-    C, L = ta_state.shape
-    lit_f = tm.literals(x.to(dev)).to(torch.float32)            # (B, L)
-    off_f = 1.0 - lit_f
-    inc = (ta_state >= 0).to(torch.float32)                      # (C, L)
-    fire = (inc @ off_f.T).T < 0.5                               # (B, C)
-    ftype, _ = feedback_plan(
-        fire.to(torch.uint8), y.to(device=dev, dtype=torch.int32),
-        tm.vote_matrix(config, dev), tm.clause_class(config, dev),
-        tm.polarity(config, dev), config.threshold, seed)
-
-    f1 = ftype == 1
-    m1f = (f1 & fire).to(torch.float32)
-    m1n = (f1 & ~fire).to(torch.float32)
-    m2 = ((ftype == 2) & fire).to(torch.float32)
-    A = m1f.T @ lit_f                                            # reward counts
-    n1 = m1f.T @ off_f + m1n.sum(0)[:, None]
-    n2 = m2.T @ off_f
-    gidx = (torch.arange(C, dtype=torch.int64, device=dev)[:, None] * L
-            + torch.arange(L, dtype=torch.int64, device=dev)[None, :]) & M32
-    pen = _binomial_approx(n1, 1.0 / config.s, gidx, (int(seed) ^ 0x27D4EB2F) & M32)
-    excl = (ta_state < 0).to(torch.int32)
-    delta = A.to(torch.int32) - pen + n2.to(torch.int32) * excl
-    new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
-                         config.n_states - 1).to(torch.int8)
-    return new_ta, delta
+    new, delta = tm_train_step_matmul_local(config, [[ta_state]], [x], [y], seed)
+    return new[0][0], delta[0][0]
 
 
 def tm_train_step_matmul_local(config, ta_grid, x_loc, y_loc, seed):
-    """The matmul step on a (data, model) grid of dual-axis shards -> the
-    grid of new shards, equal to :func:`tm_train_step_matmul` on the whole
-    bank bit for bit (every count is an exact float32 integer and every
-    draw is indexed by global (clause, literal) and sample ids).
+    """The matmul step on a (data, model) grid of dual-axis shards ->
+    ``(new, delta)``, grids of the new (C_loc, L_loc) int8 shards and their
+    int32 deltas, equal to the step on the whole bank bit for bit (every
+    count is an exact float32 integer and every draw is indexed by global
+    (clause, literal) and sample ids).
 
     ``ta_grid[d][m]`` is the (C_loc, L_loc) int8 shard of clause block
     ``m`` and literal block ``d``, on its shard's device; ``x_loc[d]`` and
@@ -722,10 +708,9 @@ def tm_train_step_matmul_local(config, ta_grid, x_loc, y_loc, seed):
       5. the penalty draws and the clamped update of each shard.
     """
     from repro_torch.core import tm
-    from repro_torch.core.sharding import psum
 
     if not config.boost_true_positive:
-        raise ValueError("tm_train_step_matmul_local assumes boost_true_positive "
+        raise ValueError("tm_train_step_matmul assumes boost_true_positive "
                          "(p_act = 1)")
     n_data, n_model = len(ta_grid), len(ta_grid[0])
     C_loc, L_loc = ta_grid[0][0].shape
@@ -740,16 +725,17 @@ def tm_train_step_matmul_local(config, ta_grid, x_loc, y_loc, seed):
     st = {}
     for d, m in grid:                                         # phases 1 and 2
         dev = ta_grid[d][m].device
-        ta_full = torch.cat([ta_grid[e][m].to(dev) for e in range(n_data)], dim=1)
+        ta_full = (ta_grid[d][m] if n_data == 1 else
+                   torch.cat([ta_grid[e][m].to(dev) for e in range(n_data)], dim=1))
         lit_f = tm.literals(x_loc[d].to(dev)).to(torch.float32)   # (B_loc, L)
         off_f = 1.0 - lit_f
         fire = ((ta_full >= 0).to(torch.float32) @ off_f.T).T < 0.5
         fire_u8 = fire.to(torch.uint8)
+        votes = meta(tm.vote_matrix, m, dev)
         st[d, m] = dict(dev=dev, lit_f=lit_f, off_f=off_f, fire=fire, fire_u8=fire_u8,
-                        sums=class_sums(fire_u8, meta(tm.vote_matrix, m, dev)))
+                        votes=votes, sums=class_sums(fire_u8, votes))
     for d in range(n_data):                                   # sum over model
-        total = psum([st[d, m]["sums"] for m in range(n_model)],
-                           st[d, 0]["dev"])
+        total = psum([st[d, m]["sums"] for m in range(n_model)], st[d, 0]["dev"])
         for m in range(n_model):
             st[d, m]["sums"] = torch.clamp(total.to(st[d, m]["dev"]), -T, T)
     for d, m in grid:                                         # phase 3
@@ -757,29 +743,30 @@ def tm_train_step_matmul_local(config, ta_grid, x_loc, y_loc, seed):
         dev = s["dev"]
         ftype, _ = feedback_plan(
             s["fire_u8"], y_loc[d].to(device=dev, dtype=torch.int32),
-            meta(tm.vote_matrix, m, dev), meta(tm.clause_class, m, dev),
+            s["votes"], meta(tm.clause_class, m, dev),
             meta(tm.polarity, m, dev), T, seed, b_offset=d * B_loc,
             c_offset=m * C_loc, sums=s["sums"])
         f1 = ftype == 1
         m1f = (f1 & s["fire"]).to(torch.float32)
         m1n = (f1 & ~s["fire"]).to(torch.float32)
         m2 = ((ftype == 2) & s["fire"]).to(torch.float32)
-        s["counts"] = torch.stack([m1f.T @ s["lit_f"],
-                                   m1f.T @ s["off_f"] + m1n.sum(0)[:, None],
-                                   m2.T @ s["off_f"]])        # (3, C_loc, L)
+        s["counts"] = (m1f.T @ s["lit_f"],                     # reward counts
+                       m1f.T @ s["off_f"] + m1n.sum(0)[:, None],
+                       m2.T @ s["off_f"])                      # 3 x (C_loc, L)
     new = [[None] * n_model for _ in range(n_data)]
+    delta = [[None] * n_model for _ in range(n_data)]
     for d, m in grid:                                         # phases 4 and 5
         ta_loc = ta_grid[d][m]
         dev = ta_loc.device
         lo = d * L_loc
-        A, n1, n2 = psum([st[e, m]["counts"][:, :, lo:lo + L_loc]
-                                for e in range(n_data)], dev)
-        c_idx = torch.arange(C_loc, dtype=torch.int64, device=dev) + m * C_loc
-        l_idx = torch.arange(L_loc, dtype=torch.int64, device=dev) + lo
+        A, n1, n2 = (psum([st[e, m]["counts"][k][:, lo:lo + L_loc]
+                           for e in range(n_data)], dev) for k in range(3))
+        c_idx = torch.arange(m * C_loc, (m + 1) * C_loc, dtype=torch.int64, device=dev)
+        l_idx = torch.arange(lo, lo + L_loc, dtype=torch.int64, device=dev)
         gidx = (c_idx[:, None] * L + l_idx[None, :]) & M32
         pen = _binomial_approx(n1, 1.0 / config.s, gidx, (int(seed) ^ 0x27D4EB2F) & M32)
         excl = (ta_loc < 0).to(torch.int32)
-        delta = A.to(torch.int32) - pen + n2.to(torch.int32) * excl
-        new[d][m] = torch.clamp(ta_loc.to(torch.int32) + delta, -config.n_states,
+        delta[d][m] = A.to(torch.int32) - pen + n2.to(torch.int32) * excl
+        new[d][m] = torch.clamp(ta_loc.to(torch.int32) + delta[d][m], -config.n_states,
                                 config.n_states - 1).to(torch.int8)
-    return new
+    return new, delta

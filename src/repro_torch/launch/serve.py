@@ -300,13 +300,9 @@ def serve_tm(args) -> tuple[dict, dict, dict | None, np.ndarray]:
                   f"sharded over model={n_model} ({C_loc}/shard, "
                   f"{stacks[2].shape[-1]} chain tiles/shard)")
         else:
-            Up = -(-U // n_model) * n_model
+            stacks = tm_sharding.stack_shard_dense(art.include_words, art.votes, n_model)
+            Up = stacks[0].shape[0]
             blocks = tuned_blocks(art, Up // n_model)
-            # zero include words never violate: the padding clauses fire but
-            # carry zero votes, so the class sums are unchanged
-            stacks = [np.pad(art.include_words, ((0, Up - U), (0, 0))).view(np.int32),
-                      np.pad(art.votes, ((0, Up - U), (0, 0))).astype(np.int32),
-                      np.ones((Up,), np.int32)]
             fwd = tm_sharding.sharded_forward_fn(mesh, blocks=blocks or None)
             print(f"mesh {dict(mesh.shape)}: {Up} unique clauses sharded "
                   f"over model={n_model} ({Up // n_model}/shard)")

@@ -966,14 +966,9 @@ def test_cuda_sharded_forward_equals_unsharded(card_mesh, cuda_device, spec):
                                                     block_c=8, block_j=8)
     ss, *sst, _ = sparse_infer.stack_shard_schedules(comp.include_words, comp.votes, n,
                                                      block_c=8, block_j=8)
-    real = [int(sparse_infer.tile_indptr(sst[2][s, 0], sst[2][s, 3],
-                                         sst[0].shape[1] // 8)[-1]) for s in range(n)]
+    real = sharding.real_tiles(sst[2], sst[0].shape[1], 8)
     assert min(real) < sst[2].shape[-1], real          # a shard carries padding
-    U = comp.n_unique
-    Up = -(-U // n) * n
-    dense = [np.pad(comp.include_words, ((0, Up - U), (0, 0))).view(np.int32),
-             np.pad(comp.votes, ((0, Up - U), (0, 0))).astype(np.int32),
-             np.ones(Up, np.int32)]
+    dense = sharding.stack_shard_dense(comp.include_words, comp.votes, n)
     cases = [
         (term_infer, sharding.sharded_factorized_forward_fn(
             mesh, block_t=fs[0].block_t, block_c=fs[0].block_c, block_j=fs[0].block_j),

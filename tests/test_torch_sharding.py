@@ -246,12 +246,7 @@ def test_padded_shards_fold_nothing(forced, n):
 
     fs, *fstacks, _ = term_infer.stack_shard_factorized(art.include_words, art.votes, n)
     tiles = fstacks[3]
-    real = []
-    for s in range(n):
-        ntt = int((tiles[s, 0] == 0).sum())
-        ip = sparse_infer.tile_indptr(tiles[s, 2], tiles[s, 5],
-                                      fstacks[1].shape[1] // fs[0].block_c, ntt)
-        real.append(ntt + int(ip[-1]))
+    real = sharding.real_tiles(tiles, fstacks[1].shape[1], fs[0].block_c)
     assert len(set(real)) > 1 and min(real) < tiles.shape[-1], real
     fwd = sharding.sharded_factorized_forward_fn(
         mesh, block_t=fs[0].block_t, block_c=fs[0].block_c, block_j=fs[0].block_j)
@@ -261,6 +256,29 @@ def test_padded_shards_fold_nothing(forced, n):
     fwd = sharding.sharded_schedule_forward_fn(mesh, block_c=ss[0].block_c,
                                                block_j=ss[0].block_j)
     _eq(want, fwd(*(torch.from_numpy(a) for a in sstacks), xw))
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_stack_shard_dense_pads_with_silent_clauses(forced, n):
+    """The dense mesh rung's tables: U rows padded up to a multiple of n
+    with zero include words, zero votes and nonempty 1, and the sharded
+    dense forward over them equals the unsharded oracle."""
+    art = _artifact("tiny")
+    U = art.n_unique
+    inc, votes, ne = sharding.stack_shard_dense(art.include_words, art.votes, n)
+    Up = -(-U // n) * n
+    assert inc.shape[0] == votes.shape[0] == ne.shape[0] == Up
+    assert inc.dtype == votes.dtype == ne.dtype == np.int32
+    _eq(art.include_words.view(np.int32), inc[:U])
+    assert not inc[U:].any() and not votes[U:].any() and ne.all()
+    mesh = mesh_mod.make_mesh({"model": n}, "cpu")
+    X = np.random.default_rng(4).integers(0, 2, (16, art.n_features),
+                                          dtype=np.uint8)
+    xp = packetizer.pack_literals(torch.from_numpy(X))
+    xw = xp[:, art.tensors("cpu")["word_ids"]]
+    got = sharding.sharded_forward_fn(mesh)(
+        *(torch.from_numpy(a) for a in (inc, votes, ne)), xw)
+    _eq(compiler.run_compiled(art, xp, engine="oracle"), got)
 
 
 def test_tile_indptr_drops_padding_and_checks_order():
