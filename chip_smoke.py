@@ -52,6 +52,14 @@ AUTOTUNE phase (``autotune_phase``) holds every candidate launch of the
 four tuned kernels to its plain version, sweeps them in a fresh cache,
 refits the ``torch-cuda`` cost model, and drives ``serve_tm --autotune``
 under every policy, a zoo cold load and ``train_tm --autotune``.  The
+LM_TRAIN phase (``lm_train_phase``, after the LM serve phase) holds the
+flash kernel's ``lse`` variant to its plain version on layer 0's training
+inputs and one bf16 smoke training step through the kernel route to the
+plain route, then drives ``train_lm`` on tinyllama-1.1b at full width (5
+steps of 4 x 1024; 2 x 22 tensor-core flash launches a step, the forward
+and the remat recompute), holds its step 1 to the plain route's, profiles
+a step's device time by part, and trains pixtral-12b and musicgen-large
+at full width with 2 layers.  The
 MESH phase (``mesh_phase``) lays ``MESH_DEVICES`` logical devices over the
 card and holds the clause-sharded forwards (padded tile tables included),
 training steps, ``fit(mesh=)``, ``train_tm --mesh`` and ``serve_tm
@@ -61,7 +69,8 @@ Prints the card's name and power limit, a
 time, plain-version time, library time (event and device) and bound
 (device times: the median of ``WINDOWS`` profiler windows, with their
 min-max spread; ``fused_infer``'s row also holds its ``train_*`` fields,
-its launch in a fused training step), and as its last line
+its launch in a fused training step, and ``flash_attention``'s the lse
+variant's in ``train_lm``), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, when the port's sources are missing, or when
 any phase fails.  Imports nothing of JAX or of the reference package.
@@ -167,6 +176,28 @@ FLASH_F32_ATOL = 2e-5
 # the bf16 kernel at hd 128, the head width of qwen3-32b and starcoder2-7b:
 # qwen3-32b's attention (64 query heads over 8 kv heads), 4 prompts of 2048
 FLASH_HD128 = dict(B=4, S=2048, H=64, KH=8, hd=128)
+# LM_TRAIN: train_lm on tinyllama-1.1b at full width (22 layers, d 2048, hd
+# 64, bf16, seed 0), 5 AdamW steps of 4 x 1024 tokens (the cut is depth of
+# training); then the stub frontend and the codebook heads at full width
+# with the depth cut to LM_TRAIN_CUT_LAYERS, 2 steps of 2 x 1024 each
+LM_TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--device", "cuda", "--steps", "5",
+                 "--batch-size", "4", "--seq-len", "1024"]
+LM_TRAIN_CUT_ARCHS = ("pixtral-12b", "musicgen-large")
+LM_TRAIN_CUT_LAYERS = 2
+LM_TRAIN_CUT_ARGV = ["--device", "cuda", "--steps", "2", "--batch-size", "2",
+                     "--seq-len", "1024"]
+# the flash kernel's lse against its plain version's, bf16 inputs: both sum
+# the float32 scores and l in other orders, the kernel with ex2.approx
+# (relative error under 2^-22), a few float32 units of lse; 1e-3 is ample
+LSE_BF16_ATOL = 1e-3
+# the kernel and plain routes of a bf16 training step round p and the
+# attention output to bf16 at different points (flash_tolerance: 2^-7 of
+# the scale): the loss is held to 2^-7 of itself, each gradient leaf's
+# norm and the global norm, which sum such differences through the
+# backward, to 2^-4 of the plain route's
+LM_TRAIN_LOSS_RTOL = 2 ** -7
+LM_ROUTE_GRAD_RTOL = 2 ** -4
+GEMM_RE = r"gemm|nvjet|xmma|cutlass|cublas|matmul"
 
 
 def fail(msg: str) -> None:
@@ -1253,7 +1284,7 @@ def split_device_time(us) -> dict:
     for name, (u, _) in us.items():
         if "flash_fwd_" in name:
             out["flash"] += u
-        elif re.search(r"gemm|nvjet|xmma|cutlass|cublas|matmul", name, re.I):
+        elif re.search(GEMM_RE, name, re.I):
             out["gemm"] += u
         else:
             out["rest"] += u
@@ -1416,6 +1447,233 @@ def lm_phase(dev) -> dict:
                 sass_tensor_mma=sum(mma[fn] for fn in tc_fns), max_abs_err=err,
                 tolerance=tol, max_elem_tolerance_share=share, f32_max_abs_err=err32,
                 f32_tolerance=FLASH_F32_ATOL)
+
+
+@contextlib.contextmanager
+def plain_flash(fa):
+    """The flash kernel's plain version in its place (serving and the
+    training VJP's forward both call ``fa.flash_forward``)."""
+    kernel_fn = fa.flash_forward
+    fa.flash_forward = fa.flash_forward_plain
+    try:
+        yield
+    finally:
+        fa.flash_forward = kernel_fn
+
+
+def train_device_split(prof) -> dict:
+    """A profiled training step's device time (ms) by part: the flash
+    forward kernel, the flash backward's tile ops (everything launched under
+    ``attention.BACKWARD_RANGE``), the optimizer (under
+    ``adamw.UPDATE_RANGE``), the other GEMMs, the rest; and the launches."""
+    from repro_torch.models import attention
+    from repro_torch.optim import adamw
+
+    ranges = {attention.BACKWARD_RANGE: "flash_backward", adamw.UPDATE_RANGE: "optimizer"}
+    us = dict(flash_forward=0.0, flash_backward=0.0, optimizer=0.0, gemm=0.0, rest=0.0)
+    n = 0
+
+    def walk(ev, part):
+        nonlocal n
+        part = ranges.get(ev.name, part)
+        for k in ev.kernels:
+            n += 1
+            if "flash_fwd_" in k.name:
+                us["flash_forward"] += k.duration
+            elif part:
+                us[part] += k.duration
+            elif re.search(GEMM_RE, k.name, re.I):
+                us["gemm"] += k.duration
+            else:
+                us["rest"] += k.duration
+        for ch in ev.cpu_children:
+            walk(ch, part)
+
+    for ev in prof.events():
+        if str(ev.device_type).endswith("CPU") and ev.cpu_parent is None:
+            walk(ev, None)
+    return dict({k: u / 1e3 for k, u in us.items()}, launches=n)
+
+
+def lm_train_phase(dev, card: str) -> dict:
+    """LM_TRAIN: the flash kernel's lse variant against its plain version
+    on layer 0's training inputs; one bf16 smoke step through the kernel
+    and the plain route; ``train_lm`` on tinyllama-1.1b at full width
+    (counts zeroed around it; 2 x 22 wgmma launches a step), its step 1
+    against the plain route's, a profiled step's device split; pixtral-12b
+    and musicgen-large at full width, 2 layers.  Returns the flash row's
+    ``train_*`` fields."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models import attention, layers, steps, transformer
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    args = train.build_parser().parse_args(LM_TRAIN_ARGV)
+    cfg = get_config(args.arch)
+    B, S, L = args.batch_size, args.seq_len, cfg.n_layers
+
+    # 1. layer 0's inputs in train_lm's first step (its weights, its batch)
+    model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = train.lm_batch(cfg, np.random.default_rng(args.seed), B, S)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    with torch.no_grad():
+        blk = model.blocks[0]
+        h = layers.rms_norm(model.embed[tokens], blk.norm1, cfg.norm_eps)
+        q, k, v = (t.contiguous() for t in attention._project_qkv(cfg, blk.mix, h, positions))
+    del model, h
+    out, lse = fa.flash_forward_cuda(q, k, v, return_lse=True)
+    serve_out = fa.flash_forward_cuda(q, k, v)
+    want, want_lse = fa.flash_forward_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    err, tol = float(diff.max()), flash_tolerance(v.float(), want.float())
+    share = float((diff / flash_elem_tolerance(fa, q, k, v, want.float()).clamp(min=1e-30)).max())
+    lse_err = float((lse - want_lse).abs().max())
+    check(err <= tol and share <= 1, f"flash lse variant bf16 q {tuple(q.shape)}: out differs "
+          f"from the plain version by {err} (tolerance {tol}), element share {share}")
+    check(lse_err <= LSE_BF16_ATOL, f"flash lse differs from the plain version's by {lse_err} "
+          f"> {LSE_BF16_ATOL}")
+    check(torch.equal(out, serve_out), "the lse pointer changed the kernel's output")
+    row = dict(train_shape=dict(q=list(q.shape), k=list(k.shape)), train_max_abs_err=err,
+               train_tolerance=tol, train_max_elem_tolerance_share=share,
+               train_lse_max_abs_err=lse_err, train_lse_tolerance=LSE_BF16_ATOL)
+    row.update(profile_device(lambda: fa.flash_forward_cuda(q, k, v, return_lse=True),
+                              key="train_lse_device_ms")[0])
+    row.update(profile_device(lambda: fa.flash_forward_cuda(q, k, v),
+                              key="train_serve_variant_device_ms")[0])
+    flops = 4 * B * cfg.n_heads * q.shape[-1] * S * (S + 1) // 2
+    # q, k, v read once; out and lse written once
+    row["train_bound_ms"], row["train_bound_by"] = bound(
+        nbytes(q, k, v) + nbytes(q) + nbytes(lse), flops / BF16_FLOPS_PER_S * 1e3)
+    print(f"flash_attention lse variant == plain version on layer 0's training inputs: q "
+          f"{tuple(q.shape)} out max_abs_err {err} (tolerance {tol}; element share "
+          f"{share}); lse {lse_err} (tolerance {LSE_BF16_ATOL}); output equal to the "
+          "launch without lse")
+    del q, k, v, out, lse, serve_out, want, want_lse, diff
+
+    # 2. one bf16 smoke step through the kernel route and the plain route
+    scfg = dataclasses.replace(get_smoke_config(args.arch), dtype="bfloat16")
+    sbatch = {kk: torch.from_numpy(a).to(dev)
+              for kk, a in train.lm_batch(scfg, np.random.default_rng(0), 4, 256).items()}
+
+    def smoke_step():
+        m = transformer.init_params(scfg, torch.Generator(device=dev).manual_seed(0), dev)
+        params = list(m.parameters())
+        loss = transformer.loss_fn(scfg, m, sbatch)
+        grads = torch.autograd.grad(loss, params)
+        _, info = adamw.adamw_update(adamw.AdamWConfig(), grads, params,
+                                     adamw.adamw_init(params))
+        return (float(loss), [float(g.float().norm()) for g in grads],
+                float(info["grad_norm"]))
+
+    n0 = fa.launches_wgmma
+    k_loss, k_norms, k_gn = smoke_step()
+    smoke_launches = fa.launches_wgmma - n0
+    n0 = fa.launches
+    with plain_flash(fa):
+        p_loss, p_norms, p_gn = smoke_step()
+    check(fa.launches == n0, "the plain route launched the flash kernel")
+    leaf_rel = max(abs(a - b) / max(b, 1e-30) for a, b in zip(k_norms, p_norms))
+    route = dict(smoke=scfg.name, dtype="bfloat16", batch=[4, 256],
+                 wgmma_launches=smoke_launches, loss=[k_loss, p_loss],
+                 loss_rtol=LM_TRAIN_LOSS_RTOL, grad_norm=[k_gn, p_gn],
+                 leaf_norm_max_rel_diff=leaf_rel, grad_rtol=LM_ROUTE_GRAD_RTOL)
+    check(smoke_launches == 2 * scfg.n_layers, f"the smoke step launched the bf16 flash "
+          f"kernel {smoke_launches} times for {scfg.n_layers} layers")
+    check(abs(k_loss - p_loss) <= LM_TRAIN_LOSS_RTOL * abs(p_loss)
+          and abs(k_gn - p_gn) <= LM_ROUTE_GRAD_RTOL * p_gn and leaf_rel <= LM_ROUTE_GRAD_RTOL,
+          f"kernel and plain routes of a bf16 smoke step disagree: {route}")
+
+    # 3. the slice at full width through train_lm, counts zeroed around it
+    fa.launches = fa.launches_wgmma = fa.launches_simt = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.train_lm(args)
+    train_s = time.perf_counter() - t0
+    launches, launches_wgmma, launches_simt = fa.launches, fa.launches_wgmma, fa.launches_simt
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(res["flash_launches"] == [2 * L] * args.steps,
+          f"train_lm launched the flash kernel {res['flash_launches']} times a step for "
+          f"{L} layers (forward and remat recompute: {2 * L})")
+    check(launches == launches_wgmma == 2 * L * args.steps and launches_simt == 0,
+          f"train_lm's flash launches: {launches} ({launches_wgmma} tensor-core, "
+          f"{launches_simt} CUDA-core)")
+    check(all(np.isfinite(res["losses"])) and all(np.isfinite(res["grad_norms"])),
+          f"train_lm losses {res['losses']}, grad norms {res['grad_norms']}")
+    step_ms = statistics.median(res["step_event_ms"][1:])
+
+    # a profiled step on the trained model, a fresh batch
+    model, opt = res.pop("model"), res.pop("opt_state")
+    step_fn = steps.make_train_step(cfg)
+    pb = {kk: torch.from_numpy(a).to(dev)
+          for kk, a in train.lm_batch(cfg, np.random.default_rng(1), B, S).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, info = step_fn(model, opt, pb)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(info["loss"])), "the profiled step's loss is not finite")
+    del model, opt, info, pb
+    split = train_device_split(prof)
+    busy_ms = sum(split[kk] for kk in ("flash_forward", "flash_backward", "optimizer",
+                                       "gemm", "rest"))
+    split_rows = dict(wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
+                      idle_share=1 - busy_ms / prof_wall_ms if busy_ms else None,
+                      split_ms=split)
+
+    # step 1 through the plain route, the same weights and batch
+    pargs = train.build_parser().parse_args(LM_TRAIN_ARGV + ["--steps", "1"])
+    n0 = fa.launches
+    with plain_flash(fa):
+        plain = train.train_lm(pargs)
+    check(fa.launches == n0, "the plain route launched the flash kernel")
+    plain.pop("model"), plain.pop("opt_state")
+    check(abs(res["losses"][0] - plain["losses"][0]) <= LM_TRAIN_LOSS_RTOL * abs(plain["losses"][0]),
+          f"train_lm step 1 loss {res['losses'][0]} against the plain route's "
+          f"{plain['losses'][0]} (rtol {LM_TRAIN_LOSS_RTOL})")
+
+    # 4. the stub frontend and the codebook heads at full width, depth cut
+    cut = {}
+    for arch in LM_TRAIN_CUT_ARCHS:
+        ccfg = dataclasses.replace(get_config(arch), n_layers=LM_TRAIN_CUT_LAYERS)
+        cargs = train.build_parser().parse_args(["--arch", arch, *LM_TRAIN_CUT_ARGV])
+        n0, w0 = fa.launches, fa.launches_wgmma
+        torch.cuda.reset_peak_memory_stats()
+        r = train.train_lm(cargs, cfg=ccfg)
+        r.pop("model"), r.pop("opt_state")
+        n = 2 * ccfg.n_layers
+        check(r["flash_launches"] == [n] * cargs.steps
+              and fa.launches - n0 == fa.launches_wgmma - w0 == n * cargs.steps,
+              f"{arch}: flash launches {r['flash_launches']} a step, expected {n}")
+        check(all(np.isfinite(r["losses"])), f"{arch}: losses {r['losses']}")
+        cut[arch] = dict(n_layers=ccfg.n_layers, frontend=ccfg.frontend,
+                         n_codebooks=ccfg.n_codebooks, batch=[cargs.batch_size, cargs.seq_len],
+                         losses=r["losses"], grad_norms=r["grad_norms"],
+                         step_event_ms=r["step_event_ms"], flash_launches_per_step=n,
+                         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    print("LM_TRAIN " + json.dumps(dict(
+        card=card, arch=cfg.name, n_layers=L, batch=[B, S], steps=args.steps,
+        losses=res["losses"], grad_norms=res["grad_norms"], lrs=res["lrs"],
+        step_event_ms=res["step_event_ms"], step_wall_s=res["step_s"],
+        step_ms_median_2_to_5=step_ms, tokens_per_s=B * S / (step_ms / 1e3),
+        peak_memory_gb=peak_gb, flash_launches_per_step=2 * L, wgmma_launches=launches_wgmma,
+        plain_route_step1_loss=plain["losses"][0], loss_rtol=LM_TRAIN_LOSS_RTOL,
+        route_check=route, profiled_step=split_rows, train_lm_s=train_s, cut=cut,
+        phase_s=time.perf_counter() - t_phase)))
+    row["train_launches_per_step"] = 2 * L
+    return row
 
 
 def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
@@ -2308,6 +2566,9 @@ def main() -> None:
     # 9. the BNN baseline and the LM serving path
     extra_rows = {"xnor_popcount": (BNN_KERNEL, bnn_phase(dev)),
                   "flash_attention": (FLASH_KERNEL, lm_phase(dev))}
+
+    # 9b. the LM training path (LM_TRAIN): the flash row's train_* fields
+    extra_rows["flash_attention"][1].update(lm_train_phase(dev, card))
 
     # 10. the autotuner and its cost model (AUTOTUNE)
     autotune_phase(dev, compiled, xp_all, xw_all)

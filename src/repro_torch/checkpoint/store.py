@@ -6,7 +6,11 @@ compressed array per key) beside ``manifest.json`` (step, structure,
 array count and the caller's ``extra`` dict).
 
   * **flat dicts**: a checkpoint holds ``{key: tensor or ndarray}``; the
-    reference's ``{"ta": bank}`` pytree flattens to the same key ``ta``;
+    reference's ``{"ta": bank}`` pytree flattens to the same key ``ta``,
+    and its LM ``{"params": tree}`` to ``params/groups/0/0/mix/wq`` and
+    the like (the reference joins a leaf's path with ``/``);
+  * **bf16** is written as the reference writes it, numpy's 2-byte void
+    (numpy has no bfloat16), and restored into a bf16 target bit for bit;
   * **atomic**: written to ``step_<n>.tmp`` then renamed, so a writer
     killed mid-save never corrupts the latest checkpoint, and a manager
     removes such ``.tmp`` debris when it opens the directory;
@@ -48,12 +52,23 @@ def _step_of(name: str) -> Optional[int]:
 def _to_host(arrays: dict) -> dict:
     out = {}
     for k, v in arrays.items():
-        if not isinstance(k, str) or "/" in k:
-            raise ValueError(f"checkpoint keys are flat strings, got {k!r}")
-        # a copy, so an async write never sees a later in-place update
-        out[k] = (v.detach().to("cpu", copy=True).numpy()
-                  if isinstance(v, torch.Tensor) else np.array(v))
+        if not isinstance(k, str):
+            raise ValueError(f"checkpoint keys are strings, got {k!r}")
+        if isinstance(v, torch.Tensor):
+            # a copy, so an async write never sees a later in-place update
+            v = v.detach().to("cpu", copy=True)
+            out[k] = (v.view(torch.int16).numpy().view("V2")
+                      if v.dtype == torch.bfloat16 else v.numpy())
+        else:
+            out[k] = np.array(v)
     return out
+
+
+def _from_host(host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    host = np.ascontiguousarray(host)
+    if dtype == torch.bfloat16 and host.dtype.kind == "V" and host.dtype.itemsize == 2:
+        return torch.from_numpy(host.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(host).to(dtype=dtype)
 
 
 def save_checkpoint(directory: str, step: int, arrays: dict,
@@ -109,7 +124,7 @@ def load_checkpoint(directory: str, target: dict, *,
             host = z[key]
             shd = (shardings or {}).get(key)
             if isinstance(like, torch.Tensor):
-                t = torch.from_numpy(np.ascontiguousarray(host)).to(dtype=like.dtype)
+                t = _from_host(host, like.dtype)
                 out[key] = t.to(like.device) if shd is None else shd.place(t)
             else:
                 out[key] = host if shd is None else shd.place(host)

@@ -12,6 +12,12 @@
 // H / KH times less kv traffic.  The TPU grid's sequential kv axis is the
 // loop over kv tiles inside one CUDA block.
 //
+// Training also takes each row's log-sum-exp, lse (B, S, H) float32 =
+// (the row's max scaled score) + log(max(l, 1e-30)), the residual of the
+// recomputing backward (repro/models/attention.py:_flash_fwd): both kernels
+// write it from the epilogue's m and l when the lse pointer is not null,
+// and skip it when it is (serving).
+//
 // Bounds on the H100: at the tinyllama prefill (B 16, S = T 1024, H 32,
 // hd 64) the causal products are 68.8 GFLOP against ~151 MB of q, k, v and
 // o, so the dense bf16 tensor-core rate (989 TFLOP/s) bounds it: 0.070 ms.
@@ -77,9 +83,9 @@ constexpr size_t simt_smem_bytes() {
 template <int HDP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o, int s_len,
-                      int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-                      float scale) {
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int s_len, int t_len, int n_heads,
+                      int n_kv_heads, int hd, int causal, float scale) {
   constexpr int LD = HDP + 1;
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
@@ -185,11 +191,14 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = quad + 4 * j;
       if (d < hd) ob[d] = acc[j] / denom;
     }
+    // the row's log-sum-exp for the backward: m is in scaled units here
+    if (lse != nullptr && quad == 0)
+      lse[(static_cast<size_t>(b) * s_len + qrow) * n_heads + h] = m + logf(denom);
   }
 }
 
 template <int HDP>
-int launch_simt(const void* q, const void* k, const void* v, void* o, dim3 grid,
+int launch_simt(const void* q, const void* k, const void* v, void* o, void* lse, dim3 grid,
                 int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
                 float scale, cudaStream_t stream) {
   constexpr size_t smem = simt_smem_bytes<HDP>();
@@ -199,8 +208,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, dim3 grid,
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_fwd_simt_kernel<HDP><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s_len, t_len, n_heads,
-      n_kv_heads, hd, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), s_len,
+      t_len, n_heads, n_kv_heads, hd, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -499,9 +508,9 @@ __device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2])
 template <int HDP>
 __global__ void __launch_bounds__(kTcThreads, TcTile<HDP>::MIN_BLOCKS)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, int s_len,
-                       int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-                       float scale, int vec16) {
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int s_len, int t_len, int n_heads,
+                       int n_kv_heads, int hd, int causal, float scale, int vec16) {
   using T = TcTile<HDP>;
   constexpr int BQ = kTcBQ, BK = kTcBK, CPR = HDP / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -594,6 +603,15 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // o = acc / max(l, 1e-30) as bf16, staged in the warp's own 16 x HDP
   // slice of the q tile (chunk c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8)
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  // the rows' log-sum-exp for the backward: m is in raw-dot units and l the
+  // natural-base sum, so lse = m * scale + log(l); the quad shares m and l
+  if (lse != nullptr && tq == 0) {
+    if (row0 < s_len)
+      lse[(static_cast<size_t>(b) * s_len + row0) * n_heads + h] = fmaf(m[0], scale, logf(d0));
+    if (row0 + 8 < s_len)
+      lse[(static_cast<size_t>(b) * s_len + row0 + 8) * n_heads + h] =
+          fmaf(m[1], scale, logf(d1));
+  }
   bf16* os = qs + wrow * HDP;
 #pragma unroll
   for (int n = 0; n < HDP / 8; ++n) {
@@ -622,7 +640,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HDP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b_total,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b_total,
                  int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
                  float scale, int vec16, cudaStream_t stream) {
   using T = TcTile<HDP>;
@@ -634,8 +652,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b_tot
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_fwd_wgmma_kernel<HDP><<<grid, kTcThreads, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), s_len, t_len, n_heads,
-      n_kv_heads, hd, causal, scale, vec16);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), s_len,
+      t_len, n_heads, n_kv_heads, hd, causal, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,7 +665,7 @@ bool bad_shape(int hd, int t_len, int n_heads, int n_kv_heads) {
 
 // float32 on the CUDA cores
 extern "C" int flash_forward_simt_launch(const void* q, const void* k, const void* v,
-                                         void* o, int b_total, int s_len, int t_len,
+                                         void* o, void* lse, int b_total, int s_len, int t_len,
                                          int n_heads, int n_kv_heads, int hd,
                                          int causal, float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
@@ -657,18 +675,18 @@ extern "C" int flash_forward_simt_launch(const void* q, const void* k, const voi
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 32)
-    return launch_simt<32>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+    return launch_simt<32>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
                            causal, scale, st);
   if (hd <= 64)
-    return launch_simt<64>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+    return launch_simt<64>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
                            causal, scale, st);
-  return launch_simt<128>(q, k, v, o, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+  return launch_simt<128>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
                           causal, scale, st);
 }
 
 // bfloat16 on the tensor cores
 extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const void* v,
-                                          void* o, int b_total, int s_len, int t_len,
+                                          void* o, void* lse, int b_total, int s_len, int t_len,
                                           int n_heads, int n_kv_heads, int hd, int causal,
                                           float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
@@ -679,15 +697,15 @@ extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const vo
   const int vec16 = hd % 8 == 0 && addr_bits % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 16)
-    return launch_wgmma<16>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+    return launch_wgmma<16>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
                             causal, scale, vec16, st);
   if (hd <= 32)
-    return launch_wgmma<32>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+    return launch_wgmma<32>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
                             causal, scale, vec16, st);
   if (hd <= 64)
-    return launch_wgmma<64>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+    return launch_wgmma<64>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
                             causal, scale, vec16, st);
-  return launch_wgmma<128>(q, k, v, o, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+  return launch_wgmma<128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
                            causal, scale, vec16, st);
 }
 

@@ -8,7 +8,10 @@ picks the kernel: bf16 goes to the tensor-core kernel (Hopper's ``wgmma``),
 float32 to the CUDA-core one (the tensor cores take float32 only as TF32,
 which would not keep the reference's 2e-5 tolerance); any other type
 raises.  ``models/attention.py`` routes a prefill that starts at position 0
-here on the card.  Both versions compute the reference kernel's function
+here on the card, and a training forward, which also asks for each row's
+log-sum-exp ``lse`` (B, S, H) float32, the recomputing backward's residual
+(``return_lse``; serving passes no lse pointer and the kernels skip it).
+Both versions compute the reference kernel's function
 (``repro/kernels/flash_attention.py``): scores and softmax in float32, the
 unnormalized probabilities cast to v's dtype before the product with v,
 the sum in float32, and the output ``acc / max(l, 1e-30)``.  The causal
@@ -54,9 +57,10 @@ def _check(q, k, v):
         raise ValueError("attention over an empty key sequence")
 
 
-def flash_forward_plain(q, k, v, *, causal: bool = True):
+def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = False):
     """Plain PyTorch version (any device): one masked softmax over all
-    keys in float32 -> (B, S, H, dv)."""
+    keys in float32 -> (B, S, H, dv), and with ``return_lse`` also each
+    row's log-sum-exp (B, S, H) float32, ``max + log(max(l, 1e-30))``."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, G = k.shape[1], H // k.shape[2]
@@ -67,16 +71,22 @@ def flash_forward_plain(q, k, v, *, causal: bool = True):
         mask = (torch.arange(T, device=q.device)[None, :]
                 <= torch.arange(S, device=q.device)[:, None])
         s = torch.where(mask, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    l = p.sum(dim=-1)                                             # (B, H, S)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)                     # (B, H, S)
     acc = torch.einsum("bhqt,bthv->bqhv", p.to(v.dtype).to(torch.float32),
                        vf.to(torch.float32))
-    return (acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+    out = (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m[..., 0] + torch.log(l)).transpose(1, 2).contiguous()
 
 
-def flash_forward_cuda(q, k, v, *, causal: bool = True):
+def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd):
-    the tensor-core kernel for bf16, the CUDA-core kernel for float32."""
+    the tensor-core kernel for bf16, the CUDA-core kernel for float32; with
+    ``return_lse`` the kernel also writes each row's log-sum-exp (B, S, H)
+    float32 -> ``(out, lse)``."""
     global launches, launches_wgmma, launches_simt
     _check(q, k, v)
     if not q.is_cuda:
@@ -92,10 +102,13 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True):
         raise ValueError(f"the kernel takes dv == hd <= {MAX_HEAD_DIM}, got "
                          f"hd {hd}, dv {v.shape[3]}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     P, I = _build.P, _build.I
     fn = _build.entry("flash_attention", _ENTRY[q.dtype],
-                      [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P])
+                      [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+             P(None) if lse is None else _build.ptr(lse),
              B, S, T, H, KH, hd, int(causal), hd ** -0.5, _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
     launches += 1
@@ -103,14 +116,15 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True):
         launches_wgmma += 1
     else:
         launches_simt += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, return_lse: bool = False):
     """Attention forward == ``repro.kernels.ref.flash_ref`` (kv heads
-    grouped, not expanded)."""
+    grouped, not expanded); ``return_lse`` adds each row's log-sum-exp
+    (B, S, H) float32, the training backward's residual."""
     if q.is_cuda:
         return flash_forward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal)
-    return flash_forward_plain(q, k, v, causal=causal)
+                                  causal=causal, return_lse=return_lse)
+    return flash_forward_plain(q, k, v, causal=causal, return_lse=return_lse)

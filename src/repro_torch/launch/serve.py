@@ -691,7 +691,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def serve_lm(args) -> dict:
     """Prefill a batch of random prompts (half of ``--seq-len``) and decode
-    ``--new-tokens`` greedy tokens, on random weights from seed 0.
+    ``--new-tokens`` greedy tokens, on random weights from seed 0.  Under
+    ``audio_stub`` the prompt is normal frame embeddings and each decode
+    input zeros, as the reference serves it; the greedy token is the
+    argmax over the first codebook's ``vocab_size`` logits.
 
     The prefill runs the flash kernel once per layer on the card.  Prints
     the reference's ``prefill ... ms; decode ... ms/step (... tok/s)`` line
@@ -720,8 +723,18 @@ def serve_lm(args) -> dict:
     caches = model.init_caches(B, S_max)
     prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
     prompt_len = S_max // 2
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, prompt_len))
-    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    nprng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    if cfg.frontend == "audio_stub":
+        # frame embeddings for the prompt, zeros for each decode input
+        batch = {"embeds": torch.from_numpy(
+            nprng.normal(size=(B, prompt_len, cfg.d_model)).astype(np.float32)).to(dev)}
+        zeros = torch.zeros((B, 1, cfg.d_model), dtype=torch.float32, device=dev)
+        mk_inp = lambda tok: {"embeds": zeros}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            nprng.integers(0, V, (B, prompt_len))).to(dev)}
+        mk_inp = lambda tok: {"tokens": tok}
 
     n0 = flash_kernel.launches
     sync()
@@ -731,13 +744,13 @@ def serve_lm(args) -> dict:
     t_prefill = time.perf_counter() - t0
     n_flash = flash_kernel.launches - n0
     prefill_logits = logits
-    toks = [torch.argmax(logits, -1)[:, None]]
+    toks = [torch.argmax(logits[:, :V], -1)[:, None]]
 
     n_new = args.new_tokens
     t0 = time.perf_counter()
     for i in range(n_new):
-        logits, caches = decode(model, caches, {"tokens": toks[-1]}, prompt_len + i)
-        toks.append(torch.argmax(logits, -1)[:, None])
+        logits, caches = decode(model, caches, mk_inp(toks[-1]), prompt_len + i)
+        toks.append(torch.argmax(logits[:, :V], -1)[:, None])
     sync()
     t_decode = time.perf_counter() - t0
     print(f"prefill {prompt_len} tok x {B}: {t_prefill * 1e3:.1f} ms; "

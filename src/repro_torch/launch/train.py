@@ -1,9 +1,12 @@
-"""Training entry point: the paper's Tsetlin machine on the port's kernels.
+"""Training entry point: the paper's Tsetlin machine on the port's kernels,
+and the LM substrate's families.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tm-mnist \\
         --steps 200 --batch-size 64 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch tm-tiny \\
         --device cpu --steps 20 --batch-size 16
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
+        --smoke --device cpu --steps 3
 
 The loop wires the prefetching loader, async atomic checkpoints with
 restart-resume, preemption handling and the straggler monitor around the
@@ -23,7 +26,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
+import time
 
+import numpy as np
 import torch
 
 
@@ -169,6 +175,126 @@ def _mesh_step(args, config, dev):
     return step
 
 
+def lm_batch(cfg, nprng: np.random.Generator, batch_size: int, seq_len: int) -> dict:
+    """One LM training batch as numpy arrays, drawn from ``nprng`` exactly
+    as the reference's ``train_lm`` draws it: tokens (B, S + 1) first;
+    ``audio_stub`` then frame embeddings (B, S, d) and codebook labels
+    (B, S, n_codebooks); ``vision_stub`` patch embeddings (B, S // 4, d)
+    before the text tokens, whose labels are the next tokens."""
+    B, S = batch_size, seq_len
+    tokens = nprng.integers(0, cfg.vocab_size, (B, S + 1))
+    if cfg.frontend == "audio_stub":
+        return {"embeds": nprng.normal(size=(B, S, cfg.d_model)).astype(np.float32),
+                "labels": nprng.integers(0, cfg.vocab_size,
+                                         (B, S, cfg.n_codebooks)).astype(np.int32)}
+    if cfg.frontend == "vision_stub":
+        si = S // 4
+        return {"embeds": nprng.normal(size=(B, si, cfg.d_model)).astype(np.float32),
+                "tokens": tokens[:, :S - si].astype(np.int32),
+                "labels": tokens[:, 1:S - si + 1].astype(np.int32)}
+    return {"tokens": tokens[:, :-1].astype(np.int32),
+            "labels": tokens[:, 1:].astype(np.int32)}
+
+
+def lm_checkpoint_arrays(cfg, model) -> dict:
+    """The model's parameters under the reference's checkpoint keys,
+    ``params/<name>`` and ``params/groups/<g>/<li>/<name>[/<sub>]``, with
+    stacked ``(repeats, ...)`` leaves (bf16 as numpy's 2-byte void)."""
+    from repro_torch.models import transformer
+
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = node
+
+    walk("params", transformer.params_to_numpy(cfg, model))
+    return flat
+
+
+def train_lm(args, cfg=None) -> dict:
+    """Train an LM ``--arch`` (``--smoke``: its reduced config; ``cfg``
+    overrides both) for ``--steps`` AdamW steps of ``--batch-size`` x
+    ``--seq-len`` -> ``{"losses", "grad_norms", "lrs", "step_s",
+    "step_event_ms", "flash_launches", "model", "opt_state"}``.
+
+    Weights come from ``torch.Generator(device).manual_seed(--seed)`` (they
+    cannot equal ``jax.random.normal``'s); batches from
+    ``np.random.default_rng(--seed)`` exactly as the reference draws them
+    (:func:`lm_batch`).  Prints ``step k: loss=... gnorm=...`` a step, flags
+    stragglers, and with ``--ckpt-dir`` saves the parameters every
+    ``--ckpt-every`` steps in the reference's layout.  ``step_event_ms`` is
+    each step's CUDA-event time on the card (None on the CPU),
+    ``flash_launches`` the flash kernel's launches a step; ``model`` and
+    ``opt_state`` are the trained model and its optimizer state.
+    """
+    from repro_torch import device as _device
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as flash_kernel
+    from repro_torch.models import steps as lm_steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.straggler import StragglerMonitor
+
+    cfg = cfg or (get_smoke_config if args.smoke else get_config)(args.arch)
+    dev = _device.resolve(args.device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        _build.build()                  # compile outside the first step
+    model = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    opt = adamw.adamw_init(model.parameters())
+    step_fn = lm_steps.make_train_step(cfg)
+
+    nprng = np.random.default_rng(args.seed)
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    mon = StragglerMonitor()
+    out = dict(losses=[], grad_norms=[], lrs=[], step_s=[], step_event_ms=[],
+               flash_launches=[], model=model)
+    for step in range(args.steps):
+        mon.start_step()
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in lm_batch(cfg, nprng, args.batch_size, args.seq_len).items()}
+        n0 = flash_kernel.launches
+        t0 = time.perf_counter()
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        opt, info = step_fn(model, opt, batch)
+        if cuda:
+            ev[1].record()
+        loss, gnorm = float(info["loss"]), float(info["grad_norm"])   # waits for the step
+        out["step_s"].append(time.perf_counter() - t0)
+        out["step_event_ms"].append(ev[0].elapsed_time(ev[1]) if cuda else None)
+        out["flash_launches"].append(flash_kernel.launches - n0)
+        out["losses"].append(loss)
+        out["grad_norms"].append(gnorm)
+        out["lrs"].append(float(info["lr"]))
+        flag = mon.end_step(step)
+        if flag:
+            print(f"straggler flagged: {flag}")
+        print(f"step {step + 1}: loss={loss:.4f} gnorm={gnorm:.3f}")
+        if mgr and (step + 1) % args.ckpt_every == 0:
+            mgr.save(step + 1, lm_checkpoint_arrays(cfg, model),
+                     extra={"step": step + 1}, blocking=False)
+    if mgr:
+        mgr.wait()
+    out["opt_state"] = opt
+    if out["step_s"]:
+        print(f"{cfg.name}: {args.steps} steps of {args.batch_size} x {args.seq_len}, "
+              f"median step {statistics.median(out['step_s']) * 1e3:.1f} ms, flash "
+              f"kernel launches a step {out['flash_launches'][-1]} ({dev})")
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True)
@@ -177,6 +303,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernels' plain PyTorch versions)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=64)
+    ap.add_argument("--seq-len", type=int, default=128, help="LM: tokens a sequence")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LM: the arch's reduced config (runs on one CPU)")
     ap.add_argument("--n-train", type=int, default=4000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch-chunk", type=int, default=None,
@@ -198,13 +327,12 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main() -> None:
-    args = build_parser().parse_args()
-    if not args.arch.startswith("tm-"):
-        raise SystemExit(f"--arch {args.arch}: only the Tsetlin machines "
-                         "(tm-*) are ported; the LM substrate arrives with a "
-                         "later slice")
-    train_tm(args)
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.arch.startswith("tm-"):
+        train_tm(args)
+    else:
+        train_lm(args)
 
 
 if __name__ == "__main__":

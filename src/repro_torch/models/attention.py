@@ -1,7 +1,7 @@
-"""Attention: GQA (+ qk-norm, RoPE), the flash kernel for a prefill from
-position 0, a chunked online softmax otherwise, and dense single-step
-attention for decode.  Forward only: training (the recomputing custom
-VJP) is a later slice of the port.
+"""Attention: GQA (+ qk-norm, RoPE), the flash kernel for a prefill or a
+training forward from position 0, a chunked online softmax otherwise, the
+reference's recomputing backward for training, and dense single-step
+attention for decode.
 
 Parameters live in an ``nn.ParameterDict`` with the reference's names and
 shapes (``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
@@ -20,10 +20,8 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -1e30
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+# the profiler range around the flash backward's tile ops
+BACKWARD_RANGE = "flash_attention_backward"
 
 
 def init_attention(generator, cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
@@ -40,7 +38,7 @@ def init_attention(generator, cfg: ModelConfig, dtype, device) -> nn.ParameterDi
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
-    return nn.ParameterDict({k: _param(v) for k, v in p.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
 
 
 def _project_qkv(cfg: ModelConfig, params, x, positions):
@@ -64,11 +62,11 @@ def _expand_kv(x: torch.Tensor, H: int) -> torch.Tensor:
 def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
     """The reference's jnp route (``attention.py:_flash_fwd``): online
     softmax over (q_chunk x kv_chunk) tiles with explicit positions, kv
-    expanded to H heads -> (B, S, H, dv)."""
+    expanded to H heads -> (out (B, S, H, dv), lse (B, S, H) float32)."""
     B, S, H, hd = q.shape
     T, dv = k.shape[1], v.shape[-1]
     scale = hd ** -0.5
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, S, q_chunk):
         qc = q[:, q0:q0 + q_chunk].to(torch.float32)
         qpc = q_pos[:, q0:q0 + q_chunk]
@@ -80,10 +78,7 @@ def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
             kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
             kpc = kv_pos[:, k0:k0 + kv_chunk]
             s = torch.einsum("bqhd,bthd->bqht", qc, kc.to(torch.float32)) * scale
-            mask = kpc[:, None, :] <= qpc[:, :, None]
-            if window:
-                mask &= kpc[:, None, :] > qpc[:, :, None] - window
-            s = torch.where(mask[:, :, None, :], s, NEG_INF)
+            s = torch.where(_tile_mask(qpc, kpc, window)[:, :, None, :], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -91,8 +86,105 @@ def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
             acc = acc * corr[..., None] + torch.einsum(
                 "bqht,bthv->bqhv", p.to(vc.dtype), vc).to(torch.float32)
             m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    return torch.cat(outs, dim=1).to(q.dtype)
+        l_safe = torch.clamp(l, min=1e-30)
+        outs.append(acc / l_safe[..., None])
+        lses.append(m + torch.log(l_safe))
+    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=1)
+
+
+def _tile_mask(qpc, kpc, window):
+    """(B, q, t): key position <= query position, and within ``window``."""
+    mask = kpc[:, None, :] <= qpc[:, :, None]
+    if window:
+        mask &= kpc[:, None, :] > qpc[:, :, None] - window
+    return mask
+
+
+def _flash_tile_p(qc, kc, qpc, kpc, lse_c, scale, window):
+    """Recompute the (q_chunk x kv_chunk) probability tile in the backward
+    -> (B, q, H, t) float32."""
+    s = torch.einsum("bqhd,bthd->bqht", qc.to(torch.float32), kc.to(torch.float32)) * scale
+    p = torch.exp(s - lse_c[..., None])
+    return torch.where(_tile_mask(qpc, kpc, window)[:, :, None, :], p, 0.0)
+
+
+def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk):
+    """The reference's two recomputing passes (``attention.py:bwd``) on kv
+    expanded to H heads -> (dq, dk, dv) with dk, dv per query head, in
+    float32: pass A sums dq over kv tiles for each q tile, pass B dk and
+    dv over q tiles for each kv tile.  ``ds`` and ``p`` are cast to the
+    operand's type before each product, and the products summed in
+    float32."""
+    B, S, H, hd = q.shape
+    T, dv_ = k.shape[1], v.shape[-1]
+    scale = hd ** -0.5
+    delta = torch.sum(do.to(torch.float32) * out.to(torch.float32), dim=-1)   # (B, S, H)
+    qs = [slice(i, i + q_chunk) for i in range(0, S, q_chunk)]
+    ks = [slice(i, i + kv_chunk) for i in range(0, T, kv_chunk)]
+
+    def tile(qi, ki):
+        qc, kc, vc = q[:, qi], k[:, ki], v[:, ki]
+        p = _flash_tile_p(qc, kc, q_pos[:, qi], kv_pos[:, ki], lse[:, qi], scale, window)
+        dp = torch.einsum("bqhv,bthv->bqht", do[:, qi].to(torch.float32),
+                          vc.to(torch.float32))
+        return qc, kc, p, p * (dp - delta[:, qi][..., None])
+
+    dq = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
+    for qi in qs:                                   # pass A
+        for ki in ks:
+            _, kc, _, ds = tile(qi, ki)
+            dq[:, qi] += torch.einsum("bqht,bthd->bqhd", ds.to(kc.dtype),
+                                      kc).to(torch.float32) * scale
+    dk = torch.zeros((B, T, H, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros((B, T, H, dv_), dtype=torch.float32, device=q.device)
+    for ki in ks:                                   # pass B
+        for qi in qs:
+            qc, _, p, ds = tile(qi, ki)
+            doc = do[:, qi]
+            dv[:, ki] += torch.einsum("bqht,bqhv->bthv", p.to(doc.dtype),
+                                      doc).to(torch.float32)
+            dk[:, ki] += torch.einsum("bqht,bqhd->bthd", ds.to(qc.dtype),
+                                      qc).to(torch.float32) * scale
+    return dq, dk, dv
+
+
+def _group_sum(x: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, T, H, d) per query head -> (B, T, K, d) summed over each kv
+    head's H // K query heads (the transpose of ``_expand_kv``)."""
+    B, T, H, d = x.shape
+    return x if K == H else x.view(B, T, K, H // K, d).sum(dim=3)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's recomputing VJP
+    (``attention.py:_flash_custom``).  Residuals are only q, k, v (grouped
+    kv heads), the positions, ``out`` and ``lse``: the backward recomputes
+    each probability tile, O(S) memory.  The forward is the flash kernel
+    with its ``lse`` output when ``kernel`` (the caller's routing), else
+    the chunked route."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk, kernel):
+        H = q.shape[2]
+        if kernel:
+            out, lse = _flash_kernel.flash_forward(q, k, v, causal=True, return_lse=True)
+        else:
+            out, lse = _flash_fwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
+                                  window, q_chunk, kv_chunk)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.cfg = (window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        H, K = q.shape[2], k.shape[2]
+        # a named range, so a profile can split the step's device time
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            dq, dk, dv = _flash_bwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
+                                    out, lse, do, *ctx.cfg)
+        return (dq.to(q.dtype), _group_sum(dk, K).to(k.dtype),
+                _group_sum(dv, K).to(v.dtype), None, None, None, None, None, None)
 
 
 def _is_arange(q_pos, kv_pos) -> bool:
@@ -103,25 +195,34 @@ def _is_arange(q_pos, kv_pos) -> bool:
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                    q_chunk: int = 1024, kv_chunk: int = 1024):
-    """Causal (optionally windowed) attention forward: q (B, S, H, hd), k
-    and v (B, T, K, hd) with K dividing H, positions (B, S) and (B, T).
+                    q_chunk: int = 1024, kv_chunk: int = 1024, arange=None):
+    """Causal (optionally windowed) attention: q (B, S, H, hd), k and v
+    (B, T, K, hd) with K dividing H, positions (B, S) and (B, T).
 
     On the card with ``window == 0`` and S == T at positions 0..S-1 it
     launches the flash kernel on the grouped kv heads; otherwise it runs
-    the chunked online softmax of the reference's jnp route.
+    the chunked online softmax of the reference's jnp route.  ``arange``
+    says the positions are 0..S-1 in every row (the caller made them so);
+    None checks on the device, one sync.  When q, k or v needs a gradient
+    it goes through the recomputing VJP (``_FlashAttention``), whose
+    forward takes the same route.
     """
     B, S, H, hd = q.shape
     T = k.shape[1]
-    if q.is_cuda and window == 0 and S == T and _is_arange(q_pos, kv_pos):
-        return _flash_kernel.flash_forward(q, k, v, causal=True)
+    kernel = (q.is_cuda and window == 0 and S == T
+              and (arange if arange is not None else _is_arange(q_pos, kv_pos)))
     q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, T)
     while S % q_chunk:
         q_chunk //= 2
     while T % kv_chunk:
         kv_chunk //= 2
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk,
+                                     bool(kernel))
+    if kernel:
+        return _flash_kernel.flash_forward(q, k, v, causal=True)
     return _flash_fwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
-                      window, q_chunk, kv_chunk)
+                      window, q_chunk, kv_chunk)[0]
 
 
 def _decode_attention(cfg: ModelConfig, q, k, v, positions, kv_pos, window):
@@ -140,8 +241,12 @@ def _decode_attention(cfg: ModelConfig, q, k, v, positions, kv_pos, window):
     return out.reshape(B, 1, H, dv).to(q.dtype)
 
 
-def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = None):
+def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = None,
+                    arange: bool = False):
     """Global self-attention with an optional KV cache -> (y (B, S, d), cache).
+
+    ``arange``: the caller made ``positions`` 0..S-1 in every row, so the
+    flash kernel's route needs no check on the device.
 
     With a cache, k and v are written at ``cache["pos"]`` in place.  A
     prefill from position 0 attends over its own q, k and v (empty cache
@@ -151,7 +256,7 @@ def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | Non
     q, k, v = _project_qkv(cfg, params, x, positions)
     S = x.shape[1]
     if cache is None:
-        out = flash_attention(q, k, v, positions, positions)
+        out = flash_attention(q, k, v, positions, positions, arange=arange or None)
     else:
         pos, ck, cv = cache["pos"], cache["k"], cache["v"]
         S_max = ck.shape[1]
@@ -165,7 +270,7 @@ def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | Non
         if S == 1:
             out = _decode_attention(cfg, q, ck, cv, positions, kv_pos, 0)
         elif pos == 0:
-            out = flash_attention(q, k, v, positions, positions)
+            out = flash_attention(q, k, v, positions, positions, arange=arange or None)
         else:
             kv_pos = torch.where(kv_pos < pos + S, kv_pos, 2 ** 30)  # mask empties
             out = flash_attention(q, ck, cv, positions, kv_pos)

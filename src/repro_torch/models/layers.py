@@ -1,6 +1,7 @@
-"""Shared LM building blocks: RMS norm, RoPE, the SwiGLU or GELU MLP and
-the dense initializer.  Each computes as the reference does: norms and
-rotations in float32, cast back to the input's type."""
+"""Shared LM building blocks: RMS norm, RoPE, the SwiGLU or GELU MLP, the
+dense initializer and the chunked cross-entropy loss.  Each computes as
+the reference does: norms and rotations in float32, cast back to the
+input's type; the loss's logits in float32."""
 
 from __future__ import annotations
 
@@ -38,9 +39,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
+             device=None) -> dict:
+    """``{"up", "down"}`` and, when ``gated``, ``"gate"``: dense matrices
+    from ``generator`` (None: zeros, to be loaded), drawn gate, up, down."""
+    shapes = {"gate": (d_model, d_ff), "up": (d_model, d_ff), "down": (d_ff, d_model)}
+    if not gated:
+        del shapes["gate"]
+    if generator is None:
+        return {k: torch.zeros(s, dtype=dtype, device=device) for k, s in shapes.items()}
+    return {k: init_dense(generator, *s, dtype).to(device) for k, s in shapes.items()}
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU when ``params`` has a ``gate``, else GELU (tanh form, the
     reference's ``jax.nn.gelu`` default) over two matrices."""
     if "gate" in params:
         return (F.silu(x @ params["gate"]) * (x @ params["up"])) @ params["down"]
     return F.gelu(x @ params["up"], approximate="tanh") @ params["down"]
+
+
+def chunked_ce_loss(x: torch.Tensor, w_unembed: torch.Tensor, labels: torch.Tensor,
+                    n_chunks: int = 8) -> torch.Tensor:
+    """Mean cross-entropy over the unmasked positions (label -1 is masked),
+    with the logits of one sequence chunk at a time: x (B, S, d) final
+    hidden states, w_unembed (d, V), labels (B, S).  ``n_chunks`` halves
+    until it divides S; each chunk's ``xc @ w`` is cast to float32, and
+    the target logit is read at ``max(label, 0)``."""
+    B, S, _ = x.shape
+    while S % n_chunks:
+        n_chunks //= 2
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xc, lc in zip(x.chunk(n_chunks, dim=1), labels.chunk(n_chunks, dim=1)):
+        logits = (xc @ w_unembed).to(torch.float32)              # (B, s, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, torch.clamp(lc, min=0)[..., None].long())[..., 0]
+        mask = (lc >= 0).to(torch.float32)
+        tot = tot + torch.sum((lse - tgt) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)

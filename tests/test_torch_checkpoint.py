@@ -54,8 +54,14 @@ def test_layout_and_cross_package_restore(tmp_path):
     assert t_store.latest_step(str(tmp_path / "r")) == 7
     with pytest.raises(FileNotFoundError):
         t_store.load_checkpoint(str(tmp_path / "none"), {"ta": like})
-    with pytest.raises(ValueError, match="flat"):
-        t_store.save_checkpoint(str(tmp_path / "t"), 6, {"a/b": ta})
+    # a key is the reference's "/"-joined leaf path: {"a/b": x} restores
+    # into the reference's {"a": {"b": ...}} tree
+    t_store.save_checkpoint(str(tmp_path / "p"), 6, {"a/b": ta})
+    tree, _ = r_store.load_checkpoint(str(tmp_path / "p"),
+                                      {"a": {"b": jnp.zeros((6, 10), jnp.int8)}})
+    np.testing.assert_array_equal(np.asarray(tree["a"]["b"]), ta)
+    with pytest.raises(ValueError, match="strings"):
+        t_store.save_checkpoint(str(tmp_path / "t"), 6, {1: ta})
 
 
 def test_async_write_failure_surfaces_and_blocking_raises(tmp_path):

@@ -580,6 +580,69 @@ def test_cuda_flash_forward_counts_each_kernel(cuda_device):
         fa.flash_forward(*wide)
 
 
+# bf16 lse: both versions read the same bf16 inputs and sum the scores and
+# l in float32 in other orders, the kernel with ex2.approx (relative error
+# under 2^-22): a few float32 units of lse, far under 1e-3
+LSE_BF16_ATOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (2, 64, 3, 3, 16), (2, 100, 4, 2, 20), (2, 256, 8, 2, 64), (1, 192, 4, 4, 128),
+    (1, 1000, 4, 2, 64), (2, 1, 4, 2, 64), (1, 48, 2, 1, 12)])
+def test_cuda_flash_lse_equals_plain(cuda_device, dtype, B, S, H, K, hd):
+    """The kernels' lse output (causal self-attention, the training
+    forward) against the plain version's: float32 atol 2e-5, bf16
+    ``LSE_BF16_ATOL``; the output to the forward's tolerances and, with or
+    without the lse pointer, the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(S + H + hd)
+    dt = getattr(torch, dtype)
+    g = [torch.from_numpy(rng.normal(size=(B, S, h, hd)).astype(np.float32)).to(dt)
+         .to(cuda_device) for h in (H, K, K)]
+    out, lse = fa.flash_forward_cuda(*g, return_lse=True)
+    want, want_lse = fa.flash_forward_plain(*g, return_lse=True)
+    assert lse.shape == (B, S, H) and lse.dtype == torch.float32
+    assert torch.equal(out, fa.flash_forward_cuda(*g))
+    tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want.float())
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    assert float((lse - want_lse).abs().max()) <= (2e-5 if dtype == "float32"
+                                                   else LSE_BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "musicgen-large"])
+def test_cuda_lm_train_step_equals_cpu(cuda_device, arch):
+    """One train step of the float32 smoke LM on the card (the CUDA-core
+    flash kernel with its lse in every layer's forward and again in the
+    remat recompute) against the CPU (the chunked route) from the same
+    weights and batch: loss atol 1e-5, grad_norm rtol 1e-5, params atol
+    5e-6 (AdamW eps 1e-3, as tests/test_torch_lm_train.py states why)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config(arch)
+    batch = lm_batch(cfg, np.random.default_rng(2), 4, 64)
+    step = steps.make_train_step(cfg, opt_cfg=adamw.AdamWConfig(
+        lr=1e-2, warmup_steps=1, eps=1e-3))
+    res = []
+    for dev in ("cpu", cuda_device):
+        model = transformer.init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+        opt = adamw.adamw_init(model.parameters())
+        n0 = fa.launches
+        opt, info = step(model, opt, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        res.append((info, [p.detach().cpu() for p in model.parameters()], fa.launches - n0))
+    (ci, cp, cn), (gi, gp, gn) = res
+    assert cn == 0 and gn == 2 * cfg.n_layers
+    np.testing.assert_allclose(float(gi["loss"]), float(ci["loss"]), atol=1e-5)
+    np.testing.assert_allclose(float(gi["grad_norm"]), float(ci["grad_norm"]), rtol=1e-5)
+    for a, b in zip(gp, cp):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=5e-6, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m"])
 def test_cuda_lm_prefill_decode_equal_cpu(cuda_device, arch):

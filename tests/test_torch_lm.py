@@ -33,7 +33,8 @@ from repro_torch.models import layers as t_layers
 from repro_torch.models import steps as t_steps
 from repro_torch.models import transformer as t_tr
 
-SERVED = ("tinyllama-1.1b", "smollm-360m", "qwen3-32b", "starcoder2-7b")
+SERVED = ("tinyllama-1.1b", "smollm-360m", "qwen3-32b", "starcoder2-7b", "pixtral-12b",
+          "musicgen-large")
 
 
 def _t(a):
@@ -188,26 +189,42 @@ def test_prefill_decode_logits_match_reference(arch):
     """Prefill (from position 0: the port attends over the prompt's own q,
     k, v) and eight greedy decode steps; logits atol 1e-4, tokens equal.
     smollm-smoke ties its embeddings and has 3 heads over 1 kv head,
-    qwen3-smoke has qk-norm, starcoder2-smoke the GELU MLP."""
+    qwen3-smoke has qk-norm, starcoder2-smoke the GELU MLP; pixtral-smoke
+    serves text tokens on its vision_stub backbone; musicgen-smoke
+    (audio_stub, 4 codebook heads) prefills normal frame embeddings,
+    decodes zero embeds and takes the argmax over the first codebook's
+    logits, as the reference's ``serve_lm`` does."""
     rcfg, tcfg, params, model = _carried(arch)
     B, S_max, P = 2, 32, 12
-    toks = np.random.default_rng(1).integers(0, rcfg.vocab_size, (B, P))
+    V = rcfg.vocab_size
+    if rcfg.frontend == "audio_stub":
+        emb = np.random.default_rng(1).normal(size=(B, P, rcfg.d_model)).astype(np.float32)
+        zeros = np.zeros((B, 1, rcfg.d_model), np.float32)
+        r_batch, t_batch = {"embeds": jnp.asarray(emb)}, {"embeds": torch.from_numpy(emb)}
+        r_inp = lambda tok: {"embeds": jnp.asarray(zeros)}
+        t_inp = lambda tok: {"embeds": torch.from_numpy(zeros)}
+    else:
+        toks = np.random.default_rng(1).integers(0, V, (B, P))
+        r_batch = {"tokens": jnp.asarray(toks, jnp.int32)}
+        t_batch = {"tokens": torch.from_numpy(toks)}
+        r_inp = lambda tok: {"tokens": tok}
+        t_inp = lambda tok: {"tokens": tok}
     r_logits, r_caches = jax.jit(r_steps.make_prefill_step(rcfg))(
-        params, {"tokens": jnp.asarray(toks, jnp.int32)}, r_tr.init_caches(rcfg, B, S_max))
+        params, r_batch, r_tr.init_caches(rcfg, B, S_max))
     t_logits, t_caches = t_steps.make_prefill_step(tcfg)(
-        model, {"tokens": torch.from_numpy(toks)}, model.init_caches(B, S_max))
+        model, t_batch, model.init_caches(B, S_max))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=0)
     r_decode = jax.jit(r_steps.make_decode_step(rcfg))
     t_decode = t_steps.make_decode_step(tcfg)
-    r_tok = jnp.argmax(r_logits, -1)[:, None].astype(jnp.int32)
-    t_tok = torch.argmax(t_logits, -1)[:, None]
+    r_tok = jnp.argmax(r_logits[:, :V], -1)[:, None].astype(jnp.int32)
+    t_tok = torch.argmax(t_logits[:, :V], -1)[:, None]
     for i in range(8):
         np.testing.assert_array_equal(t_tok.numpy(), np.asarray(r_tok))
-        r_logits, r_caches = r_decode(params, r_caches, {"tokens": r_tok}, jnp.int32(P + i))
-        t_logits, t_caches = t_decode(model, t_caches, {"tokens": t_tok}, P + i)
+        r_logits, r_caches = r_decode(params, r_caches, r_inp(r_tok), jnp.int32(P + i))
+        t_logits, t_caches = t_decode(model, t_caches, t_inp(t_tok), P + i)
         np.testing.assert_allclose(t_logits.numpy(), np.asarray(r_logits), atol=1e-4, rtol=0)
-        r_tok = jnp.argmax(r_logits, -1)[:, None].astype(jnp.int32)
-        t_tok = torch.argmax(t_logits, -1)[:, None]
+        r_tok = jnp.argmax(r_logits[:, :V], -1)[:, None].astype(jnp.int32)
+        t_tok = torch.argmax(t_logits[:, :V], -1)[:, None]
     assert t_caches[0]["pos"] == P + 8
 
 
@@ -217,7 +234,8 @@ def test_forward_without_cache_and_chunked_prefill_match_reference():
     rcfg, tcfg, params, model = _carried("tinyllama-1.1b")
     toks = np.random.default_rng(2).integers(0, rcfg.vocab_size, (2, 16))
     want, _ = r_tr.forward(rcfg, params, tokens=jnp.asarray(toks, jnp.int32))
-    got, caches = model(torch.from_numpy(toks))
+    with torch.no_grad():       # the parameters are trainable
+        got, caches = model(torch.from_numpy(toks))
     assert caches is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
     rp, tp = r_steps.make_prefill_step(rcfg), t_steps.make_prefill_step(tcfg)
@@ -229,8 +247,9 @@ def test_forward_without_cache_and_chunked_prefill_match_reference():
     pos = np.broadcast_to(np.arange(8, dtype=np.int32)[None], (2, 8))
     r_h, _ = r_tr.forward(rcfg, params, tokens=jnp.asarray(toks[:, 8:], jnp.int32),
                           positions=jnp.asarray(pos), caches=rc)
-    t_h, _ = model(torch.from_numpy(toks[:, 8:]), positions=torch.from_numpy(pos.copy()),
-                   caches=tc)
+    with torch.no_grad():
+        t_h, _ = model(torch.from_numpy(toks[:, 8:]), positions=torch.from_numpy(pos.copy()),
+                       caches=tc)
     np.testing.assert_allclose(t_h.numpy(), np.asarray(r_h), atol=1e-4, rtol=0)
 
 
