@@ -59,18 +59,34 @@ plain route, then drives ``train_lm`` on tinyllama-1.1b at full width (5
 steps of 4 x 1024; 2 x 22 tensor-core flash launches a step, the forward
 and the remat recompute), holds its step 1 to the plain route's, profiles
 a step's device time by part, and trains pixtral-12b and musicgen-large
-at full width with 2 layers.  The
-MESH phase (``mesh_phase``) lays ``MESH_DEVICES`` logical devices over the
-card and holds the clause-sharded forwards (padded tile tables included),
-training steps, ``fit(mesh=)``, ``train_tm --mesh`` and ``serve_tm
---mesh`` to their unsharded runs, each kernel launched once a shard.
-Prints the card's name and power limit, a
+at full width with 2 layers.  The LM_FAMILIES phase (``lm_families_phase``,
+after LM_TRAIN) drives ``serve_lm`` on recurrentgemma-2b and xlstm-1.3b at
+full size and on qwen3-moe-235b-a22b and deepseek-v2-236b at full width
+with 2 layers (B 16, 1024-token prompts, 16 decode steps), each with the
+flash counts zeroed around it (launches = the global attention layers:
+0, 0, 2, 2), holds each prefill's logits to a cacheless forward's and,
+for the two kernel families, to the plain route's, splits a profiled warm
+prefill and decode's device time by the layers' profiler ranges, holds
+the flash kernel to its plain version on the two kernel families' layer-0
+prefill inputs (qwen3-moe's hd 128 over 4 kv heads, deepseek-v2's MLA
+widths, qk 192 over v 128) in bf16, with lse and in float32, and times it
+beside SDPA (the flash row's ``qwen3_*`` and ``mla_*`` fields), then
+trains recurrentgemma-2b (3 layers) and xlstm-1.3b (8 layers) at full
+width and the MoE families' bf16 smoke configs with ``train_lm``,
+deepseek's smoke step through both routes.  The MESH phase
+(``mesh_phase``) lays ``MESH_DEVICES`` logical devices over the card and
+holds the clause-sharded forwards (padded tile tables included), training
+steps, ``fit(mesh=)``, ``train_tm --mesh`` and ``serve_tm --mesh`` to
+their unsharded runs, each kernel launched once a shard.  Prints the
+card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
 (device times: the median of ``WINDOWS`` profiler windows, with their
 min-max spread; ``fused_infer``'s row also holds its ``train_*`` fields,
 its launch in a fused training step, and ``flash_attention``'s the lse
-variant's in ``train_lm``), and as its last line
+variant's in ``train_lm`` and its ``qwen3_*`` and ``mla_*`` fields at the
+two kernel families' prefill shapes), and
+as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
 when there is no CUDA device, when the port's sources are missing, or when
 any phase fails.  Imports nothing of JAX or of the reference package.
@@ -115,6 +131,18 @@ BF16_FLOPS_PER_S = 989e12
 
 # profile_device: separate profiler windows, calls in each
 WINDOWS, WINDOW_CALLS = 5, 20
+# In a long process the profiler can miss a window's first launches (on
+# the H100 up to 17 of 20 flash calls, reading a time under the byte
+# bound while CUDA events read the full one; waiting after the profiler
+# starts does not help).  So each window first launches PROFILER_PREROLL
+# markers (``torch.cuda._sleep``'s spin kernel): the missed launches have
+# been a prefix, so a window that recorded a marker is taken to have
+# recorded every call, and the median over windows absorbs an exception.
+# A window that recorded none is not read; at most PROFILER_TRIES x
+# windows are run
+PROFILER_PREROLL = 100
+PROFILER_TRIES = 3
+MARKER_KERNEL = "spin_kernel"
 
 TRAIN_STEPS, TRAIN_BATCH = 40, 64
 TRAIN_BATCHES = (1, 33, 64, 97)
@@ -197,6 +225,45 @@ LSE_BF16_ATOL = 1e-3
 # backward, to 2^-4 of the plain route's
 LM_TRAIN_LOSS_RTOL = 2 ** -7
 LM_ROUTE_GRAD_RTOL = 2 ** -4
+# LM_FAMILIES: serve_lm on the four families the port ran last, at full
+# width, B 16, 1024-token prompts (a 2048-slot cache), 16 decode steps;
+# recurrentgemma-2b and xlstm-1.3b at full depth, the two 236 B MoE models
+# with the depth cut to 2 layers (12.4 and 10.7 GB of bf16 weights; all of
+# either needs expert parallelism over cards)
+FAMILIES_SERVE = {"recurrentgemma-2b": None, "xlstm-1.3b": None,
+                  "qwen3-moe-235b-a22b": 2, "deepseek-v2-236b": 2}
+FAMILIES_ARGV = ["--device", "cuda", "--batch-size", "16", "--seq-len", "2048",
+                 "--new-tokens", "16"]
+# train_lm at full width with the depth cut to one unit of the pattern (3
+# layers: rec, rec, local; 8: 7 mLSTM, 1 sLSTM), 2 steps of 2 x 1024; the
+# MoE families' bf16 smoke configs one step of 4 x 256 (full-width MoE
+# training does not fit one card: ~12 bytes a parameter for AdamW)
+FAMILIES_TRAIN = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
+FAMILIES_TRAIN_ARGV = ["--device", "cuda", "--steps", "2", "--batch-size", "2",
+                       "--seq-len", "1024"]
+FAMILIES_SMOKE_TRAIN = ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+FAMILIES_SMOKE_ARGV = ["--device", "cuda", "--steps", "1", "--batch-size", "4",
+                       "--seq-len", "256"]
+# bf16 logits of two routes (kernel and plain), or of the prefill and a
+# cacheless forward, differ by rounding p and the attention output to bf16
+# at different points and by bf16 index_add's order of each token's
+# experts: held to 2^-7 of the largest |logit|.  A MoE layer's routing is
+# discontinuous (a token near the k-th expert's gate, or at an expert's
+# capacity, changes experts on a rounding), so the MoE families' logits
+# are held as LM_TRAIN holds its loss, to 2^-7 of itself: the mean
+# cross-entropy of the last-token logits against labels from seed 1, an
+# end-to-end sanity line only (a statistic of 16 rows says little of the
+# logits' values): the kernel itself is held to its plain version on
+# these families' layer-0 inputs (FAMILIES_FLASH)
+FAMILIES_LOGIT_RTOL = 2 ** -7
+# random weights give unit-variance logits after the final norm: a loss
+# near ln V + 0.5; a step or two moves it by far less than this
+FAMILIES_LOSS_ATOL = 1.0
+# the flash kernel held to its plain version on each kernel family's
+# layer-0 prefill inputs at its serve shape: arch -> the flash row's field
+# prefix (qwen3-moe: H 64 over 4 kv heads, hd 128; deepseek-v2's MLA: qk
+# width 192 over v width 128)
+FAMILIES_FLASH = {"qwen3-moe-235b-a22b": "qwen3_", "deepseek-v2-236b": "mla_"}
 GEMM_RE = r"gemm|nvjet|xmma|cutlass|cublas|matmul"
 
 
@@ -281,29 +348,43 @@ def chain_need(rows, chain, tile_jb, indptr, *, n_rows, block_c, block_j,
 def profile_device(fn, calls: int = WINDOW_CALLS, windows: int = WINDOWS,
                    key: str = "device_ms"):
     """Device time (ms) of everything one call of ``fn`` launches, from the
-    profiler, in ``windows`` separate windows of ``calls`` calls:
-    ``{key: the median of the windows' means, key + "_spread": [min, max]}``,
-    and the median window's per-name breakdown in microseconds."""
+    profiler, in ``windows`` separate windows of ``calls`` calls, each
+    read only when one of its marker launches was recorded:
+    ``{key: the median of the windows' means, key + "_spread": [min, max],
+    key + "_incomplete": windows not read, key + "_missed": the most
+    markers a read window missed}``, and the median window's per-name
+    breakdown in microseconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    reads = []
-    for _ in range(windows):
+    reads, incomplete, missed = [], 0, 0
+    while len(reads) < windows and len(reads) + incomplete < PROFILER_TRIES * windows:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_PREROLL):
+                torch.cuda._sleep(1)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = device_us(prof)
+        markers = [k for k in us if MARKER_KERNEL in k]
+        if not markers:
+            incomplete += 1
+            continue
+        missed = max(missed, PROFILER_PREROLL - sum(us[k][1] for k in markers))
+        for k in markers:
+            del us[k]
         if us:
             reads.append((sum(u for u, _ in us.values()) / calls / 1e3, us))
     if not reads:
-        return {key: None, key + "_spread": None}, {}
+        return {key: None, key + "_spread": None, key + "_incomplete": incomplete,
+                key + "_missed": missed}, {}
     ms = sorted(r for r, _ in reads)
     med = statistics.median(ms)
     us = min(reads, key=lambda r: abs(r[0] - med))[1]
-    return ({key: med, key + "_spread": [ms[0], ms[-1]]},
+    return ({key: med, key + "_spread": [ms[0], ms[-1]], key + "_incomplete": incomplete,
+             key + "_missed": missed},
             {k[:50]: round(u / calls, 2) for k, (u, _) in us.items()})
 
 
@@ -1342,6 +1423,7 @@ def lm_phase(dev) -> dict:
     fa.launches = fa.launches_wgmma = fa.launches_simt = 0
     res = serve.serve_lm(args)
     launches, launches_wgmma, launches_simt = fa.launches, fa.launches_wgmma, fa.launches_simt
+    res.pop("model")
     check(launches == cfg.n_layers == res["flash_launches"],
           f"the prefill launched the flash kernel {launches} times for "
           f"{cfg.n_layers} layers")
@@ -1363,11 +1445,13 @@ def lm_phase(dev) -> dict:
         plain = serve.serve_lm(args)
     finally:
         fa.flash_forward = kernel_fn
+    plain.pop("model")
     check(fa.launches == launches, "the plain route launched the flash kernel")
     diff = float((logits - plain["prefill_logits"]).abs().max())
     same_first = float((toks[:, 0] == plain["tokens"][:, 0]).float().mean())
     same = float((toks[:, 1:] == plain["tokens"][:, 1:]).float().mean())
     warm = serve.serve_lm(args)
+    warm.pop("model")
     print("LM_ROUTES " + json.dumps(dict(
         prefill_logits_max_abs_diff=diff, logits_max_abs=float(logits.abs().max()),
         equal_first_token_share=same_first, equal_decode_token_share=same)))
@@ -1461,38 +1545,62 @@ def plain_flash(fa):
         fa.flash_forward = kernel_fn
 
 
-def train_device_split(prof) -> dict:
-    """A profiled training step's device time (ms) by part: the flash
-    forward kernel, the flash backward's tile ops (everything launched under
-    ``attention.BACKWARD_RANGE``), the optimizer (under
-    ``adamw.UPDATE_RANGE``), the other GEMMs, the rest; and the launches."""
-    from repro_torch.models import attention
+def route_step(cfg, dev, batch):
+    """One training step of a fresh model (seed 0) on ``batch``: the loss,
+    each gradient leaf's norm and the global norm after AdamW's clip; run
+    once through the kernel route and once under ``plain_flash``."""
+    import torch
+
+    from repro_torch.models import transformer
     from repro_torch.optim import adamw
 
-    ranges = {attention.BACKWARD_RANGE: "flash_backward", adamw.UPDATE_RANGE: "optimizer"}
-    us = dict(flash_forward=0.0, flash_backward=0.0, optimizer=0.0, gemm=0.0, rest=0.0)
-    n = 0
+    m = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = list(m.parameters())
+    loss = transformer.loss_fn(cfg, m, batch)
+    grads = torch.autograd.grad(loss, params)
+    _, info = adamw.adamw_update(adamw.AdamWConfig(), grads, params, adamw.adamw_init(params))
+    return float(loss), [float(g.float().norm()) for g in grads], float(info["grad_norm"])
 
-    def walk(ev, part):
-        nonlocal n
-        part = ranges.get(ev.name, part)
-        for k in ev.kernels:
-            n += 1
-            if "flash_fwd_" in k.name:
-                us["flash_forward"] += k.duration
-            elif part:
-                us[part] += k.duration
-            elif re.search(GEMM_RE, k.name, re.I):
-                us["gemm"] += k.duration
-            else:
-                us["rest"] += k.duration
-        for ch in ev.cpu_children:
-            walk(ch, part)
 
-    for ev in prof.events():
-        if str(ev.device_type).endswith("CPU") and ev.cpu_parent is None:
-            walk(ev, None)
-    return dict({k: u / 1e3 for k, u in us.items()}, launches=n)
+def device_split(prof, ranges: dict) -> dict:
+    """A profile's device time (ms) by part, from its device events: the
+    flash forward kernel, each part of ``ranges`` (profiler range name ->
+    part: the kernels and copies inside the range's span on the device
+    timeline, its user annotation), the other GEMMs, the rest; the
+    launches; and ``busy``, the union of the kernels' and copies'
+    intervals.  It reads the profiler's raw events: the CPU events'
+    ``kernels`` lists attach some kernels to two CPU events at thousands of
+    launches, and building those events for an xlstm-1.3b prefill's
+    154,000 launches is slow."""
+    import bisect
+
+    marks, work = [], []
+    for ev in prof.profiler.kineto_results.events():
+        if str(ev.device_type()).endswith("CUDA"):
+            t = (ev.start_ns() / 1e3, ev.end_ns() / 1e3)
+            if not ev.is_user_annotation():
+                work.append((*t, ev.name()))
+            elif ev.name() in ranges:
+                marks.append((*t, ranges[ev.name()]))
+    marks.sort()
+    starts = [m[0] for m in marks]
+    us = dict.fromkeys(("flash_forward", *ranges.values(), "gemm", "rest"), 0.0)
+    busy, end = 0.0, float("-inf")
+    for t0, t1, name in sorted(work):
+        i = bisect.bisect_right(starts, t0) - 1
+        part = marks[i][2] if i >= 0 and t1 <= marks[i][1] else None
+        if "flash_fwd_" in name:
+            us["flash_forward"] += t1 - t0
+        elif part:
+            us[part] += t1 - t0
+        elif re.search(GEMM_RE, name, re.I):
+            us["gemm"] += t1 - t0
+        else:
+            us["rest"] += t1 - t0
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    return dict({k: u / 1e3 for k, u in us.items()}, launches=len(work), busy=busy / 1e3)
 
 
 def lm_train_phase(dev, card: str) -> dict:
@@ -1565,22 +1673,12 @@ def lm_train_phase(dev, card: str) -> dict:
     sbatch = {kk: torch.from_numpy(a).to(dev)
               for kk, a in train.lm_batch(scfg, np.random.default_rng(0), 4, 256).items()}
 
-    def smoke_step():
-        m = transformer.init_params(scfg, torch.Generator(device=dev).manual_seed(0), dev)
-        params = list(m.parameters())
-        loss = transformer.loss_fn(scfg, m, sbatch)
-        grads = torch.autograd.grad(loss, params)
-        _, info = adamw.adamw_update(adamw.AdamWConfig(), grads, params,
-                                     adamw.adamw_init(params))
-        return (float(loss), [float(g.float().norm()) for g in grads],
-                float(info["grad_norm"]))
-
     n0 = fa.launches_wgmma
-    k_loss, k_norms, k_gn = smoke_step()
+    k_loss, k_norms, k_gn = route_step(scfg, dev, sbatch)
     smoke_launches = fa.launches_wgmma - n0
     n0 = fa.launches
     with plain_flash(fa):
-        p_loss, p_norms, p_gn = smoke_step()
+        p_loss, p_norms, p_gn = route_step(scfg, dev, sbatch)
     check(fa.launches == n0, "the plain route launched the flash kernel")
     leaf_rel = max(abs(a - b) / max(b, 1e-30) for a, b in zip(k_norms, p_norms))
     route = dict(smoke=scfg.name, dtype="bfloat16", batch=[4, 256],
@@ -1625,7 +1723,10 @@ def lm_train_phase(dev, card: str) -> dict:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     check(bool(torch.isfinite(info["loss"])), "the profiled step's loss is not finite")
     del model, opt, info, pb
-    split = train_device_split(prof)
+    split = device_split(prof, {attention.BACKWARD_RANGE: "flash_backward",
+                                adamw.UPDATE_RANGE: "optimizer"})
+    check(split["flash_backward"] > 0 and split["optimizer"] > 0,
+          f"the profiled step's device split found no work under a range: {split}")
     busy_ms = sum(split[kk] for kk in ("flash_forward", "flash_backward", "optimizer",
                                        "gemm", "rest"))
     split_rows = dict(wall_ms=prof_wall_ms, device_busy_ms=busy_ms,
@@ -1673,6 +1774,295 @@ def lm_train_phase(dev, card: str) -> dict:
         route_check=route, profiled_step=split_rows, train_lm_s=train_s, cut=cut,
         phase_s=time.perf_counter() - t_phase)))
     row["train_launches_per_step"] = 2 * L
+    return row
+
+
+def family_split(model, cfg, tokens, s_max: int, n_new: int) -> dict:
+    """Where a warm prefill and ``n_new`` decode steps spend their time,
+    each under the profiler: its event ms, the device's busy ms (the union
+    of its device intervals) and idle share, and the device ms by part (``device_split`` over the layers'
+    ranges: attention, the RG-LRU scan, the mLSTM core, the sLSTM steps,
+    MoE routing and experts; the rest: projections, norms, MLPs, glue)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import attention, moe, rglru, steps, xlstm
+
+    ranges = {attention.ATTEND_RANGE: "attention", rglru.SCAN_RANGE: "rglru_scan",
+              xlstm.MLSTM_RANGE: "mlstm_core", xlstm.SLSTM_RANGE: "slstm_steps",
+              moe.ROUTE_RANGE: "moe_route", moe.EXPERTS_RANGE: "moe_experts"}
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    B, P = tokens.shape
+    caches = model.init_caches(B, s_max)
+    rows = {}
+    for label in ("prefill", "decode"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            if label == "prefill":
+                logits, caches = prefill(model, {"tokens": tokens}, caches)
+                n = 1
+            else:
+                n = n_new
+                for i in range(n):
+                    logits, caches = decode(model, caches, {"tokens": tok}, P + i)
+                    tok = logits.argmax(-1)[:, None]
+            t1.record()
+            torch.cuda.synchronize()
+        tok = logits.argmax(-1)[:, None]
+        total = t0.elapsed_time(t1) / n
+        split = device_split(prof, ranges)
+        parts = {k: v / n for k, v in split.items() if k not in ("launches", "busy")}
+        busy = split["busy"] / n
+        rows[label] = dict(ms=total, device_busy_ms=busy, idle_share=1 - busy / total,
+                           device_ms=parts, parts_sum_ms=sum(parts.values()),
+                           launches=split["launches"] / n)
+    return rows
+
+
+def family_flash_checks(fa, model, cfg, tokens, prefix: str) -> dict:
+    """The flash kernel on layer 0's prefill inputs of a global-attention
+    family at its serve shape (bf16; MLA's q and k at qk width 192 over v
+    width 128, or grouped-query q, k, v): against its plain version with
+    and without lse, the float32 variant on the same inputs, the times, the
+    bound and SDPA's time on the same q, k, v.  -> the flash row's fields,
+    each named with ``prefix``."""
+    import torch
+
+    from repro_torch.models import attention, layers, mla
+
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
+    blk = model.blocks[0]
+    with torch.no_grad():
+        h = layers.rms_norm(model.embed[tokens], blk.norm1, cfg.norm_eps)
+        if cfg.attn_kind == "mla":
+            q_nope, q_rope, c_kv, k_rope = mla._mla_qkv(cfg, blk.mix, h, positions)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            k, v = mla._expand_kv(blk.mix, c_kv, k_rope)
+            del q_nope, q_rope, c_kv, k_rope
+        else:
+            q, k, v = attention._project_qkv(cfg, blk.mix, h, positions)
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    del h
+    what = f"flash at {cfg.name}'s layer-0 prefill, bf16 q {tuple(q.shape)} k {tuple(k.shape)} " \
+           f"v {tuple(v.shape)}"
+    errs = flash_errors(fa, q, k, v)
+    err, tol, share = errs["max_abs_err"], errs["tolerance"], errs["max_elem_tolerance_share"]
+    check(err <= tol and share <= 1, f"{what}: kernel differs from its plain version by {err} "
+          f"(tolerance {tol}), element share {share}")
+    out, lse = fa.flash_forward_cuda(q, k, v, return_lse=True)
+    want, want_lse = fa.flash_forward_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    lse_err = float((lse - want_lse).abs().max())
+    lse_out_err = float((out.float() - want.float()).abs().max())
+    check(torch.equal(out, fa.flash_forward_cuda(q, k, v)) and lse_err <= LSE_BF16_ATOL
+          and lse_out_err <= tol, f"{what}, lse variant: out {lse_out_err} (tolerance {tol}), "
+          f"lse {lse_err} (tolerance {LSE_BF16_ATOL})")
+    del out, lse, want, want_lse
+    f32 = [t.float() for t in (q, k, v)]
+    o32, l32 = fa.flash_forward_cuda(*f32, return_lse=True)
+    w32, wl32 = fa.flash_forward_plain(*f32, return_lse=True)
+    err32 = float((o32 - w32).abs().max())
+    lse32 = float((l32 - wl32).abs().max())
+    check(err32 <= FLASH_F32_ATOL and lse32 <= FLASH_F32_ATOL, f"{what}, float32: out "
+          f"{err32}, lse {lse32} (tolerance {FLASH_F32_ATOL})")
+    del f32, o32, l32, w32, wl32
+    kern = lambda: fa.flash_forward_cuda(q, k, v)
+    row = dict(shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape)),
+               max_abs_err=err, tolerance=tol, max_elem_tolerance_share=share,
+               lse_max_abs_err=lse_err, lse_tolerance=LSE_BF16_ATOL, f32_max_abs_err=err32,
+               f32_lse_max_abs_err=lse32, f32_tolerance=FLASH_F32_ATOL, ms=cuda_time_ms(kern))
+    row.update(profile_device(kern)[0])
+    row.update(profile_device(lambda: fa.flash_forward_cuda(q, k, v, return_lse=True),
+                              key="lse_device_ms")[0])
+    row["plain_ms"] = cuda_time_ms(lambda: fa.flash_forward_plain(q, k, v), reps=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=k.shape[2] != q.shape[2])
+    try:
+        row["library_ms"] = cuda_time_ms(library)
+        row.update(profile_device(library, key="library_device_ms")[0])
+    except RuntimeError as e:       # no SDPA backend for this shape
+        row.update(library_ms=None, library_note=str(e)[:200])
+    Bq, Sq, H, hd = q.shape
+    # QK^T at the qk width and PV at the v width over the causal pairs
+    row["flops"] = 2 * Bq * H * (Sq * (Sq + 1) // 2) * (hd + v.shape[-1])
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(q, k, v) + Bq * Sq * H * v.shape[-1] * 2, row["flops"] / BF16_FLOPS_PER_S * 1e3)
+    print(f"{what} == plain version: max_abs_err {err} (tolerance {tol}; element share "
+          f"{share}); lse {lse_err}; float32 {err32}")
+    return {prefix + key: val for key, val in row.items()}
+
+
+def logits_agree(name: str, got, want, labels, moe: bool) -> dict:
+    """Hold the last-token logits ``got`` to ``want`` (``FAMILIES_LOGIT_RTOL``:
+    the largest difference against the largest |logit|, or for a MoE family
+    the mean cross-entropy against ``labels``) -> what was compared."""
+    import torch
+
+    def ce(logits):
+        return float((torch.logsumexp(logits, -1)
+                      - logits.gather(1, labels[:, None])[:, 0]).mean())
+
+    diff = float((got - want).abs().max())
+    tol = FAMILIES_LOGIT_RTOL * float(want.abs().max())
+    ce_got, ce_want = ce(got), ce(want)
+    row = dict(max_abs_diff=diff, max_abs_tolerance=tol, ce=[ce_got, ce_want],
+               ce_rtol=FAMILIES_LOGIT_RTOL, held_by="ce" if moe else "max_abs",
+               argmax_agreement=float((got.argmax(-1) == want.argmax(-1)).float().mean()))
+    ok = (abs(ce_got - ce_want) <= FAMILIES_LOGIT_RTOL * abs(ce_want)) if moe else diff <= tol
+    check(ok, f"{name}: {row}")
+    return row
+
+
+def lm_families_phase(dev, card: str) -> dict:
+    """LM_FAMILIES: ``serve_lm`` on the MoE, MLA, RG-LRU (local windows, the
+    ring cache) and xLSTM families at full width (``FAMILIES_SERVE``), each
+    with the flash counts zeroed around it: flash launches = the global
+    attention layers, finite logits, the prefill's last-token logits held
+    to a cacheless forward's, the kernel route to the plain route (the two
+    kernel families; a MoE family by its cross-entropy, an end-to-end sanity
+    line), where a warm prefill and decode spend their time; the flash
+    kernel against its plain version on the kernel families' layer-0
+    prefill inputs (``FAMILIES_FLASH``); then ``train_lm`` at full width
+    with the depth cut to one unit and on the MoE families' bf16 smoke
+    configs (deepseek's through both routes).  Returns the flash row's
+    ``qwen3_*`` and ``mla_*`` fields."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+
+    t_phase = time.perf_counter()
+    row, served = {}, {}
+    for arch, cut in FAMILIES_SERVE.items():
+        t_fam = time.perf_counter()
+        cfg = get_config(arch)
+        if cut:
+            cfg = dataclasses.replace(cfg, n_layers=cut)
+        args = serve.build_parser().parse_args(["--arch", arch, *FAMILIES_ARGV])
+        B, P = args.batch_size, args.seq_len // 2
+        n_attn = sum(kind == "attn" for kind in cfg.layer_kinds)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.launches_wgmma = fa.launches_simt = 0
+        res = serve.serve_lm(args, cfg=cfg)
+        launches, launches_wgmma = fa.launches, fa.launches_wgmma
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == launches_wgmma == res["flash_launches"] == n_attn,
+              f"{arch}: the prefill launched the flash kernel {launches} times "
+              f"({launches_wgmma} tensor-core) for {n_attn} global attention layers")
+        logits, model = res["prefill_logits"], res.pop("model")
+        check(logits.shape == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+              f"{arch}: prefill logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg.vocab_size, (B, P))).to(dev)
+        labels = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, B)).to(dev)
+        with torch.no_grad():
+            hidden, _ = model(tokens)
+            fwd = (hidden[:, -1] @ model.unembed_matrix()).to(torch.float32)
+        del hidden
+        fam = dict(n_layers=cfg.n_layers, depth_cut=cut is not None, batch=B, prompt=P,
+                   decode_steps=args.new_tokens, prefill_ms=res["prefill_s"] * 1e3,
+                   decode_ms_per_step=res["decode_s"] / args.new_tokens * 1e3,
+                   peak_memory_gb=peak_gb, flash_launches=launches,
+                   against_cacheless_forward=logits_agree(
+                       f"{arch}: prefill against a cacheless forward", logits, fwd, labels,
+                       cfg.is_moe))
+        if arch in FAMILIES_FLASH:
+            row.update(family_flash_checks(fa, model, cfg, tokens, FAMILIES_FLASH[arch]))
+            row[FAMILIES_FLASH[arch] + "launches"] = launches
+        fam["split"] = family_split(model, cfg, tokens, args.seq_len, args.new_tokens)
+        # each of the family's layer kinds has device time under its range
+        kinds = set(cfg.layer_kinds)
+        want = {"attention": bool(kinds & {"attn", "local"}), "rglru_scan": "rec" in kinds,
+                "mlstm_core": "mlstm" in kinds, "slstm_steps": "slstm" in kinds,
+                "moe_route": cfg.is_moe, "moe_experts": cfg.is_moe}
+        for label, split in fam["split"].items():
+            got = {part: split["device_ms"][part] > 0 for part in want}
+            check(got == want, f"{arch}: the {label}'s device time by range {split['device_ms']}"
+                  f" (parts expected {sorted(k for k, w in want.items() if w)})")
+        del model, res, fwd
+        torch.cuda.empty_cache()
+        if n_attn:      # the plain route: the kernel's plain version in its place
+            n0 = fa.launches
+            with plain_flash(fa):
+                plain = serve.serve_lm(args, cfg=cfg)
+            plain.pop("model")
+            check(fa.launches == n0, f"{arch}: the plain route launched the flash kernel")
+            fam.update(against_plain_route=logits_agree(
+                f"{arch}: kernel route against the plain route", logits,
+                plain["prefill_logits"], labels, cfg.is_moe),
+                plain_route_prefill_ms=plain["prefill_s"] * 1e3)
+            del plain
+        del logits
+        torch.cuda.empty_cache()
+        fam["wall_s"] = time.perf_counter() - t_fam
+        served[arch] = fam
+        print(f"family {arch}: " + json.dumps(fam))
+
+    trained = {}
+    runs = [(arch, dataclasses.replace(get_config(arch), n_layers=n), FAMILIES_TRAIN_ARGV)
+            for arch, n in FAMILIES_TRAIN.items()]
+    runs += [(arch, dataclasses.replace(get_smoke_config(arch), dtype="bfloat16"),
+              FAMILIES_SMOKE_ARGV) for arch in FAMILIES_SMOKE_TRAIN]
+    for arch, tcfg, argv in runs:
+        targs = train.build_parser().parse_args(["--arch", arch, *argv])
+        torch.cuda.reset_peak_memory_stats()
+        n0 = fa.launches_wgmma
+        r = train.train_lm(targs, cfg=tcfg)
+        r.pop("model"), r.pop("opt_state")
+        n = 2 * sum(kind == "attn" for kind in tcfg.layer_kinds)
+        want = math.log(tcfg.vocab_size) + 0.5
+        check(r["flash_launches"] == [n] * targs.steps
+              and fa.launches_wgmma - n0 == n * targs.steps,
+              f"{tcfg.name}: flash launches {r['flash_launches']} a step, expected {n}")
+        check(all(np.isfinite(r["losses"])) and all(np.isfinite(r["grad_norms"]))
+              and all(abs(x - want) <= FAMILIES_LOSS_ATOL for x in r["losses"]),
+              f"{tcfg.name}: losses {r['losses']} (ln V + 0.5 = {want}), grad norms "
+              f"{r['grad_norms']}")
+        trained[tcfg.name] = dict(
+            n_layers=tcfg.n_layers, dtype=tcfg.dtype, batch=[targs.batch_size, targs.seq_len],
+            losses=r["losses"], ln_v_plus_half=want, grad_norms=r["grad_norms"],
+            step_event_ms=r["step_event_ms"], flash_launches_per_step=n,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # deepseek-v2's bf16 smoke step (MLA's widths 24 over 16) through both routes
+    scfg = dataclasses.replace(get_smoke_config("deepseek-v2-236b"), dtype="bfloat16")
+    sbatch = {kk: torch.from_numpy(a).to(dev)
+              for kk, a in train.lm_batch(scfg, np.random.default_rng(0), 4, 256).items()}
+    n0 = fa.launches_wgmma
+    k_loss, k_norms, k_gn = route_step(scfg, dev, sbatch)
+    route_launches = fa.launches_wgmma - n0
+    n0 = fa.launches
+    with plain_flash(fa):
+        p_loss, p_norms, p_gn = route_step(scfg, dev, sbatch)
+    check(fa.launches == n0, "the plain route launched the flash kernel")
+    leaf_rel = max(abs(a - b) / max(b, 1e-30) for a, b in zip(k_norms, p_norms))
+    route = dict(smoke=scfg.name, dtype="bfloat16", batch=[4, 256],
+                 wgmma_launches=route_launches, loss=[k_loss, p_loss],
+                 loss_rtol=LM_TRAIN_LOSS_RTOL, grad_norm=[k_gn, p_gn],
+                 leaf_norm_max_rel_diff=leaf_rel, grad_rtol=LM_ROUTE_GRAD_RTOL)
+    check(route_launches == 2 * scfg.n_layers, f"the MLA smoke step launched the bf16 flash "
+          f"kernel {route_launches} times for {scfg.n_layers} layers")
+    check(abs(k_loss - p_loss) <= LM_TRAIN_LOSS_RTOL * abs(p_loss)
+          and abs(k_gn - p_gn) <= LM_ROUTE_GRAD_RTOL * p_gn and leaf_rel <= LM_ROUTE_GRAD_RTOL,
+          f"kernel and plain routes of the MLA smoke step disagree: {route}")
+
+    print("LM_FAMILIES " + json.dumps(dict(
+        card=card, serve={a: {k: v for k, v in f.items() if k != "split"}
+                          for a, f in served.items()},
+        split={a: f["split"] for a, f in served.items()},
+        train=trained, route_check=route,
+        flash={k: v for k, v in row.items() if not k.endswith("_spread")},
+        phase_s=time.perf_counter() - t_phase)))
     return row
 
 
@@ -2569,6 +2959,11 @@ def main() -> None:
 
     # 9b. the LM training path (LM_TRAIN): the flash row's train_* fields
     extra_rows["flash_attention"][1].update(lm_train_phase(dev, card))
+
+    # 9c. the MoE, MLA, RG-LRU and xLSTM families (LM_FAMILIES): the flash
+    # row's qwen3_* and mla_* fields, the kernel at qwen3-moe's serve shape
+    # and at MLA's qk width 192 over v width 128
+    extra_rows["flash_attention"][1].update(lm_families_phase(dev, card))
 
     # 10. the autotuner and its cost model (AUTOTUNE)
     autotune_phase(dev, compiled, xp_all, xw_all)

@@ -8,7 +8,8 @@ array count and the caller's ``extra`` dict).
   * **flat dicts**: a checkpoint holds ``{key: tensor or ndarray}``; the
     reference's ``{"ta": bank}`` pytree flattens to the same key ``ta``,
     and its LM ``{"params": tree}`` to ``params/groups/0/0/mix/wq`` and
-    the like (the reference joins a leaf's path with ``/``);
+    the like, to any depth (MoE's ``params/groups/1/0/ff/shared/gate``:
+    the reference joins a leaf's path with ``/``);
   * **bf16** is written as the reference writes it, numpy's 2-byte void
     (numpy has no bfloat16), and restored into a bf16 target bit for bit;
   * **atomic**: written to ``step_<n>.tmp`` then renamed, so a writer

@@ -1,5 +1,10 @@
 // Causal flash attention forward for Hopper (sm_90a), the LM substrate's
-// attention: q (B, S, H, hd) x k, v (B, T, KH, hd) -> o (B, S, H, hd).
+// attention: q (B, S, H, hd) x k (B, T, KH, hd), v (B, T, KH, dv) ->
+// o (B, S, H, dv).  The qk width hd and the v width dv are separate, as in
+// the TPU kernel (hd from q and k, dv from v): each pads with zeros to a
+// tile width, HDK for q and k and HDV for v and o.  Taken: dv <= hd <= 128
+// (HDV = HDK), and hd in (128, 192] with dv <= 128 (HDK 192, HDV 128:
+// DeepSeek-V2's MLA attends with qk width 128 + 64 over v width 128).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // _flash_kernel (pallas_call in flash_forward, :104).  Same function:
@@ -21,6 +26,8 @@
 // Bounds on the H100: at the tinyllama prefill (B 16, S = T 1024, H 32,
 // hd 64) the causal products are 68.8 GFLOP against ~151 MB of q, k, v and
 // o, so the dense bf16 tensor-core rate (989 TFLOP/s) bounds it: 0.070 ms.
+// At DeepSeek-V2's MLA prefill (B 16, S = T 1024, H = KH 128, 192 over 128)
+// they are 688 GFLOP (0.70 ms) against 2.68 GB (0.80 ms): bytes bound it.
 // At hd 64 the exponentials cost about as much again: one MUFU.EX2 per
 // score at 16 per SM per clock takes as long as the score's 256 FLOPs at
 // that rate.
@@ -33,10 +40,13 @@
 //   16 of them.  The block walks 64-key kv tiles, the q tiles with the most
 //   kv tiles first.  k and v tiles arrive in two-stage rings in shared
 //   memory by 16-byte cp.async, stored in the swizzled layout wgmma reads
-//   without bank conflicts (128-byte swizzle at hd 64).  A warp's q rows
-//   are loaded once into A fragments (ldmatrix) and stay in registers.
-//   S = Q K^T is wgmma.m64n64k16 with Q from registers and K from shared
-//   memory; O += P V is wgmma.m64nHDPk16 with P from registers and V read
+//   without bank conflicts (128-byte swizzle at hd 64).  Up to HDK 128 a
+//   warp's q rows are loaded once into A fragments (ldmatrix) and stay in
+//   registers; at HDK 192 those 48 registers a thread would spill beside
+//   the accumulators, so q stays in shared memory and wgmma reads it from
+//   there (an A descriptor over the warpgroup's 64 rows).
+//   S = Q K^T is wgmma.m64n64k16 with K from shared memory; O += P V is
+//   wgmma.m64nHDVk16 with P from registers and V read
 //   transposed (MN-major) from shared memory; both accumulate in float32.
 //   Each step issues S of tile j + 1 and P V of tile j asynchronously, then
 //   runs the softmax of tile j + 1 on its accumulator fragments while the
@@ -49,14 +59,17 @@
 //   rounding).  Masks are applied only on tiles that cross the diagonal or
 //   the t_len edge.  The output is staged in the warp's own slice of the q
 //   tile and written with 16-byte stores.  Head widths are padded with
-//   zeros to HDP in {16, 32, 64, 128}; where hd is not a multiple of 8 (or
-//   a pointer is not 16-byte aligned) tiles are staged with 2-byte loads
-//   instead of cp.async, the products unchanged.
+//   zeros to HDK = HDV in {16, 32, 64, 128}, or to (192, 128); dv == hd
+//   up to 64 takes an instantiation with one width (SPLIT false).  Where
+//   hd or dv is not a multiple of 8 (or a pointer is not 16-byte aligned)
+//   tiles are staged with 2-byte loads instead of cp.async, the products
+//   unchanged.
 // * float32: flash_fwd_simt_kernel, on the CUDA cores (tensor cores take
 //   float32 only as TF32, which would not keep the reference's 2e-5
 //   tolerance).  One block per (batch * head, 64-row q
 //   tile), four threads per query row, 64-key k/v tiles staged in shared
-//   memory as float32, probabilities through shared memory.
+//   memory as float32, probabilities through shared memory.  Widths pad to
+//   HDK = HDV in {32, 64, 128}, or to (192, 128).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -74,25 +87,27 @@ constexpr int kBK = 64;          // keys per kv tile
 constexpr int kThreads = 256;    // four per query row
 constexpr int kKeysPerThread = kBK / 4;
 
-template <int HDP>
+template <int HDK, int HDV>
 constexpr size_t simt_smem_bytes() {
-  return sizeof(float) * (kBQ * (HDP + 1) + 2 * kBK * (HDP + 1) + kBQ * (kBK + 1));
+  return sizeof(float) *
+         (kBQ * (HDK + 1) + kBK * (HDK + 1) + kBK * (HDV + 1) + kBQ * (kBK + 1));
 }
 
-// HDP: head dimension padded to a power of two (>= hd); the padding is zero.
-template <int HDP>
+// HDK, HDV: the qk and v widths padded (>= hd, >= dv); the padding is zero.
+template <int HDK, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, int s_len, int t_len, int n_heads,
-                      int n_kv_heads, int hd, int causal, float scale) {
-  constexpr int LD = HDP + 1;
+                      int n_kv_heads, int hd, int dv, int causal, float scale) {
+  constexpr int LD = HDK + 1;
+  constexpr int LV = HDV + 1;
   constexpr int LP = kBK + 1;
   extern __shared__ float smem[];
   float* qs = smem;                  // kBQ x LD
   float* ks = qs + kBQ * LD;         // kBK x LD
-  float* vs = ks + kBK * LD;         // kBK x LD
-  float* ps = vs + kBK * LD;         // kBQ x LP
+  float* vs = ks + kBK * LD;         // kBK x LV
+  float* ps = vs + kBK * LV;         // kBQ x LP
 
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int hk = h / (n_heads / n_kv_heads);
@@ -101,37 +116,37 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int r = tid >> 2, quad = tid & 3;
   const int qrow = q0 + r;
   const size_t q_step = static_cast<size_t>(n_heads) * hd;
-  const size_t kv_step = static_cast<size_t>(n_kv_heads) * hd;
+  const size_t k_step = static_cast<size_t>(n_kv_heads) * hd;
+  const size_t v_step = static_cast<size_t>(n_kv_heads) * dv;
+  const size_t o_step = static_cast<size_t>(n_heads) * dv;
   const float* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
-  const float* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
-  const float* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const float* kb = k + static_cast<size_t>(b) * t_len * k_step + static_cast<size_t>(hk) * hd;
+  const float* vb = v + static_cast<size_t>(b) * t_len * v_step + static_cast<size_t>(hk) * dv;
 
-  for (int i = tid; i < kBQ * HDP; i += kThreads) {
-    const int rr = i / HDP, d = i % HDP;
+  for (int i = tid; i < kBQ * HDK; i += kThreads) {
+    const int rr = i / HDK, d = i % HDK;
     float x = 0.f;
     if (q0 + rr < s_len && d < hd) x = qb[(q0 + rr) * q_step + d];
     qs[rr * LD + d] = x;
   }
 
   float m = kNegInf, l = 0.f;
-  float acc[HDP / 4];
+  float acc[HDV / 4];
 #pragma unroll
-  for (int j = 0; j < HDP / 4; ++j) acc[j] = 0.f;
+  for (int j = 0; j < HDV / 4; ++j) acc[j] = 0.f;
 
   int n_tiles = (t_len + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the last tile's readers are done; q is staged
-    for (int i = tid; i < kBK * HDP; i += kThreads) {
-      const int rr = i / HDP, d = i % HDP;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + rr < t_len && d < hd) {
-        kx = kb[(k0 + rr) * kv_step + d];
-        vx = vb[(k0 + rr) * kv_step + d];
-      }
-      ks[rr * LD + d] = kx;
-      vs[rr * LD + d] = vx;
+    for (int i = tid; i < kBK * HDK; i += kThreads) {
+      const int rr = i / HDK, d = i % HDK;
+      ks[rr * LD + d] = k0 + rr < t_len && d < hd ? kb[(k0 + rr) * k_step + d] : 0.f;
+    }
+    for (int i = tid; i < kBK * HDV; i += kThreads) {
+      const int rr = i / HDV, d = i % HDV;
+      vs[rr * LV + d] = k0 + rr < t_len && d < dv ? vb[(k0 + rr) * v_step + d] : 0.f;
     }
     __syncthreads();
 
@@ -140,7 +155,7 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kKeysPerThread; ++i) s[i] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HDP; ++d) {
+    for (int d = 0; d < HDK; ++d) {
       const float qd = qs[r * LD + d];
 #pragma unroll
       for (int i = 0; i < kKeysPerThread; ++i)
@@ -173,23 +188,23 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // this thread's output dimensions quad, quad + 4, ...
 #pragma unroll
-    for (int j = 0; j < HDP / 4; ++j) acc[j] *= corr;
+    for (int j = 0; j < HDV / 4; ++j) acc[j] *= corr;
 #pragma unroll 4
     for (int key = 0; key < kBK; ++key) {
       const float p = ps[r * LP + key];
 #pragma unroll
-      for (int j = 0; j < HDP / 4; ++j)
-        acc[j] = fmaf(p, vs[key * LD + quad + 4 * j], acc[j]);
+      for (int j = 0; j < HDV / 4; ++j)
+        acc[j] = fmaf(p, vs[key * LV + quad + 4 * j], acc[j]);
     }
   }
 
   if (qrow < s_len) {
-    float* ob = o + (static_cast<size_t>(b) * s_len + qrow) * q_step + static_cast<size_t>(h) * hd;
+    float* ob = o + (static_cast<size_t>(b) * s_len + qrow) * o_step + static_cast<size_t>(h) * dv;
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < HDP / 4; ++j) {
+    for (int j = 0; j < HDV / 4; ++j) {
       const int d = quad + 4 * j;
-      if (d < hd) ob[d] = acc[j] / denom;
+      if (d < dv) ob[d] = acc[j] / denom;
     }
     // the row's log-sum-exp for the backward: m is in scaled units here
     if (lse != nullptr && quad == 0)
@@ -197,19 +212,19 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HDP>
+template <int HDK, int HDV>
 int launch_simt(const void* q, const void* k, const void* v, void* o, void* lse, dim3 grid,
-                int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
+                int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int dv, int causal,
                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = simt_smem_bytes<HDP>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_simt_kernel<HDP>,
+  constexpr size_t smem = simt_smem_bytes<HDK, HDV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_simt_kernel<HDK, HDV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_simt_kernel<HDP><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_simt_kernel<HDK, HDV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), s_len,
-      t_len, n_heads, n_kv_heads, hd, causal, scale);
+      t_len, n_heads, n_kv_heads, hd, dv, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,8 +243,8 @@ constexpr int kTcBK = 64;                   // keys per kv tile
 // Shared tiles hold rows of HDP bf16 in swizzle atoms of AW = min(HDP, 64)
 // elements (32, 64 or 128 bytes): the 16-byte chunk c of row r sits at
 // chunk c ^ ((r * AW * 2 / 128) % (AW / 8)) of its atom row, the layout
-// wgmma reads without bank conflicts; at HDP 128 a tile is two atoms wide,
-// stored one after the other.
+// wgmma reads without bank conflicts; at HDP 128 (192) a tile is two
+// (three) atoms wide, stored one after the other.
 template <int HDP>
 struct TcTile {
   static constexpr int AW = HDP < 64 ? HDP : 64;
@@ -238,10 +253,6 @@ struct TcTile {
   // descriptor layout type: 128-, 64- or 32-byte swizzle
   static constexpr uint64_t SWIZZLE = static_cast<uint64_t>(AW == 64 ? 1 : AW == 32 ? 2 : 3) << 62;
   static constexpr int KV = kTcBK * HDP;              // elements of a k or v tile
-  static constexpr size_t SMEM = sizeof(bf16) * HDP * (kTcBQ + 4 * kTcBK);  // q, 2 x (k, v)
-  // resident blocks per SM the registers are budgeted for (at most 128 a
-  // thread for two blocks); HDP 128 needs more
-  static constexpr int MIN_BLOCKS = HDP > 64 ? 1 : 2;
 
   // element offset of chunk c of row r in a tile of `rows` rows
   static __device__ __forceinline__ int at(int r, int c, int rows) {
@@ -353,6 +364,17 @@ __device__ __forceinline__ void wgmma_n64_k(float (&d)[32], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, float32) (+)= a (64 x 16, shared, K-major) b (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 16, float32) += a (64 x 16, registers) b (16 x 16, shared, MN-major)
 __device__ __forceinline__ void wgmma_n16_mn(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -398,9 +420,9 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 // rows [r0, r0 + n_rows) of a (rows, hd) matrix with row stride `step`
-// elements -> a swizzled tile, zero past `rows` and `hd`
+// elements -> a swizzled tile of width HDP, zero past `rows` and `hd`
 template <int HDP>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, size_t step, int r0,
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int step, int r0,
                                            int rows, int n_rows, int hd, bool vec16) {
   using T = TcTile<HDP>;
   if (vec16) {
@@ -433,6 +455,34 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], const uint32_t (&qf)[HD
     wgmma_n64_k(s, qf[kk], smem_desc(p, 16, T::SBO, T::SWIZZLE), kk > 0);
   }
   wgmma_commit();
+}
+
+// The same with Q read from shared memory: the warpgroup's 64 rows, from
+// row q_row0 of the kTcBQ-row q tile, K-major like K
+template <int HDP>
+__device__ __forceinline__ void qk_issue_ss(float (&s)[32], const bf16* qt, int q_row0,
+                                            const bf16* kt) {
+  using T = TcTile<HDP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int atom = kk * 16 / T::AW, col = kk * 16 % T::AW;
+    const bf16* a = qt + atom * kTcBQ * T::AW + q_row0 * T::AW + col;
+    const bf16* b = kt + atom * kTcBK * T::AW + col;
+    wgmma_n64_ss(s, smem_desc(a, 16, T::SBO, T::SWIZZLE), smem_desc(b, 16, T::SBO, T::SWIZZLE),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+// S = Q K^T of one k tile, issued asynchronously, Q from shared memory
+// (Q_SMEM: qs, the warpgroup's rows from q_row0) or from registers (qf)
+template <int HDP, bool Q_SMEM>
+__device__ __forceinline__ void qk_any(float (&s)[32],
+                                       const uint32_t (&qf)[Q_SMEM ? 1 : HDP / 16][4],
+                                       const bf16* qs, int q_row0, const bf16* kt) {
+  if constexpr (Q_SMEM) qk_issue_ss<HDP>(s, qs, q_row0, kt);
+  else qk_issue<HDP>(s, qf, kt);
 }
 
 // O (64 x HDP per warpgroup) += P V, P from registers, V (64 keys) MN-major
@@ -505,18 +555,40 @@ __device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2])
   for (int i = 0; i < N; ++i) acc[i] *= corr[(i >> 1) & 1];
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(kTcThreads, TcTile<HDP>::MIN_BLOCKS)
+// q, 2 k and 2 v stages in shared memory
+template <int HDK, int HDV>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (HDK * (kTcBQ + 2 * kTcBK) + HDV * 2 * kTcBK);
+}
+
+// HDK, HDV: the qk and v widths padded; HDK > 128 keeps q in shared memory.
+// SPLIT: dv may differ from hd; without it v and o take q's and k's width
+// and strides, and the kernel keeps no second width in registers.  Taken
+// for dv == hd up to HDK 64, where two blocks an SM leave 128 registers a
+// thread: there the second width's registers spill more (hd 64: 136 bytes
+// of stack against 48) and the kernel ran 2.9% slower in turns
+// (scripts/torch_flash_ab.py).  At HDK 128 (one block an SM) the split
+// kernel ran 3.3% faster than a one-width one, so dv == hd takes it there
+// too.  Resident blocks per SM the registers are budgeted for: two up to
+// HDK 64, else one.
+template <int HDK, int HDV, bool SPLIT>
+__global__ void __launch_bounds__(kTcThreads, HDK > 64 ? 1 : 2)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        float* __restrict__ lse, int s_len, int t_len, int n_heads,
-                       int n_kv_heads, int hd, int causal, float scale, int vec16) {
-  using T = TcTile<HDP>;
-  constexpr int BQ = kTcBQ, BK = kTcBK, CPR = HDP / 8;
+                       int n_kv_heads, int hd, int dv_, int q_step, int k_step, int v_step_,
+                       int o_step_, int causal, float scale, int vec16) {
+  static_assert(SPLIT || HDK == HDV, "one width needs HDK == HDV");
+  const int dv = SPLIT ? dv_ : hd;
+  const int v_step = SPLIT ? v_step_ : k_step, o_step = SPLIT ? o_step_ : q_step;
+  using TK = TcTile<HDK>;
+  using TV = TcTile<HDV>;
+  constexpr bool Q_SMEM = HDK > 128;
+  constexpr int BQ = kTcBQ, BK = kTcBK, CPR = HDV / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ rows
-  bf16* ks = qs + BQ * HDP;                        // 2 stages of BK rows
-  bf16* vs = ks + 2 * T::KV;                       // 2 stages of BK rows
+  bf16* ks = qs + BQ * HDK;                        // 2 stages of BK rows
+  bf16* vs = ks + 2 * TK::KV;                      // 2 stages of BK rows
 
   const int b = blockIdx.x / n_heads, h = blockIdx.x % n_heads;
   const int hk = h / (n_heads / n_kv_heads);
@@ -524,11 +596,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int wrow = (threadIdx.x >> 5) * 16;   // the warp's first row in the q tile
   const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int row_lo = q0 + wrow, row0 = row_lo + g;
-  const size_t q_step = static_cast<size_t>(n_heads) * hd;
-  const size_t kv_step = static_cast<size_t>(n_kv_heads) * hd;
+  // row strides in elements (a row is far under 2^31); offsets in size_t
   const bf16* qb = q + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
-  const bf16* kb = k + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
-  const bf16* vb = v + static_cast<size_t>(b) * t_len * kv_step + static_cast<size_t>(hk) * hd;
+  const bf16* kb = k + static_cast<size_t>(b) * t_len * k_step + static_cast<size_t>(hk) * hd;
+  const bf16* vb = v + static_cast<size_t>(b) * t_len * v_step + static_cast<size_t>(hk) * dv;
   const bool vec = vec16 != 0;
   const float sl2 = scale * 1.4426950408889634f;   // scale * log2(e)
 
@@ -539,31 +610,35 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // q and k of tile 0, then k of tile 1 and v of tile 0
-  stage_tile<HDP>(qs, qb, q_step, q0, s_len, BQ, hd, vec);
-  stage_tile<HDP>(ks, kb, kv_step, 0, t_len, BK, hd, vec);
+  stage_tile<HDK>(qs, qb, q_step, q0, s_len, BQ, hd, vec);
+  stage_tile<HDK>(ks, kb, k_step, 0, t_len, BK, hd, vec);
   cp_async_commit();
-  if (n_tiles > 1) stage_tile<HDP>(ks + T::KV, kb, kv_step, BK, t_len, BK, hd, vec);
-  stage_tile<HDP>(vs, vb, kv_step, 0, t_len, BK, hd, vec);
+  if (n_tiles > 1) stage_tile<HDK>(ks + TK::KV, kb, k_step, BK, t_len, BK, hd, vec);
+  stage_tile<HDV>(vs, vb, v_step, 0, t_len, BK, dv, vec);
   cp_async_commit();
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   fence_proxy_async();
   __syncthreads();
 
   // the warp's 16 q rows as A fragments, in registers for the whole loop
-  uint32_t qf[HDP / 16][4];
+  // (at HDK 192 wgmma reads the warpgroup's rows from shared memory)
+  const int wg_row0 = (threadIdx.x >> 7) * 64;
+  uint32_t qf[Q_SMEM ? 1 : HDK / 16][4];
+  if constexpr (!Q_SMEM) {
 #pragma unroll
-  for (int kk = 0; kk < HDP / 16; ++kk) {
-    const int r = wrow + (lane & 7) + ((lane >> 3) & 1) * 8;
-    ldmatrix_x4(qf[kk], qs + T::at(r, 2 * kk + (lane >> 4), BQ));
+    for (int kk = 0; kk < HDK / 16; ++kk) {
+      const int r = wrow + (lane & 7) + ((lane >> 3) & 1) * 8;
+      ldmatrix_x4(qf[kk], qs + TK::at(r, 2 * kk + (lane >> 4), BQ));
+    }
   }
 
-  float acc[HDP / 2];
+  float acc[HDV / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
   float s[32];
   uint32_t pf[4][4];
-  qk_issue<HDP>(s, qf, ks);
+  qk_any<HDK, Q_SMEM>(s, qf, qs, wg_row0, ks);
   wgmma_wait<0>();
   fence_regs(s);
   softmax_tile(s, m, l, corr, masked(0), 0, row0, t_len, causal, sl2, tq);
@@ -577,12 +652,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_proxy_async();
     __syncthreads();       // and every warp is done with the stages refilled now
     if (t + 2 < n_tiles)
-      stage_tile<HDP>(ks + (t & 1) * T::KV, kb, kv_step, (t + 2) * BK, t_len, BK, hd, vec);
-    stage_tile<HDP>(vs + ((t + 1) & 1) * T::KV, vb, kv_step, (t + 1) * BK, t_len, BK, hd, vec);
+      stage_tile<HDK>(ks + (t & 1) * TK::KV, kb, k_step, (t + 2) * BK, t_len, BK, hd, vec);
+    stage_tile<HDV>(vs + ((t + 1) & 1) * TV::KV, vb, v_step, (t + 1) * BK, t_len, BK, dv, vec);
     cp_async_commit();
-    qk_issue<HDP>(s, qf, ks + ((t + 1) & 1) * T::KV);
+    qk_any<HDK, Q_SMEM>(s, qf, qs, wg_row0, ks + ((t + 1) & 1) * TK::KV);
     rescale(acc, corr);
-    pv_issue<HDP>(acc, pf, vs + (t & 1) * T::KV);
+    pv_issue<HDV>(acc, pf, vs + (t & 1) * TV::KV);
     wgmma_wait<1>();       // S of tile t + 1
     fence_regs(s);
     softmax_tile(s, m, l, corr, masked(t + 1), (t + 1) * BK, row0, t_len, causal, sl2, tq);
@@ -595,13 +670,15 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   fence_proxy_async();
   __syncthreads();
   rescale(acc, corr);
-  pv_issue<HDP>(acc, pf, vs + ((n_tiles - 1) & 1) * T::KV);
+  pv_issue<HDV>(acc, pf, vs + ((n_tiles - 1) & 1) * TV::KV);
   wgmma_wait<0>();
   fence_regs(acc);
   fence_regs(pf);
 
-  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own 16 x HDP
-  // slice of the q tile (chunk c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8)
+  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own 16 x HDV
+  // slice of the q tile (chunk c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8);
+  // every warp's reads of q (ldmatrix, or wgmma at HDK 192) ended before
+  // the __syncthreads above
   const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
   // the rows' log-sum-exp for the backward: m is in raw-dot units and l the
   // natural-base sum, so lse = m * scale + log(l); the quad shares m and l
@@ -612,53 +689,72 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       lse[(static_cast<size_t>(b) * s_len + row0 + 8) * n_heads + h] =
           fmaf(m[1], scale, logf(d1));
   }
-  bf16* os = qs + wrow * HDP;
+  bf16* os = qs + wrow * HDV;
 #pragma unroll
-  for (int n = 0; n < HDP / 8; ++n) {
+  for (int n = 0; n < HDV / 8; ++n) {
     *reinterpret_cast<uint32_t*>(os + n * 64 + g * 8 + 2 * tq) =
         pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
     *reinterpret_cast<uint32_t*>(os + (CPR + n) * 64 + g * 8 + 2 * tq) =
         pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
   }
   __syncwarp();
-  bf16* ob = o + static_cast<size_t>(b) * s_len * q_step + static_cast<size_t>(h) * hd;
+  bf16* ob = o + static_cast<size_t>(b) * s_len * o_step + static_cast<size_t>(h) * dv;
   if (vec) {
     for (int i = lane; i < 16 * CPR; i += 32) {
       const int r = i / CPR, c = i % CPR;
-      if (row_lo + r < s_len && c * 8 < hd)
-        *reinterpret_cast<uint4*>(ob + (row_lo + r) * q_step + c * 8) =
+      if (row_lo + r < s_len && c * 8 < dv)
+        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(row_lo + r) * o_step + c * 8) =
             *reinterpret_cast<const uint4*>(os + ((r >> 3) * CPR + c) * 64 + (r & 7) * 8);
     }
   } else {
-    for (int i = lane; i < 16 * HDP; i += 32) {
-      const int r = i / HDP, d = i % HDP;
-      if (row_lo + r < s_len && d < hd)
-        ob[(row_lo + r) * q_step + d] =
+    for (int i = lane; i < 16 * HDV; i += 32) {
+      const int r = i / HDV, d = i % HDV;
+      if (row_lo + r < s_len && d < dv)
+        ob[static_cast<size_t>(row_lo + r) * o_step + d] =
             os[((r >> 3) * CPR + (d >> 3)) * 64 + (r & 7) * 8 + (d & 7)];
     }
   }
 }
 
-template <int HDP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b_total,
-                 int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int causal,
-                 float scale, int vec16, cudaStream_t stream) {
-  using T = TcTile<HDP>;
+template <int HDK, int HDV, bool SPLIT>
+int launch_wgmma_as(const void* q, const void* k, const void* v, void* o, void* lse,
+                    int b_total, int s_len, int t_len, int n_heads, int n_kv_heads, int hd,
+                    int dv, int causal, float scale, int vec16, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<HDK, HDV>();
   const dim3 grid(b_total * n_heads, (s_len + kTcBQ - 1) / kTcBQ);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HDP>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<HDK, HDV, SPLIT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(T::SMEM));
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_wgmma_kernel<HDP><<<grid, kTcThreads, T::SMEM, stream>>>(
+  flash_fwd_wgmma_kernel<HDK, HDV, SPLIT><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), static_cast<float*>(lse), s_len,
-      t_len, n_heads, n_kv_heads, hd, causal, scale, vec16);
+      t_len, n_heads, n_kv_heads, hd, dv, n_heads * hd, n_kv_heads * hd, n_kv_heads * dv,
+      n_heads * dv, causal, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int hd, int t_len, int n_heads, int n_kv_heads) {
-  return hd <= 0 || hd > 128 || t_len <= 0 || n_kv_heads <= 0 || n_heads % n_kv_heads;
+// one width (dv == hd, up to HDK 64) or two
+template <int HDK, int HDV>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse, int b_total,
+                 int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int dv, int causal,
+                 float scale, int vec16, cudaStream_t stream) {
+  if constexpr (HDK == HDV && HDK <= 64) {
+    if (dv == hd)
+      return launch_wgmma_as<HDK, HDV, false>(q, k, v, o, lse, b_total, s_len, t_len,
+                                              n_heads, n_kv_heads, hd, dv, causal, scale,
+                                              vec16, stream);
+  }
+  return launch_wgmma_as<HDK, HDV, true>(q, k, v, o, lse, b_total, s_len, t_len, n_heads,
+                                         n_kv_heads, hd, dv, causal, scale, vec16, stream);
+}
+
+// the widths the kernels take: dv <= hd <= 128, or hd <= 192 with dv <= 128
+// (flash_attention.py:takes)
+bool bad_shape(int hd, int dv, int t_len, int n_heads, int n_kv_heads) {
+  return dv <= 0 || dv > hd || hd > 192 || dv > 128 || t_len <= 0 || n_kv_heads <= 0 ||
+         n_heads % n_kv_heads;
 }
 
 }  // namespace
@@ -666,47 +762,53 @@ bool bad_shape(int hd, int t_len, int n_heads, int n_kv_heads) {
 // float32 on the CUDA cores
 extern "C" int flash_forward_simt_launch(const void* q, const void* k, const void* v,
                                          void* o, void* lse, int b_total, int s_len, int t_len,
-                                         int n_heads, int n_kv_heads, int hd,
+                                         int n_heads, int n_kv_heads, int hd, int dv,
                                          int causal, float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(hd, t_len, n_heads, n_kv_heads))
+  if (bad_shape(hd, dv, t_len, n_heads, n_kv_heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b_total * n_heads, (s_len + kBQ - 1) / kBQ);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 32)
-    return launch_simt<32>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                           causal, scale, st);
+    return launch_simt<32, 32>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                               dv, causal, scale, st);
   if (hd <= 64)
-    return launch_simt<64>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                           causal, scale, st);
-  return launch_simt<128>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
-                          causal, scale, st);
+    return launch_simt<64, 64>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                               dv, causal, scale, st);
+  if (hd <= 128)
+    return launch_simt<128, 128>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                                 dv, causal, scale, st);
+  return launch_simt<192, 128>(q, k, v, o, lse, grid, s_len, t_len, n_heads, n_kv_heads, hd,
+                               dv, causal, scale, st);
 }
 
 // bfloat16 on the tensor cores
 extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const void* v,
                                           void* o, void* lse, int b_total, int s_len, int t_len,
-                                          int n_heads, int n_kv_heads, int hd, int causal,
-                                          float scale, void* stream) {
+                                          int n_heads, int n_kv_heads, int hd, int dv,
+                                          int causal, float scale, void* stream) {
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
-  if (bad_shape(hd, t_len, n_heads, n_kv_heads))
+  if (bad_shape(hd, dv, t_len, n_heads, n_kv_heads))
     return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  const int vec16 = hd % 8 == 0 && addr_bits % 16 == 0;
+  const int vec16 = hd % 8 == 0 && dv % 8 == 0 && addr_bits % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd <= 16)
-    return launch_wgmma<16>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                            causal, scale, vec16, st);
+    return launch_wgmma<16, 16>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
+                                hd, dv, causal, scale, vec16, st);
   if (hd <= 32)
-    return launch_wgmma<32>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                            causal, scale, vec16, st);
+    return launch_wgmma<32, 32>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
+                                hd, dv, causal, scale, vec16, st);
   if (hd <= 64)
-    return launch_wgmma<64>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                            causal, scale, vec16, st);
-  return launch_wgmma<128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
-                           causal, scale, vec16, st);
+    return launch_wgmma<64, 64>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
+                                hd, dv, causal, scale, vec16, st);
+  if (hd <= 128)
+    return launch_wgmma<128, 128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
+                                  hd, dv, causal, scale, vec16, st);
+  return launch_wgmma<192, 128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
+                                hd, dv, causal, scale, vec16, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

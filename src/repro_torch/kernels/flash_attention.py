@@ -1,6 +1,10 @@
 """Causal flash attention forward, the LM substrate's attention kernel:
-q (B, S, H, hd) x k, v (B, T, KH, hd) -> (B, S, H, hd) in q's dtype, with
-grouped-query heads (query head h reads kv head h // (H / KH)).
+q (B, S, H, hd) x k (B, T, KH, hd), v (B, T, KH, dv) -> (B, S, H, dv) in
+q's dtype, with grouped-query heads (query head h reads kv head
+h // (H / KH)).  The qk width hd and the v width dv are separate, as in
+the reference kernel: the kernels take hd == dv up to 128, and qk widths
+up to 192 over v widths up to 128 (DeepSeek-V2's MLA: 128 + 64 over 128);
+:func:`takes` says which.
 
 :func:`flash_forward` runs ``csrc/flash_attention.cu`` for CUDA tensors and
 :func:`flash_forward_plain` for CPU tensors.  On the card the input type
@@ -27,7 +31,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128      # hd == dv up to this
+MAX_QK_DIM = 192        # hd past MAX_HEAD_DIM, with dv <= MAX_HEAD_DIM
 # C entry point of each input type's kernel
 _ENTRY = {torch.bfloat16: "flash_forward_wgmma_launch",
           torch.float32: "flash_forward_simt_launch"}
@@ -37,6 +42,13 @@ _ENTRY = {torch.bfloat16: "flash_forward_wgmma_launch",
 launches = 0
 launches_wgmma = 0
 launches_simt = 0
+
+
+def takes(hd: int, dv: int) -> bool:
+    """Whether the kernels take qk width ``hd`` with v width ``dv``: each
+    width pads to the kernels' tile widths, dv <= hd (the narrower v tile's
+    pad is zero), both up to 128, or hd up to 192 over dv up to 128."""
+    return 0 < dv <= hd and (hd <= MAX_HEAD_DIM or (hd <= MAX_QK_DIM and dv <= MAX_HEAD_DIM))
 
 
 def _check(q, k, v):
@@ -59,7 +71,8 @@ def _check(q, k, v):
 
 def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = False):
     """Plain PyTorch version (any device): one masked softmax over all
-    keys in float32 -> (B, S, H, dv), and with ``return_lse`` also each
+    keys in float32 -> (B, S, H, dv) (v's width dv may differ from the qk
+    width hd; the scale is hd^-0.5), and with ``return_lse`` also each
     row's log-sum-exp (B, S, H) float32, ``max + log(max(l, 1e-30))``."""
     _check(q, k, v)
     B, S, H, hd = q.shape
@@ -83,7 +96,7 @@ def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = Fals
 
 
 def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False):
-    """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, hd):
+    """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, dv):
     the tensor-core kernel for bf16, the CUDA-core kernel for float32; with
     ``return_lse`` the kernel also writes each row's log-sum-exp (B, S, H)
     float32 -> ``(out, lse)``."""
@@ -97,19 +110,19 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     B, S, H, hd = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    if v.shape[3] != hd or hd > MAX_HEAD_DIM:
-        raise ValueError(f"the kernel takes dv == hd <= {MAX_HEAD_DIM}, got "
-                         f"hd {hd}, dv {v.shape[3]}")
-    out = torch.empty_like(q)
+    T, KH, dv = k.shape[1], k.shape[2], v.shape[3]
+    if not takes(hd, dv):
+        raise ValueError(f"the kernel takes dv <= hd <= {MAX_HEAD_DIM}, or hd <= "
+                         f"{MAX_QK_DIM} with dv <= {MAX_HEAD_DIM}; got hd {hd}, dv {dv}")
+    out = torch.empty((B, S, H, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     P, I = _build.P, _build.I
     fn = _build.entry("flash_attention", _ENTRY[q.dtype],
-                      [P, P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P])
+                      [P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
              P(None) if lse is None else _build.ptr(lse),
-             B, S, T, H, KH, hd, int(causal), hd ** -0.5, _build.stream_ptr(q.device))
+             B, S, T, H, KH, hd, dv, int(causal), hd ** -0.5, _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
     launches += 1
     if q.dtype == torch.bfloat16:
@@ -122,7 +135,8 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, return_lse: bool = False):
     """Attention forward == ``repro.kernels.ref.flash_ref`` (kv heads
-    grouped, not expanded); ``return_lse`` adds each row's log-sum-exp
+    grouped, not expanded; v's width may differ from q's and k's);
+    ``return_lse`` adds each row's log-sum-exp
     (B, S, H) float32, the training backward's residual."""
     if q.is_cuda:
         return flash_forward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),

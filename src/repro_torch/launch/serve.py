@@ -689,17 +689,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def serve_lm(args) -> dict:
+def serve_lm(args, cfg=None) -> dict:
     """Prefill a batch of random prompts (half of ``--seq-len``) and decode
-    ``--new-tokens`` greedy tokens, on random weights from seed 0.  Under
+    ``--new-tokens`` greedy tokens, on random weights from seed 0, for
+    ``--arch`` (``--smoke``: its reduced config; ``cfg`` overrides both,
+    as a depth-cut config).  Under
     ``audio_stub`` the prompt is normal frame embeddings and each decode
     input zeros, as the reference serves it; the greedy token is the
     argmax over the first codebook's ``vocab_size`` logits.
 
-    The prefill runs the flash kernel once per layer on the card.  Prints
-    the reference's ``prefill ... ms; decode ... ms/step (... tok/s)`` line
-    and the prefill's flash-kernel launches; returns the prefill logits,
-    the greedy tokens (B, new_tokens + 1), the times and the launch count.
+    The prefill runs the flash kernel once per global attention layer on
+    the card.  Prints the reference's ``prefill ... ms; decode ... ms/step
+    (... tok/s)`` line and the prefill's flash-kernel launches; returns the
+    prefill logits, the greedy tokens (B, new_tokens + 1), the times, the
+    launch count and the model.
     """
     from repro_torch import device as _device
     from repro_torch.configs import get_config, get_smoke_config
@@ -707,8 +710,7 @@ def serve_lm(args) -> dict:
     from repro_torch.kernels import flash_attention as flash_kernel
     from repro_torch.models import steps, transformer
 
-    cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    transformer.check_servable(cfg)
+    cfg = cfg or (get_smoke_config if args.smoke else get_config)(args.arch)
     dev = _device.resolve(args.device)
     if dev.type == "cuda":
         _build.build()                 # compile outside the timed prefill
@@ -759,7 +761,7 @@ def serve_lm(args) -> dict:
     print(f"flash kernel launches in the prefill: {n_flash} "
           f"({cfg.n_layers} layers, {cfg.name}, {cfg.dtype}, {dev})")
     return dict(prefill_logits=prefill_logits, tokens=torch.cat(toks, dim=1),
-                prefill_s=t_prefill, decode_s=t_decode, flash_launches=n_flash)
+                prefill_s=t_prefill, decode_s=t_decode, flash_launches=n_flash, model=model)
 
 
 def main(argv=None) -> None:

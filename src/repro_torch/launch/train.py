@@ -198,7 +198,8 @@ def lm_batch(cfg, nprng: np.random.Generator, batch_size: int, seq_len: int) -> 
 
 def lm_checkpoint_arrays(cfg, model) -> dict:
     """The model's parameters under the reference's checkpoint keys,
-    ``params/<name>`` and ``params/groups/<g>/<li>/<name>[/<sub>]``, with
+    ``params/<name>`` and ``params/groups/<g>/<li>/<name>[/<sub>...]`` (MoE's
+    ``ff/shared/gate`` three levels under a layer), with
     stacked ``(repeats, ...)`` leaves (bf16 as numpy's 2-byte void)."""
     from repro_torch.models import transformer
 

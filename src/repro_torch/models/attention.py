@@ -1,20 +1,19 @@
-"""Attention: GQA (+ qk-norm, RoPE), the flash kernel for a prefill or a
-training forward from position 0, a chunked online softmax otherwise, the
-reference's recomputing backward for training, and dense single-step
-attention for decode.
+"""Attention: GQA (+ qk-norm, RoPE, local windows), the flash kernel for a
+prefill or a training forward from position 0, a chunked online softmax
+otherwise, the reference's recomputing backward for training, and dense
+single-step attention for decode.
 
 Parameters live in an ``nn.ParameterDict`` with the reference's names and
 shapes (``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
-``q_norm``/``k_norm`` (hd,) with qk-norm).  A KV cache is a dict of
-``k``/``v`` (B, S_max, K, hd) tensors and the host int ``pos``; it is
-written in place.
+``q_norm``/``k_norm`` (hd,) with qk-norm).  A global layer's KV cache is a
+dict of ``k``/``v`` (B, S_max, K, hd) tensors and the host int ``pos``; a
+local layer's is a ring of ``min(S_max, window)`` slots with each slot's
+position in ``kv_pos`` (-1 while empty).  Both are written in place.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
-
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -22,23 +21,24 @@ from repro_torch.models.config import ModelConfig
 NEG_INF = -1e30
 # the profiler range around the flash backward's tile ops
 BACKWARD_RANGE = "flash_attention_backward"
+# the profiler range around a layer's attention and its cache update (the
+# projections outside it), in every attention and MLA layer
+ATTEND_RANGE = "attention"
 
 
-def init_attention(generator, cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
+def init_attention(generator, cfg: ModelConfig, dtype, device) -> dict:
     """Random weights from ``generator`` (None: zeros, to be loaded)."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
     def dense(d_in, d_out, shape):
-        if generator is None:
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return layers.init_dense(generator, d_in, d_out, dtype).reshape(shape).to(device)
+        return layers.dense(generator, d_in, d_out, dtype, device, shape)
 
     p = {"wq": dense(d, H * hd, (d, H, hd)), "wk": dense(d, K * hd, (d, K, hd)),
          "wv": dense(d, K * hd, (d, K, hd)), "wo": dense(H * hd, d, (H, hd, d))}
     if cfg.qk_norm:
         p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
         p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
+    return p
 
 
 def _project_qkv(cfg: ModelConfig, params, x, positions):
@@ -196,12 +196,15 @@ def _is_arange(q_pos, kv_pos) -> bool:
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
                     q_chunk: int = 1024, kv_chunk: int = 1024, arange=None):
-    """Causal (optionally windowed) attention: q (B, S, H, hd), k and v
-    (B, T, K, hd) with K dividing H, positions (B, S) and (B, T).
+    """Causal (optionally windowed) attention: q (B, S, H, hd), k (B, T, K,
+    hd) and v (B, T, K, dv) with K dividing H, positions (B, S) and (B, T).
 
-    On the card with ``window == 0`` and S == T at positions 0..S-1 it
+    On the card with ``window == 0`` and S == T at positions 0..S-1, at
+    head widths the kernel takes (``flash_attention.takes``: hd == dv <=
+    128, or qk width hd up to 192 over v width dv <= 128, MLA's), it
     launches the flash kernel on the grouped kv heads; otherwise it runs
-    the chunked online softmax of the reference's jnp route.  ``arange``
+    the chunked online softmax of the reference's jnp route (a windowed
+    layer always, as the reference routes it).  ``arange``
     says the positions are 0..S-1 in every row (the caller made them so);
     None checks on the device, one sync.  When q, k or v needs a gradient
     it goes through the recomputing VJP (``_FlashAttention``), whose
@@ -210,6 +213,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     B, S, H, hd = q.shape
     T = k.shape[1]
     kernel = (q.is_cuda and window == 0 and S == T
+              and _flash_kernel.takes(hd, v.shape[-1])
               and (arange if arange is not None else _is_arange(q_pos, kv_pos)))
     q_chunk, kv_chunk = min(q_chunk, S), min(kv_chunk, T)
     while S % q_chunk:
@@ -241,40 +245,74 @@ def _decode_attention(cfg: ModelConfig, q, k, v, positions, kv_pos, window):
     return out.reshape(B, 1, H, dv).to(q.dtype)
 
 
-def attention_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = None,
-                    arange: bool = False):
-    """Global self-attention with an optional KV cache -> (y (B, S, d), cache).
+def attention_block(cfg: ModelConfig, params, x, positions, *, kind: str = "attn",
+                    cache: dict | None = None, arange: bool = False):
+    """Self-attention, global (``kind`` "attn") or within ``cfg.window``
+    ("local"), with an optional KV cache -> (y (B, S, d), cache).
 
     ``arange``: the caller made ``positions`` 0..S-1 in every row, so the
     flash kernel's route needs no check on the device.
 
-    With a cache, k and v are written at ``cache["pos"]`` in place.  A
-    prefill from position 0 attends over its own q, k and v (empty cache
+    With a global cache, k and v are written at ``cache["pos"]`` in place.
+    A prefill from position 0 attends over its own q, k and v (empty cache
     slots would get weight 0 anyway); one token decodes against the cache;
-    a later chunk attends over the cache with its empty slots masked.
+    a later chunk attends over the cache with its empty slots masked.  A
+    local layer's cache is a ring (``_ring_cache_attention``).
     """
+    window = cfg.window if kind == "local" else 0
     q, k, v = _project_qkv(cfg, params, x, positions)
     S = x.shape[1]
-    if cache is None:
-        out = flash_attention(q, k, v, positions, positions, arange=arange or None)
-    else:
-        pos, ck, cv = cache["pos"], cache["k"], cache["v"]
-        S_max = ck.shape[1]
-        if pos + S > S_max:
-            raise ValueError(f"cache of {S_max} slots cannot take {S} tokens at {pos}")
-        ck[:, pos:pos + S] = k
-        cv[:, pos:pos + S] = v
-        cache["pos"] = pos + S
-        kv_pos = torch.arange(S_max, dtype=positions.dtype,
-                              device=x.device)[None, :].expand(x.shape[0], S_max)
-        if S == 1:
-            out = _decode_attention(cfg, q, ck, cv, positions, kv_pos, 0)
-        elif pos == 0:
-            out = flash_attention(q, k, v, positions, positions, arange=arange or None)
+    with torch.profiler.record_function(ATTEND_RANGE):
+        if cache is None:
+            out = flash_attention(q, k, v, positions, positions, window=window,
+                                  arange=arange or None)
+        elif "kv_pos" in cache:
+            out = _ring_cache_attention(cfg, q, k, v, positions, window, cache)
         else:
-            kv_pos = torch.where(kv_pos < pos + S, kv_pos, 2 ** 30)  # mask empties
-            out = flash_attention(q, ck, cv, positions, kv_pos)
+            pos, ck, cv = cache["pos"], cache["k"], cache["v"]
+            S_max = ck.shape[1]
+            if pos + S > S_max:
+                raise ValueError(f"cache of {S_max} slots cannot take {S} tokens at {pos}")
+            ck[:, pos:pos + S] = k
+            cv[:, pos:pos + S] = v
+            cache["pos"] = pos + S
+            kv_pos = torch.arange(S_max, dtype=positions.dtype,
+                                  device=x.device)[None, :].expand(x.shape[0], S_max)
+            if S == 1:
+                out = _decode_attention(cfg, q, ck, cv, positions, kv_pos, window)
+            elif pos == 0:
+                out = flash_attention(q, k, v, positions, positions, window=window,
+                                      arange=arange or None)
+            else:
+                kv_pos = torch.where(kv_pos < pos + S, kv_pos, 2 ** 30)  # mask empties
+                out = flash_attention(q, ck, cv, positions, kv_pos, window=window)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+
+
+def _ring_cache_attention(cfg: ModelConfig, q, k, v, positions, window, cache):
+    """A sliding-window ring of KV slots (slot = position % ring), written
+    in place.  One token goes to its slot and attends over the ring's
+    filled slots in the window; a prefill (from position 0, as serving
+    starts) attends over its own tokens in the window and leaves its last
+    ``min(S, ring)`` tokens in the ring."""
+    S = q.shape[1]
+    ck, cv, kv_pos, pos = cache["k"], cache["v"], cache["kv_pos"], cache["pos"]
+    ring = ck.shape[1]
+    if S == 1:
+        slot = pos % ring
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+        kv_pos[:, slot] = pos
+        out = _decode_attention(cfg, q, ck, cv, positions, kv_pos, window)
+    else:
+        out = flash_attention(q, k, v, positions, positions, window=window)
+        r = min(S, ring)
+        idx = (pos + S - r + torch.arange(r, device=q.device)) % ring
+        ck[:, idx] = k[:, -r:]
+        cv[:, idx] = v[:, -r:]
+        kv_pos[:, idx] = positions[:, -r:].to(kv_pos.dtype)
+    cache["pos"] = pos + S
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device) -> dict:
@@ -282,3 +320,11 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device) -> dict:
     return {"k": torch.zeros((batch, s_max, K, hd), dtype=dtype, device=device),
             "v": torch.zeros((batch, s_max, K, hd), dtype=dtype, device=device),
             "pos": 0}
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device) -> dict:
+    """A local layer's cache: ``min(s_max, window)`` slots, ``kv_pos`` -1."""
+    ring = min(s_max, cfg.window) if cfg.window else s_max
+    c = init_cache(cfg, batch, ring, dtype, device)
+    c["kv_pos"] = torch.full((batch, ring), -1, dtype=torch.int32, device=device)
+    return c

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -21,6 +22,31 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, dtype) -> torc
     generator's device."""
     w = torch.randn((d_in, d_out), generator=generator, device=generator.device)
     return (w * d_in ** -0.5).to(dtype)
+
+
+def dense(generator, d_in: int, d_out: int, dtype, device, shape=None) -> torch.Tensor:
+    """:func:`init_dense` reshaped to ``shape`` on ``device``, or zeros of
+    that shape when ``generator`` is None (weights to be loaded)."""
+    shape = shape or (d_in, d_out)
+    if generator is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return init_dense(generator, d_in, d_out, dtype).reshape(shape).to(device)
+
+
+def normal(generator, shape, std: float, dtype, device) -> torch.Tensor:
+    """N(0, std^2) drawn in float32 and cast to ``dtype``, or zeros when
+    ``generator`` is None."""
+    if generator is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, device=generator.device) * std
+    return w.to(dtype).to(device)
+
+
+def parameters(tree: dict) -> nn.ParameterDict:
+    """A nested dict of tensors -> nested ``nn.ParameterDict``s, so the
+    parameters' dotted names are the reference tree's paths."""
+    return nn.ParameterDict({k: parameters(v) if isinstance(v, dict) else nn.Parameter(v)
+                             for k, v in tree.items()})
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -46,9 +72,7 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype, gated: bool = True,
     shapes = {"gate": (d_model, d_ff), "up": (d_model, d_ff), "down": (d_ff, d_model)}
     if not gated:
         del shapes["gate"]
-    if generator is None:
-        return {k: torch.zeros(s, dtype=dtype, device=device) for k, s in shapes.items()}
-    return {k: init_dense(generator, *s, dtype).to(device) for k, s in shapes.items()}
+    return {k: dense(generator, *s, dtype, device) for k, s in shapes.items()}
 
 
 def mlp(params, x: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,16 @@
-"""Causal LM assembly for the dense GQA families, as ``nn.Module``s.
+"""Causal LM assembly over every layer family, as ``nn.Module``s.
 
 One :class:`Block` per layer (the reference stacks each group's layers and
-scans over them; here the layers are a ``ModuleList``).  Parameter names
-and shapes follow the reference's tree (``norm1``, ``mix``, ``norm2``,
-``ff``; ``embed``, ``unembed``, ``final_norm``), so
-:func:`params_from_numpy` carries a reference ``init_params`` tree across
-and :func:`params_to_numpy` carries one back.  Parameters are trainable;
-serving runs under ``torch.no_grad()`` (``models/steps.py``).  Ported for
-configs whose layers are all global attention with a dense MLP, with or
-without a stub modality frontend (precomputed frame or patch embeddings)
-and codebook heads (:func:`check_servable`); :func:`loss_fn` is the
-training objective.
+scans over them; here the layers are a ``ModuleList``), built from its
+spec ``(kind, ff)``: the mixer is global or local (windowed) attention, GQA
+or MLA, an RG-LRU, an mLSTM or an sLSTM; the feed-forward a dense MLP, the
+sLSTM's 4/3-wide one, a mixture of experts, or none (mLSTM).  Parameter
+names and shapes follow the reference's tree (``norm1``, ``mix``,
+``norm2``, ``ff``, MoE's ``ff.shared``; ``embed``, ``unembed``,
+``final_norm``), so :func:`params_from_numpy` carries a reference
+``init_params`` tree across and :func:`params_to_numpy` carries one back.
+Parameters are trainable; serving runs under ``torch.no_grad()``
+(``models/steps.py``).  :func:`loss_fn` is the training objective.
 """
 
 from __future__ import annotations
@@ -21,48 +21,43 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mla, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
 
 
-def check_servable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a family the port cannot run yet,
-    naming what is missing and the ROADMAP item that brings it."""
-    missing = []
-    if cfg.attn_kind != "gqa":
-        missing.append(f"{cfg.attn_kind} attention")
-    if cfg.is_moe:
-        missing.append("mixture-of-experts feed-forward layers")
-    other = sorted(set(cfg.layer_kinds) - {"attn"})
-    if other:
-        missing.append(f"{'/'.join(other)} layers")
-    if cfg.window:
-        missing.append("local attention windows")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP queue 1 "
-            "item 9, the LM substrate); the port runs the dense GQA families "
-            "(tinyllama-1.1b, smollm-360m, qwen3-32b, starcoder2-7b) and the "
-            "stub frontends (pixtral-12b, musicgen-large)")
+def _ff_kind(cfg: ModelConfig, layer_idx: int, kind: str) -> str:
+    if kind == "mlstm":
+        return "none"
+    if kind == "slstm":
+        return "dense43"
+    if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
+        return "moe"
+    return "dense"
+
+
+def layer_specs(cfg: ModelConfig) -> list:
+    """Each layer's ``(kind, ff)``, as the reference's ``layer_specs``."""
+    return [(kind, _ff_kind(cfg, i, kind)) for i, kind in enumerate(cfg.layer_kinds)]
 
 
 def group_layers(cfg: ModelConfig) -> list:
-    """[(unit: tuple of layer kinds, repeats)] covering all layers in order,
-    as the reference groups them into the units of its parameter tree (for
-    the servable configs every layer is global attention + dense MLP)."""
-    kinds = cfg.layer_kinds
+    """[(unit: tuple of specs, repeats)] covering all layers in order, as the
+    reference groups them into the units of its parameter tree: maximal runs
+    of the pattern's unit of specs, else single layers (so deepseek-v2's
+    dense layer 0 is a group of its own before its MoE layers)."""
+    specs = layer_specs(cfg)
     p = len(cfg.pattern)
-    groups, i, L = [], 0, len(kinds)
+    groups, i, L = [], 0, len(specs)
     while i < L:
-        unit = kinds[i:i + p]
+        unit = tuple(specs[i:i + p])
         r = 0
-        while i + (r + 1) * p <= L and kinds[i + r * p:i + (r + 1) * p] == unit:
+        while i + (r + 1) * p <= L and tuple(specs[i + r * p:i + (r + 1) * p]) == unit:
             r += 1
         if r >= 1 and len(unit) == p:
             groups.append((unit, r))
             i += r * p
         else:
-            groups.append(((kinds[i],), 1))
+            groups.append(((specs[i],), 1))
             i += 1
     return groups
 
@@ -71,33 +66,75 @@ def _param(t):
     return nn.Parameter(t)
 
 
-def _zeros_or(generator, draw, shape, dtype, device):
-    if generator is None:
-        return torch.zeros(shape, dtype=dtype, device=device)
-    return draw().to(device)
+def _init_mix(generator, cfg: ModelConfig, kind: str, dtype, device) -> dict:
+    if kind in ("attn", "local"):
+        init = mla.init_mla if cfg.attn_kind == "mla" else attention.init_attention
+    else:
+        init = {"rec": rglru.init_rglru, "mlstm": xlstm.init_mlstm,
+                "slstm": xlstm.init_slstm}[kind]
+    return init(generator, cfg, dtype, device)
 
 
 class Block(nn.Module):
-    """Pre-norm attention + dense MLP with residuals."""
+    """Pre-norm mixer and (unless the spec's ff is ``none``) feed-forward,
+    each with a residual."""
 
-    def __init__(self, cfg: ModelConfig, generator, dtype, device):
+    def __init__(self, cfg: ModelConfig, spec, generator, dtype, device):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.spec = cfg, tuple(spec)
+        kind, ff = spec
         d = cfg.d_model
         self.norm1 = _param(torch.zeros((d,), dtype=dtype, device=device))
-        self.mix = attention.init_attention(generator, cfg, dtype, device)
-        self.norm2 = _param(torch.zeros((d,), dtype=dtype, device=device))
-        self.ff = nn.ParameterDict({
-            k: _param(v) for k, v in layers.init_mlp(
-                generator, d, cfg.d_ff, dtype, gated=cfg.gated_mlp, device=device).items()})
+        self.mix = layers.parameters(_init_mix(generator, cfg, kind, dtype, device))
+        if ff != "none":
+            self.norm2 = _param(torch.zeros((d,), dtype=dtype, device=device))
+            if ff == "moe":
+                tree = moe.init_moe(generator, cfg, dtype, device)
+            else:
+                d_ff = int(4 * d / 3) if ff == "dense43" else cfg.d_ff
+                tree = layers.init_mlp(generator, d, d_ff, dtype, gated=cfg.gated_mlp,
+                                       device=device)
+            self.ff = layers.parameters(tree)
 
     def forward(self, x, positions, cache=None, arange: bool = False):
         cfg = self.cfg
-        h, cache = attention.attention_block(
-            cfg, self.mix, layers.rms_norm(x, self.norm1, cfg.norm_eps), positions,
-            cache=cache, arange=arange)
+        kind, ff = self.spec
+        h = layers.rms_norm(x, self.norm1, cfg.norm_eps)
+        if kind in ("attn", "local"):
+            if cfg.attn_kind == "mla":
+                h, cache = mla.mla_block(cfg, self.mix, h, positions, cache=cache,
+                                         arange=arange)
+            else:
+                h, cache = attention.attention_block(cfg, self.mix, h, positions, kind=kind,
+                                                     cache=cache, arange=arange)
+        elif kind == "rec":
+            h, cache = rglru.rglru_block(cfg, self.mix, h, cache=cache)
+        elif kind == "mlstm":
+            h, cache = xlstm.mlstm_block(cfg, self.mix, h, cache=cache)
+        else:
+            h, cache = xlstm.slstm_block(cfg, self.mix, h, cache=cache)
         x = x + h
-        return x + layers.mlp(self.ff, layers.rms_norm(x, self.norm2, cfg.norm_eps)), cache
+        if ff == "none":
+            return x, cache
+        h2 = layers.rms_norm(x, self.norm2, cfg.norm_eps)
+        h2 = moe.moe_ff(cfg, self.ff, h2) if ff == "moe" else layers.mlp(self.ff, h2)
+        return x + h2, cache
+
+    def init_cache(self, batch: int, s_max: int, dtype) -> dict:
+        """This layer's cache: a KV cache (a ring under ``local``), MLA's
+        latent cache, or the recurrent state."""
+        cfg, kind, dev = self.cfg, self.spec[0], self.norm1.device
+        if kind == "attn":
+            if cfg.attn_kind == "mla":
+                return mla.init_mla_cache(cfg, batch, s_max, dtype, dev)
+            return attention.init_cache(cfg, batch, s_max, dtype, dev)
+        if kind == "local":
+            return attention.init_ring_cache(cfg, batch, s_max, dtype, dev)
+        if kind == "rec":
+            return rglru.init_rglru_cache(cfg, batch, dtype, dev)
+        if kind == "mlstm":
+            return xlstm.init_mlstm_cache(cfg, batch, dev)
+        return xlstm.init_slstm_cache(cfg, batch, dev)
 
 
 class Transformer(nn.Module):
@@ -107,22 +144,16 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device="cuda"):
         super().__init__()
-        check_servable(cfg)
         dev = _device.resolve(device)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab_size
         if cfg.frontend != "audio_stub":
-            self.embed = _param(_zeros_or(
-                generator, lambda: (torch.randn((V, d), generator=generator,
-                                                device=generator.device) * 0.02).to(dtype),
-                (V, d), dtype, dev))
+            self.embed = _param(layers.normal(generator, (V, d), 0.02, dtype, dev))
         if not cfg.tie_embeddings:
-            self.unembed = _param(_zeros_or(
-                generator, lambda: layers.init_dense(generator, d, V * cfg.n_codebooks, dtype),
-                (d, V * cfg.n_codebooks), dtype, dev))
-        self.blocks = nn.ModuleList(Block(cfg, generator, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+            self.unembed = _param(layers.dense(generator, d, V * cfg.n_codebooks, dtype, dev))
+        self.blocks = nn.ModuleList(Block(cfg, spec, generator, dtype, dev)
+                                    for spec in layer_specs(cfg))
         self.final_norm = _param(torch.zeros((d,), dtype=dtype, device=dev))
 
     def forward(self, tokens=None, positions=None, caches=None, *, embeds=None,
@@ -154,8 +185,7 @@ class Transformer(nn.Module):
 
     def init_caches(self, batch: int, s_max: int, dtype=None) -> list:
         dtype = dtype or self.final_norm.dtype
-        return [attention.init_cache(self.cfg, batch, s_max, dtype, self.final_norm.device)
-                for _ in self.blocks]
+        return [block.init_cache(batch, s_max, dtype) for block in self.blocks]
 
     def unembed_matrix(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -185,7 +215,7 @@ def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict,
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Transformer:
     """Random weights as the reference draws them (normal embeddings x 0.02,
     N(0, 1/d_in) matrices, zero norm scales), from ``generator`` in
-    ``cfg.dtype``."""
+    ``cfg.dtype`` (MoE's router and the RG-LRU's ``lam`` in float32)."""
     return Transformer(cfg, generator, device)
 
 
@@ -207,9 +237,21 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    """A nested dict -> {dotted path: leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Transformer:
     """A reference ``init_params`` tree with numpy leaves (each group's
-    leaves stacked ``(repeats, ...)``) -> a :class:`Transformer`."""
+    leaves stacked ``(repeats, ...)``, nested to any depth, as MoE's
+    ``ff.shared``) -> a :class:`Transformer`."""
     model = Transformer(cfg, None, device)
     with torch.no_grad():
         for name in ("embed", "unembed", "final_norm"):
@@ -219,14 +261,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Transforme
         for (unit, repeats), group in zip(group_layers(cfg), tree["groups"]):
             for r in range(repeats):
                 for li in range(len(unit)):
-                    block = model.blocks[i]
-                    params = dict(block.named_parameters())
-                    leaves = {}
-                    for key, val in group[li].items():
-                        if isinstance(val, dict):
-                            leaves.update({f"{key}.{k}": v for k, v in val.items()})
-                        else:
-                            leaves[key] = val
+                    params = dict(model.blocks[i].named_parameters())
+                    leaves = _flatten(group[li])
                     if set(leaves) != set(params):
                         raise ValueError(f"layer {i}: tree has {sorted(leaves)}, "
                                          f"the block {sorted(params)}")
@@ -239,7 +275,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Transforme
 def params_to_numpy(cfg: ModelConfig, model: Transformer, values=None) -> dict:
     """The inverse of :func:`params_from_numpy`: the reference's
     ``init_params`` tree (``embed``, ``unembed``, ``final_norm``, and
-    ``groups[g][li]`` dicts whose leaves stack the group's layers
+    ``groups[g][li]`` nested dicts whose leaves stack the group's layers
     ``(repeats, ...)``) with numpy leaves.  ``values`` (tensors in
     ``model.parameters()`` order: gradients, optimizer moments) are laid
     out in the parameters' places instead of the parameters."""
@@ -258,13 +294,12 @@ def params_to_numpy(cfg: ModelConfig, model: Transformer, values=None) -> dict:
             blocks = [model.blocks[i + r * len(unit) + li] for r in range(repeats)]
             sub: dict = {}
             for key, _ in blocks[0].named_parameters():
-                stacked = _numpy(torch.stack([leaf(dict(b.named_parameters())[key])
-                                              for b in blocks]))
-                head, _, rest = key.partition(".")
-                if rest:
-                    sub.setdefault(head, {})[rest] = stacked
-                else:
-                    sub[head] = stacked
+                *path, name = key.split(".")
+                node = sub
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[name] = _numpy(torch.stack([leaf(dict(b.named_parameters())[key])
+                                                 for b in blocks]))
             unit_trees.append(sub)
         tree["groups"].append(unit_trees)
         i += repeats * len(unit)

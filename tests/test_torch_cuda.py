@@ -557,9 +557,45 @@ def test_cuda_flash_forward_equals_plain(cuda_device, dtype, B, S, T, H, K, hd, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,K,hd,dv,causal", [
+    (1, 256, 4, 4, 192, 128, True),       # DeepSeek-V2's MLA: 128 + 64 over 128
+    (2, 200, 4, 2, 192, 128, True),       # ragged, grouped
+    (1, 130, 2, 2, 160, 96, False),       # padded to (192, 128)
+    (2, 100, 4, 4, 24, 16, True),         # the MLA smoke widths
+    (1, 64, 2, 1, 64, 40, True), (1, 70, 3, 3, 128, 64, True)])
+def test_cuda_flash_qk_wider_than_v_equals_plain(cuda_device, dtype, B, S, H, K, hd, dv,
+                                                 causal):
+    """qk width hd over a narrower v width dv: the output (B, S, H, dv) and,
+    causal, each row's lse against the plain version, at the tolerances of
+    test_cuda_flash_forward_equals_plain and test_cuda_flash_lse_equals_plain;
+    with or without the lse pointer, the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(S + hd + dv)
+    dt = getattr(torch, dtype)
+    g = [torch.from_numpy(rng.normal(size=(B, S, h, w)).astype(np.float32)).to(dt)
+         .to(cuda_device) for h, w in ((H, hd), (K, hd), (K, dv))]
+    want = fa.flash_forward_plain(*g, causal=causal).float()
+    got = fa.flash_forward_cuda(*g, causal=causal)
+    assert got.shape == (B, S, H, dv) and got.dtype == dt
+    diff = (got.float() - want).abs()
+    tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want)
+    assert float(diff.max()) <= tol
+    if dtype == "bfloat16":
+        assert bool((diff <= flash_bf16_elem_tolerance(fa, *g, want, causal)).all())
+    if causal:
+        out, lse = fa.flash_forward_cuda(*g, return_lse=True)
+        _, want_lse = fa.flash_forward_plain(*g, return_lse=True)
+        assert torch.equal(out, got)
+        assert float((lse - want_lse).abs().max()) <= (2e-5 if dtype == "float32"
+                                                       else LSE_BF16_ATOL)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_forward_counts_each_kernel(cuda_device):
     """bf16 goes to the tensor-core kernel and float32 to the CUDA-core one,
-    each counted; other types and head widths over 128 raise."""
+    each counted; other types and head widths the kernels do not take
+    (``flash_attention.takes``) raise."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(0)
     shapes = ((1, 40, 4, 32), (1, 40, 2, 32), (1, 40, 2, 32))
@@ -578,6 +614,10 @@ def test_cuda_flash_forward_counts_each_kernel(cuda_device):
     wide = [torch.zeros(1, 8, 2, 160, dtype=torch.bfloat16, device=cuda_device)] * 3
     with pytest.raises(ValueError, match="hd <= 128"):
         fa.flash_forward(*wide)
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="hd <= 128"):      # v wider than q and k
+        fa.flash_forward(q, q, torch.zeros(1, 8, 2, 24, dtype=torch.bfloat16,
+                                           device=cuda_device))
 
 
 # bf16 lse: both versions read the same bf16 inputs and sum the scores and
@@ -612,13 +652,14 @@ def test_cuda_flash_lse_equals_plain(cuda_device, dtype, B, S, H, K, hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "musicgen-large", "deepseek-v2-236b"])
 def test_cuda_lm_train_step_equals_cpu(cuda_device, arch):
     """One train step of the float32 smoke LM on the card (the CUDA-core
     flash kernel with its lse in every layer's forward and again in the
     remat recompute) against the CPU (the chunked route) from the same
     weights and batch: loss atol 1e-5, grad_norm rtol 1e-5, params atol
-    5e-6 (AdamW eps 1e-3, as tests/test_torch_lm_train.py states why)."""
+    5e-6 (AdamW eps 1e-3, as tests/test_torch_lm_train.py states why).
+    deepseek-v2's smoke attends with MLA's qk width 24 over v width 16."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.train import lm_batch
@@ -644,11 +685,15 @@ def test_cuda_lm_train_step_equals_cpu(cuda_device, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "smollm-360m", "deepseek-v2-236b",
+                                  "qwen3-moe-235b-a22b", "recurrentgemma-2b", "xlstm-1.3b"])
 def test_cuda_lm_prefill_decode_equal_cpu(cuda_device, arch):
-    """The smoke LM on the card (flash kernel in the prefill) against the
-    CPU (chunked online softmax), float32, atol 1e-4 on the logits: the
-    same function with sums in other orders; greedy tokens identical."""
+    """The smoke LM on the card (flash kernel in the prefill of each global
+    attention layer) against the CPU (chunked online softmax), float32,
+    atol 1e-4 on the logits: the same function with sums in other orders;
+    greedy tokens identical.  recurrentgemma's layers are recurrent or
+    local (windowed: the chunked route on the card too), so it launches no
+    flash kernel; xlstm has no attention."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import steps, transformer
@@ -670,7 +715,7 @@ def test_cuda_lm_prefill_decode_equal_cpu(cuda_device, arch):
             tok = logits.argmax(-1)[:, None]
         outs.append((seq, fa.launches - n0))
     (cpu, n_cpu), (gpu, n_gpu) = outs
-    assert n_cpu == 0 and n_gpu == cfg.n_layers
+    assert n_cpu == 0 and n_gpu == sum(kind == "attn" for kind in cfg.layer_kinds)
     for a, b in zip(gpu, cpu):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, rtol=0)
         np.testing.assert_array_equal(a.argmax(-1).numpy(), b.argmax(-1).numpy())

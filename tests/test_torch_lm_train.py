@@ -39,8 +39,7 @@ from repro_torch.models import steps as t_steps
 from repro_torch.models import transformer as t_tr
 from repro_torch.optim import adamw as t_adamw
 
-FAMILIES = ("tinyllama-1.1b", "smollm-360m", "qwen3-32b", "starcoder2-7b", "pixtral-12b",
-            "musicgen-large")
+FAMILIES = r_configs.ARCH_IDS
 
 
 def _t(a):
@@ -224,13 +223,22 @@ def _batch(cfg, seed, B=2, S=16):
     return b
 
 
+# xlstm-smoke: layer 0's rms_norm divides the 0.02-scale embeddings by their
+# rms (x ~50), so its embedding gradient reaches ~40 and float32 noise from
+# the backward ~6e-4 there (against a float64 run of the port, the
+# reference's float32 gradient is off by 6.3e-4 and the port's by 1.8e-4):
+# that family's leaves also get 5e-5 of the leaf's largest magnitude
+LEAF_SCALE_ATOL = {"xlstm-1.3b": 5e-5}
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_loss_and_every_gradient_leaf_equal_reference(arch):
     """``loss_fn`` (remat on, as the reference's default) at atol 1e-5 and
     every gradient leaf, laid out by ``params_to_numpy``, at atol 2e-5 +
-    rtol 1e-4.  pixtral-smoke prepends patch embeds (only the trailing
-    label positions are scored), musicgen-smoke is audio_stub with 4
-    codebook heads (the mean over codebooks)."""
+    rtol 1e-4 (xlstm-smoke: ``LEAF_SCALE_ATOL``).  pixtral-smoke prepends
+    patch embeds (only the trailing label positions are scored),
+    musicgen-smoke is audio_stub with 4 codebook heads (the mean over
+    codebooks); the MoE, MLA, RG-LRU and xLSTM families are the rest."""
     rcfg, tcfg, params, model = _carried(arch)
     batch = _batch(tcfg, 3)
     want, r_grads = jax.value_and_grad(lambda p: r_tr.loss_fn(
@@ -240,8 +248,10 @@ def test_loss_and_every_gradient_leaf_equal_reference(arch):
     np.testing.assert_allclose(float(got.detach()), float(want), atol=1e-5, rtol=0)
     t_grads = t_tr.params_to_numpy(tcfg, model, [p.grad for p in model.parameters()])
     assert jax.tree.structure(t_grads) == jax.tree.structure(jax.tree.map(np.asarray, r_grads))
-    jax.tree.map(lambda a, b: np.testing.assert_allclose(a, np.asarray(b), atol=2e-5,
-                                                         rtol=1e-4), t_grads, r_grads)
+    scale = LEAF_SCALE_ATOL.get(arch, 0.0)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        a, np.asarray(b), atol=2e-5 + scale * float(np.abs(np.asarray(b)).max()), rtol=1e-4),
+        t_grads, r_grads)
 
 
 def test_loss_without_remat_and_params_round_trip():
