@@ -77,7 +77,17 @@ deepseek's smoke step through both routes.  The MESH phase
 (``mesh_phase``) lays ``MESH_DEVICES`` logical devices over the card and
 holds the clause-sharded forwards (padded tile tables included), training
 steps, ``fit(mesh=)``, ``train_tm --mesh`` and ``serve_tm --mesh`` to
-their unsharded runs, each kernel launched once a shard.  Prints the
+their unsharded runs, each kernel launched once a shard.  The LM_MESH
+phase (``lm_mesh_phase``) lays 8 logical devices over the card and serves
+qwen3-moe-235b-a22b and deepseek-v2-236b (full width, 2 layers) through
+the mesh prefill and decode steps, MoE's experts a (data, model) shard at
+a time, held to the plain route; trains the MoE smoke configs with the
+mesh train step in both layouts; holds tinyllama-1.1b's mesh step to the
+single-device step bit for bit; and holds the int8 all-reduce on the card
+to its CPU result.  The DRYRUN phase (``dryrun_phase``) runs one
+full-width dry-run cell on the meta device and prints LM_TRAIN's roofline
+bound (the traced FLOPs, and the bytes the step must move) beside its
+measured step.  Prints the
 card's name and power limit, a
 ``kernels`` JSON line with each kernel's launches, error and tolerance,
 time, plain-version time, library time (event and device) and bound
@@ -1774,11 +1784,13 @@ def lm_train_phase(dev, card: str) -> dict:
         route_check=route, profiled_step=split_rows, train_lm_s=train_s, cut=cut,
         phase_s=time.perf_counter() - t_phase)))
     row["train_launches_per_step"] = 2 * L
+    row["train_step_ms"] = step_ms
     return row
 
 
-def family_split(model, cfg, tokens, s_max: int, n_new: int) -> dict:
-    """Where a warm prefill and ``n_new`` decode steps spend their time,
+def family_split(model, cfg, tokens, s_max: int, n_new: int, mesh=None) -> dict:
+    """Where a warm prefill and ``n_new`` decode steps (on ``mesh`` when
+    given) spend their time,
     each under the profiler: its event ms, the device's busy ms (the union
     of its device intervals) and idle share, and the device ms by part (``device_split`` over the layers'
     ranges: attention, the RG-LRU scan, the mLSTM core, the sLSTM steps,
@@ -1791,7 +1803,7 @@ def family_split(model, cfg, tokens, s_max: int, n_new: int) -> dict:
     ranges = {attention.ATTEND_RANGE: "attention", rglru.SCAN_RANGE: "rglru_scan",
               xlstm.MLSTM_RANGE: "mlstm_core", xlstm.SLSTM_RANGE: "slstm_steps",
               moe.ROUTE_RANGE: "moe_route", moe.EXPERTS_RANGE: "moe_experts"}
-    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    prefill, decode = steps.make_prefill_step(cfg, mesh), steps.make_decode_step(cfg, mesh)
     B, P = tokens.shape
     caches = model.init_caches(B, s_max)
     rows = {}
@@ -2729,6 +2741,286 @@ def mesh_phase(dev, card: str, compiled, xp_all) -> dict:
     return line
 
 
+# the LM_MESH phase: 8 logical devices over the card; the two MoE families
+# at full width cut to 2 layers (as LM_FAMILIES), served on data=2,model=4
+# and on data=8,model=1 (every axis a data axis: serving's counterpart of the
+# train step's pure_dp); the bf16 smoke MoE configs trained on data=2,model=4
+# in both layouts; tinyllama-1.1b's step at LM_TRAIN's shape on
+# data=2,model=2 against the single-device step; the int8 all-reduce
+LM_MESH_DEVICES = 8
+LM_MESH_FAMILIES = ("qwen3-moe-235b-a22b", "deepseek-v2-236b")
+LM_MESH_LAYERS = 2
+LM_MESH_SERVE = {"tp": {"data": 2, "model": 4}, "dp": {"data": 8, "model": 1}}
+LM_MESH_B, LM_MESH_PROMPT, LM_MESH_DECODE = 16, 1024, 8
+LM_MESH_TRAIN_STEPS, LM_MESH_TRAIN_B, LM_MESH_TRAIN_S = 2, 8, 256
+LM_MESH_DENSE = {"data": 2, "model": 2}
+LM_MESH_COMPRESS = (8, 1 << 20)          # shards, float32 elements a shard
+
+
+def lm_mesh_phase(dev, card: str) -> None:
+    """LM_MESH: the LM substrate on a mesh of ``LM_MESH_DEVICES`` logical
+    devices laid over the card (``REPRO_TORCH_FORCE_DEVICE_COUNT``).
+
+    (a) qwen3-moe-235b-a22b and deepseek-v2-236b at full width with
+        ``LM_MESH_LAYERS`` layers: ``make_prefill_step(cfg, mesh)`` on B 16
+        x 1024-token prompts and ``LM_MESH_DECODE`` decode steps, on each
+        mesh of ``LM_MESH_SERVE``: MoE's experts run a (data, model) shard at
+        a time, each shard's capacity from its own tokens.  Flash launches
+        in the prefill (> 0), finite logits, the prefill's and the last
+        decode step's last-token cross-entropy held to the same mesh step
+        on the plain route (``FAMILIES_LOGIT_RTOL``: a bf16 rounding can
+        move a token to another expert, as in LM_FAMILIES), and a warm
+        profiled prefill and decode's event ms and device ms by profiler
+        range (``moe_route``/``moe_experts`` once a shard);
+    (b) ``make_train_step(cfg, mesh)`` for ``LM_MESH_TRAIN_STEPS`` steps of
+        the MoE families' bf16 smoke configs on data=2,model=4, ``pure_dp``
+        off and on: finite losses near ln V, flash launched;
+    (c) tinyllama-1.1b at full width, LM_TRAIN's 4 x 1024, one step on
+        ``LM_MESH_DENSE`` and one on no mesh from the same weights and
+        batch: the dense layers are layout only, so the losses are equal
+        bit for bit;
+    (d) ``compress.quantize_psum`` over ``LM_MESH_COMPRESS`` shards, two
+        rounds of error feedback, on the card and on the CPU: equal.
+
+    Prints ``LM_MESH``."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    from repro_torch.models import steps, transformer
+    from repro_torch.optim import adamw, compress
+
+    saved_env = os.environ.get(mesh_mod.FORCE_ENV)
+    os.environ[mesh_mod.FORCE_ENV] = str(LM_MESH_DEVICES)
+    t_phase = time.perf_counter()
+    line = dict(card=card, logical_devices=LM_MESH_DEVICES, note=MESH_NOTE)
+    try:
+        meshes = {k: mesh_mod.make_mesh(v, "cuda") for k, v in LM_MESH_SERVE.items()}
+        B, P, n_new = LM_MESH_B, LM_MESH_PROMPT, LM_MESH_DECODE
+        served = {}
+        for arch in LM_MESH_FAMILIES:
+            cfg = dataclasses.replace(get_config(arch), n_layers=LM_MESH_LAYERS)
+            model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            dev)
+            rng = np.random.default_rng(0)
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))).to(dev)
+            labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, B)).to(dev)
+            # the decode steps' tokens: the same on both routes
+            fed = torch.from_numpy(rng.integers(0, cfg.vocab_size, (n_new, B, 1))).to(dev)
+            n_moe = sum(spec[1] == "moe" for spec in transformer.layer_specs(cfg))
+            fam = {}
+            for layout, mesh in meshes.items():
+                prefill = steps.make_prefill_step(cfg, mesh)
+                decode = steps.make_decode_step(cfg, mesh)
+
+                def run():
+                    caches = model.init_caches(B, P + n_new)
+                    first, caches = prefill(model, {"tokens": tokens}, caches)
+                    for i in range(n_new):
+                        last, caches = decode(model, caches, {"tokens": fed[i]}, P + i)
+                    return first, last
+
+                fa.launches = fa.launches_wgmma = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                first, last = run()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                launches = fa.launches
+                check(launches == fa.launches_wgmma > 0,
+                      f"{arch} {layout}: the mesh prefill launched the flash kernel "
+                      f"{launches} times ({fa.launches_wgmma} tensor-core)")
+                check(first.shape == (B, cfg.vocab_size)
+                      and bool(torch.isfinite(first).all() and torch.isfinite(last).all()),
+                      f"{arch} {layout}: logits {tuple(first.shape)} not finite")
+                n0 = fa.launches
+                with plain_flash(fa):
+                    p_first, p_last = run()
+                check(fa.launches == n0, f"{arch} {layout}: the plain route launched flash")
+                row = dict(mesh=LM_MESH_SERVE[layout], flash_launches=launches,
+                           first_run_ms=wall_ms,
+                           prefill_against_plain_route=logits_agree(
+                               f"{arch} {layout} prefill", first, p_first, labels, True),
+                           decode_against_plain_route=logits_agree(
+                               f"{arch} {layout} decode", last, p_last, labels, True))
+                split = family_split(model, cfg, tokens, P + n_new, n_new, mesh)
+                shards = math.prod(LM_MESH_SERVE[layout].values())
+                for label, sp in split.items():
+                    check(sp["device_ms"]["moe_experts"] > 0 and sp["device_ms"]["attention"] > 0,
+                          f"{arch} {layout} {label}: no device time under the MoE or "
+                          f"attention ranges: {sp['device_ms']}")
+                row.update(split=split, moe_shard_ranges_a_pass=n_moe * shards)
+                fam[layout] = row
+                del first, last, p_first, p_last
+            served[arch] = fam
+            print(f"lm_mesh {arch}: " + json.dumps(fam))
+            del model
+            torch.cuda.empty_cache()
+        line["serve"] = served
+
+        trained = {}
+        tmesh = meshes["tp"]
+        for arch in LM_MESH_FAMILIES:
+            cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+            for pure_dp in (False, True):
+                model = transformer.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev)
+                opt = adamw.adamw_init(model.parameters())
+                step = steps.make_train_step(cfg, tmesh, pure_dp=pure_dp)
+                nprng = np.random.default_rng(3)
+                losses, norms, ms = [], [], []
+                n0 = fa.launches_wgmma
+                for _ in range(LM_MESH_TRAIN_STEPS):
+                    batch = {k: torch.from_numpy(a).to(dev) for k, a in train.lm_batch(
+                        cfg, nprng, LM_MESH_TRAIN_B, LM_MESH_TRAIN_S).items()}
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    opt, info = step(model, opt, batch)
+                    ev[1].record()
+                    torch.cuda.synchronize()
+                    losses.append(float(info["loss"]))
+                    norms.append(float(info["grad_norm"]))
+                    ms.append(ev[0].elapsed_time(ev[1]))
+                want = math.log(cfg.vocab_size) + 0.5
+                n_flash = fa.launches_wgmma - n0
+                check(n_flash > 0 and all(np.isfinite(losses + norms))
+                      and all(abs(x - want) <= FAMILIES_LOSS_ATOL for x in losses),
+                      f"{cfg.name} pure_dp={pure_dp}: losses {losses} (ln V + 0.5 = {want}), "
+                      f"grad norms {norms}, flash launches {n_flash}")
+                trained[f"{cfg.name}|{'dp' if pure_dp else 'tp'}"] = dict(
+                    losses=losses, grad_norms=norms, step_event_ms=ms, flash_launches=n_flash)
+                del model, opt
+        line["train_smoke"] = trained
+
+        # (c) the dense model: a mesh step is the single-device step
+        cfg = get_config("tinyllama-1.1b")
+        dmesh = mesh_mod.make_mesh(LM_MESH_DENSE, "cuda")
+        batch = {k: torch.from_numpy(a).to(dev) for k, a in train.lm_batch(
+            cfg, np.random.default_rng(4), 4, 1024).items()}
+        dense = {}
+        for label, mesh in (("one_device", None), ("on_mesh", dmesh)):
+            model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                            dev)
+            opt = adamw.adamw_init(model.parameters())
+            n0 = fa.launches_wgmma
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            opt, info = steps.make_train_step(cfg, mesh)(model, opt, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            dense[label] = dict(loss=float(info["loss"]), grad_norm=float(info["grad_norm"]),
+                                step_event_ms=ev[0].elapsed_time(ev[1]),
+                                flash_launches=fa.launches_wgmma - n0)
+            del model, opt, info
+            torch.cuda.empty_cache()
+        check(dense["on_mesh"]["loss"] == dense["one_device"]["loss"]
+              and dense["on_mesh"]["flash_launches"] == dense["one_device"]["flash_launches"] > 0,
+              f"tinyllama-1.1b on {LM_MESH_DENSE} against one device: {dense}")
+        line["dense"] = dict(mesh=LM_MESH_DENSE, batch=[4, 1024], **dense)
+
+        # (d) the int8 all-reduce with error feedback, card against CPU
+        n_sh, n_el = LM_MESH_COMPRESS
+        g = torch.from_numpy(np.random.default_rng(5).normal(
+            size=(n_sh, n_el)).astype(np.float32))
+        outs = {}
+        for where in ("cpu", dev):
+            gs = [x.to(where) for x in g]
+            errs = [torch.zeros_like(x) for x in gs]
+            rounds = []
+            for _ in range(2):
+                mean, errs = compress.quantize_psum(gs, errs)
+                rounds.append((mean.cpu(), [e.cpu() for e in errs]))
+            outs[str(where)] = rounds
+        same = all(torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+                   for a, b in zip(outs["cpu"], outs[str(dev)]))
+        exact = g.mean(0)
+        err_max = float((outs[str(dev)][0][0] - exact).abs().max())
+        check(same, "compress.quantize_psum on the card differs from its CPU result")
+        line["compress"] = dict(shards=n_sh, elements=n_el, card_equals_cpu=same,
+                                round1_max_abs_err_vs_mean=err_max,
+                                scale=float(g.abs().max()) / 127)
+    finally:
+        if saved_env is None:
+            os.environ.pop(mesh_mod.FORCE_ENV, None)
+        else:
+            os.environ[mesh_mod.FORCE_ENV] = saved_env
+    line["phase_s"] = time.perf_counter() - t_phase
+    print("LM_MESH " + json.dumps(line))
+
+
+# the DRYRUN phase's full-width cell, and LM_TRAIN's shape on one device
+DRYRUN_CELL = ("tinyllama-1.1b", "train_4k", "pod")
+
+
+def dryrun_phase(card: str, lm_train_step_ms: float) -> None:
+    """DRYRUN (no card needed): ``dryrun.run_cell`` on ``DRYRUN_CELL`` at
+    full width on the meta device, its record printed; then LM_TRAIN's own
+    step (tinyllama-1.1b, 4 x 1024, one device) traced on meta, and its
+    roofline bound on the card's datasheet peaks beside that phase's
+    measured step ms, as ``bound_ms / step_ms``.  The bound is the larger
+    of two terms: the traced FLOPs (remat's recompute included) over the
+    bf16 peak, and the bytes the step must move over the memory rate:
+    parameters, AdamW's moments and step read and written once, the batch
+    read once, the gradients written and read once (the global-norm clip
+    needs them all before the first update), and each block's input that
+    remat keeps, written in the forward and read in the backward.  The
+    eager op stream's bytes (every intermediate written and read back, the
+    plain chunked attention in the flash kernel's place) are printed apart,
+    as ``eager_bytes_ms``: they bound nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, op_analysis, roofline, specs
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models import steps
+    import torch
+    from repro_torch.optim import adamw
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    t_phase = time.perf_counter()
+    rec = dryrun.run_cell(*DRYRUN_CELL)
+    check(rec["n_devices"] == 256 and all(rec[k] > 0 for k in (
+        "flops", "hbm_bytes", "coll_bytes", "arg_bytes", "temp_bytes", "output_bytes")),
+        f"dry-run cell {DRYRUN_CELL}: {rec}")
+    print("DRYRUN_CELL " + json.dumps(rec))
+    cfg = get_config("tinyllama-1.1b")
+    B, S = 4, 1024
+    shapes = {"lm_train": specs.ShapeSpec("lm_train", S, B, "train")}
+    model = specs.meta_model(cfg)
+    opt = adamw.adamw_init(model.parameters())
+    batch = specs.input_specs(cfg, "lm_train", shapes)
+    _, an = op_analysis.analyze(steps.make_train_step(cfg), model, opt, batch)
+    params = list(model.parameters())
+    act = torch.empty((), dtype=params[0].dtype).element_size()
+    state = nbytes(params) + nbytes(opt.m) + nbytes(opt.v) + 4
+    kept = cfg.n_layers * B * S * cfg.d_model * act
+    need = 2 * state + nbytes(batch.values()) + 2 * nbytes(params) + 2 * kept
+    t_comp = an.cost.flops / PEAK_FLOPS_BF16 * 1e3
+    t_mem = need / HBM_BW * 1e3
+    bound_ms = roofline.bound_seconds(an.cost.flops, need) * 1e3
+    mf = roofline.model_flops(cfg, "train", B, S)
+    check(bound_ms > 0 and lm_train_step_ms > 0, "the LM_TRAIN bound or step is 0")
+    print("DRYRUN " + json.dumps(dict(
+        card=card, cell=dict(zip(("arch", "shape", "mesh"), DRYRUN_CELL)),
+        cell_bottleneck=rec["bottleneck"],
+        cell_bottleneck_approximate=rec["bottleneck_approximate"],
+        cell_trace_s=rec["compile_seconds"],
+        lm_train=dict(arch=cfg.name, batch=[B, S], devices=1, flops=an.cost.flops,
+                      bytes_needed=need, t_comp_ms=t_comp, t_mem_ms=t_mem,
+                      bound_ms=bound_ms, bound_by="operations" if t_comp >= t_mem else "bytes",
+                      eager_bytes=an.cost.bytes, eager_bytes_ms=an.cost.bytes / HBM_BW * 1e3,
+                      model_flops=mf, model_flops_ms=mf / PEAK_FLOPS_BF16 * 1e3,
+                      step_ms=lm_train_step_ms, bound_over_step=bound_ms / lm_train_step_ms,
+                      compute_over_step=t_comp / lm_train_step_ms),
+        phase_s=time.perf_counter() - t_phase)))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -2970,6 +3262,12 @@ def main() -> None:
 
     # 10b. the clause-sharded mesh over logical devices on the card (MESH)
     mesh_phase(dev, card, compiled, xp_all)
+
+    # 10c. the LM substrate on a mesh of logical devices on the card (LM_MESH)
+    lm_mesh_phase(dev, card)
+
+    # 10d. the dry-run on the meta device, and LM_TRAIN's roofline share (DRYRUN)
+    dryrun_phase(card, extra_rows["flash_attention"][1]["train_step_ms"])
 
     # 11. the kernels line.  Bound: the bytes the function must move (each
     # input it reads once, the output once; for the schedule kernels the

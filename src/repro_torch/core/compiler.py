@@ -456,16 +456,20 @@ class CompiledTM:
     def extract_features(self, refresh: bool = False) -> dict:
         """Candidate-independent cost-model features of this artifact
         (``kernels/cost_model.artifact_features``), memoized on the
-        instance and persisted by :meth:`save`.  The port has no HLO
-        lowering, so these are the reference's fallback features
-        (``with_hlo=False``), which the reference also takes whenever its
-        lowering fails."""
+        instance and persisted by :meth:`save`.  The op-stream terms
+        degrade as the reference's HLO terms do: a shape whose trace fails
+        still yields the schedule-statistic features, so prediction never
+        blocks serving."""
         if self.features and not refresh:
             return dict(self.features)
         from repro_torch.kernels import cost_model
 
-        self.features = cost_model.artifact_features(self)
-        return dict(self.features)
+        try:
+            feats = cost_model.artifact_features(self)
+        except Exception:  # noqa: BLE001 - the reference's fallback
+            feats = cost_model.artifact_features(self, with_hlo=False)
+        self.features = feats
+        return dict(feats)
 
     def save(self, path: str) -> str:
         """Write the artifact atomically with an integrity envelope.

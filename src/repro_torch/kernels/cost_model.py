@@ -7,10 +7,12 @@ tier behind ``autotune.tune(policy=...)``:
   statistics of the compiled artifact: include-bit counts, chain-length
   distribution, ``partial_term_sharing``, term-table size.
   ``CompiledTM.save()`` persists the dict, so a zoo cold load never
-  recomputes it.  The reference adds bytes and flops of the oracle's
-  compiled HLO divided by its accelerator's peaks; those terms need the
-  HLO analysis tooling, which is not ported, so the port always takes the
-  reference's own fallback (``with_hlo=False``).
+  recomputes it.  With ``with_hlo`` (the default, as the reference's) it
+  adds the oracle forward's FLOPs and bytes per sample and their roofline
+  times (:func:`hlo_forward_features`): the reference reads them from its
+  compiled HLO, the port from the op stream on ``meta``
+  (``launch/op_analysis``), over the card's datasheet peaks
+  (``launch/mesh``).  The keys keep the reference's names.
 
 * **Per-candidate basis** -- each tuned kernel registers a featurizer in
   ``autotune``'s registry that maps ``(shape, artifact, candidate)`` to
@@ -33,6 +35,7 @@ timings of other kernels and is never read here.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -105,22 +108,56 @@ def make_observation(kernel: str, mode: str, blocks: dict, basis: dict,
     )
 
 
+# -- op-stream workload features ---------------------------------------------
+
+_HLO_REF_BATCH = 64
+
+
+@functools.lru_cache(maxsize=64)
+def hlo_forward_features(U: int, Wa: int, K: int, batch: int = _HLO_REF_BATCH) -> dict:
+    """FLOPs and HBM bytes per sample of the plain oracle forward
+    (``ref.clause_fire_ref`` + ``class_sum_ref``) at this artifact shape,
+    and their roofline times on the card (seconds a sample, compute- and
+    memory-bound).  Traced on ``meta`` by ``launch/op_analysis.analyze``,
+    whose FlopCounterMode count (the matmul FLOPs) stands under the
+    reference's ``xla_flops_per_sample``.  Memoized per shape: one trace per
+    (U, Wa, K), shared by every candidate and batch bucket."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+
+    def fwd(lit_words, inc_words, votes):
+        return ref.class_sum_ref(ref.clause_fire_ref(lit_words, inc_words), votes)
+
+    meta = torch.device("meta")
+    _, an = op_analysis.analyze(
+        fwd, torch.empty((batch, Wa), dtype=torch.int32, device=meta),
+        torch.empty((U, Wa), dtype=torch.int32, device=meta),
+        torch.empty((U, K), dtype=torch.int32, device=meta))
+    flops, hbm = an.cost.flops / batch, an.cost.bytes / batch
+    return dict(
+        hlo_flops_per_sample=flops,
+        hlo_bytes_per_sample=hbm,
+        xla_flops_per_sample=an.flop_counter_flops / batch,
+        roofline_t_comp=flops / PEAK_FLOPS_BF16,
+        roofline_t_mem=hbm / HBM_BW,
+    )
+
+
 # -- workload features -------------------------------------------------------
 
-def artifact_features(compiled, *, with_hlo: bool = False) -> dict:
+def artifact_features(compiled, *, with_hlo: bool = True) -> dict:
     """Candidate-independent workload features of a compiled artifact.
 
     ``compiled`` is duck-typed (``include_words``/``stats``/``n_classes``:
     a ``core/compiler.CompiledTM`` or anything shape-compatible).  The dict
     is JSON-serializable; ``CompiledTM.save`` persists it under
-    ``meta["features"]``.  Equal, key for key, to the reference's
-    ``artifact_features(..., with_hlo=False)``; ``with_hlo=True`` raises,
-    since the HLO terms need tooling the port does not have.
+    ``meta["features"]``.  Key for key the reference's; with
+    ``with_hlo=False`` equal to its values too, and with ``with_hlo`` it
+    adds :func:`hlo_forward_features`.
     """
-    if with_hlo:
-        raise NotImplementedError(
-            "the HLO-derived features need launch/hlo_analysis, which is not "
-            "ported; use with_hlo=False")
     iw = np.ascontiguousarray(np.asarray(compiled.include_words,
                                          dtype=np.uint32))
     U, Wa = iw.shape
@@ -128,7 +165,7 @@ def artifact_features(compiled, *, with_hlo: bool = False) -> dict:
     chain = np.unpackbits(iw.view(np.uint8)).reshape(U, -1).sum(axis=1)
     n_includes = int(chain.sum())
     stats = getattr(compiled, "stats", None)
-    return dict(
+    feats = dict(
         schema=FEATURE_SCHEMA_VERSION,
         n_rows=U,
         n_words_active=Wa,
@@ -143,6 +180,9 @@ def artifact_features(compiled, *, with_hlo: bool = False) -> dict:
         n_partial_terms_unique=(
             int(stats.n_partial_terms_unique) if stats is not None else 0),
     )
+    if with_hlo:
+        feats.update(hlo_forward_features(U, Wa, K))
+    return feats
 
 
 # -- the model ---------------------------------------------------------------

@@ -110,14 +110,18 @@ def ta_delta_ref(
     l_idx = torch.arange(L, dtype=torch.int64, device=dev)
     excl = ta < 0
     delta = torch.zeros((C, L), dtype=torch.int32, device=dev)
+    # on ``meta`` (the dry-run) no value is known: every row is drawn, the
+    # data-independent bound the reference's dense oracle field computes
+    meta = dev.type == "meta"
     for b in range(B):
         ft = ftype[b]
-        if not bool((ft != 0).any()):
+        if not meta and not bool((ft != 0).any()):
             continue
         lit_on = lits[b] == 1                                   # (L,)
         fire_b = fire[b] == 1                                   # (C,)
-        rows = torch.nonzero(ft == 1).flatten()
-        if rows.numel():
+        rows = (torch.arange(C, device=dev) if meta
+                else torch.nonzero(ft == 1).flatten())
+        if meta or rows.numel():
             bu = (b + b_offset) & M32
             cg = mul_u32((((bu * Cg) & M32) + c_idx[rows]) & M32, L)
             r = hash_u32(cg[:, None] + l_idx[None, :], seed)    # (n, L)
@@ -125,8 +129,9 @@ def ta_delta_ref(
             inact = (r < t_inact).to(torch.int32)
             d1 = torch.where(fire_b[rows, None] & lit_on[None, :], act, -inact)
             delta[rows] += d1
-        rows = torch.nonzero(ft == 2).flatten()
-        if rows.numel():
+        if not meta:
+            rows = torch.nonzero(ft == 2).flatten()
+        if meta or rows.numel():
             d2 = fire_b[rows, None] & ~lit_on[None, :] & excl[rows]
             delta[rows] += d2.to(torch.int32)
     return delta

@@ -1,4 +1,5 @@
-"""Device meshes for the clause-sharded TM paths (``core/sharding.py``).
+"""Device meshes for the sharded TM paths (``core/sharding.py``), the LM
+on a mesh (``models/sharding.py``, ``models/steps.py``) and the dry-run.
 
 A :class:`Mesh` names up to three axes, ``pod``, ``data`` and ``model`` in
 that order, and holds one ``torch.device`` for each coordinate.  One
@@ -9,10 +10,13 @@ The devices a mesh may take are the physical ones of the requested type
 ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` is set: then N logical devices are
 laid round-robin over the physical ones, the counterpart of the
 reference's ``--xla_force_host_platform_device_count``.  Logical devices
-that share a card run their shards one after another on it.
+that share a card run their shards one after another on it.  A ``meta``
+mesh (:func:`meta_mesh`, :func:`make_production_mesh`) holds as many
+``meta`` devices as its shape asks: the dry-run traces on it, without a
+card.
 
-Not ported yet: ``make_production_mesh`` and the TPU v5e constants (the
-dry-run and roofline slice).
+The hardware constants below are the roofline's denominators
+(``launch/roofline.py``), for one GPU of the target.
 """
 
 from __future__ import annotations
@@ -54,6 +58,19 @@ class Mesh:
         for c, s in zip(coord, self.shape.values()):
             flat = flat * s + c
         return self.devices[flat]
+
+
+def meta_mesh(shape: dict) -> Mesh:
+    """A mesh of ``shape`` over ``meta`` devices (no card, no memory)."""
+    return Mesh(shape, ["meta"] * math.prod(shape.values()))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes, (data 16, model 16) and (pod 2,
+    data 16, model 16), over ``meta`` devices."""
+    if multi_pod:
+        return meta_mesh({"pod": 2, "data": 16, "model": 16})
+    return meta_mesh({"data": 16, "model": 16})
 
 
 def physical_devices(device) -> list:
@@ -105,6 +122,11 @@ def parse_mesh_spec(spec: str, device="cuda") -> Mesh:
     shorthand for ``data=D,model=M``.  Raises a clear error when too few
     devices are visible (set ``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` first).
     """
+    return make_mesh(parse_mesh_axes(spec), device, spec.strip())
+
+
+def parse_mesh_axes(spec: str) -> dict:
+    """A ``--mesh`` spec -> its axis sizes, in pod, data, model order."""
     spec = spec.strip()
 
     def _bad():
@@ -128,4 +150,14 @@ def parse_mesh_spec(spec: str, device="cuda") -> Mesh:
             axes[k] = int(v)
     if "model" not in axes or any(v < 1 for v in axes.values()):
         raise _bad()
-    return make_mesh({k: axes[k] for k in AXES if k in axes}, device, spec)
+    return {k: axes[k] for k in AXES if k in axes}
+
+
+# Hardware constants of one NVIDIA H100 80GB HBM3 (SXM, 700 W): datasheet
+# figures, not measurements.
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense bf16 tensor-core peak
+HBM_BW = 3.35e12                # bytes/s of HBM3
+LINK_BW = 50e9                  # bytes/s a GPU for collectives: a 16-way axis
+                                # spans two 8-GPU NVLink domains, so one 400
+                                # Gb/s NIC a GPU is the conservative figure
+                                # (NVLink 4 gives 450e9 a direction inside one)

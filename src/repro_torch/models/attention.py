@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.trace_scope import trips, unfolded
 
 NEG_INF = -1e30
 # the profiler range around the flash backward's tile ops
@@ -67,14 +68,15 @@ def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
     T, dv = k.shape[1], v.shape[-1]
     scale = hd ** -0.5
     outs, lses = [], []
-    for q0 in range(0, S, q_chunk):
+    q_starts = range(0, S, q_chunk)
+    for q0 in trips(q_starts):
         qc = q[:, q0:q0 + q_chunk].to(torch.float32)
         qpc = q_pos[:, q0:q0 + q_chunk]
         n = qc.shape[1]
         m = torch.full((B, n, H), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, n, H), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, n, H, dv), dtype=torch.float32, device=q.device)
-        for k0 in range(0, T, kv_chunk):
+        for k0 in trips(range(0, T, kv_chunk)):
             kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
             kpc = kv_pos[:, k0:k0 + kv_chunk]
             s = torch.einsum("bqhd,bthd->bqht", qc, kc.to(torch.float32)) * scale
@@ -89,7 +91,8 @@ def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
         l_safe = torch.clamp(l, min=1e-30)
         outs.append(acc / l_safe[..., None])
         lses.append(m + torch.log(l_safe))
-    return torch.cat(outs, dim=1).to(q.dtype), torch.cat(lses, dim=1)
+    return (torch.cat(unfolded(outs, q_starts), dim=1).to(q.dtype),
+            torch.cat(unfolded(lses, q_starts), dim=1))
 
 
 def _tile_mask(qpc, kpc, window):
@@ -119,8 +122,8 @@ def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk):
     T, dv_ = k.shape[1], v.shape[-1]
     scale = hd ** -0.5
     delta = torch.sum(do.to(torch.float32) * out.to(torch.float32), dim=-1)   # (B, S, H)
-    qs = [slice(i, i + q_chunk) for i in range(0, S, q_chunk)]
-    ks = [slice(i, i + kv_chunk) for i in range(0, T, kv_chunk)]
+    qs = [slice(i, min(i + q_chunk, S)) for i in range(0, S, q_chunk)]
+    ks = [slice(i, min(i + kv_chunk, T)) for i in range(0, T, kv_chunk)]
 
     def tile(qi, ki):
         qc, kc, vc = q[:, qi], k[:, ki], v[:, ki]
@@ -130,15 +133,15 @@ def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk):
         return qc, kc, p, p * (dp - delta[:, qi][..., None])
 
     dq = torch.zeros((B, S, H, hd), dtype=torch.float32, device=q.device)
-    for qi in qs:                                   # pass A
-        for ki in ks:
+    for qi in trips(qs):                            # pass A
+        for ki in trips(ks):
             _, kc, _, ds = tile(qi, ki)
             dq[:, qi] += torch.einsum("bqht,bthd->bqhd", ds.to(kc.dtype),
                                       kc).to(torch.float32) * scale
     dk = torch.zeros((B, T, H, hd), dtype=torch.float32, device=q.device)
     dv = torch.zeros((B, T, H, dv_), dtype=torch.float32, device=q.device)
-    for ki in ks:                                   # pass B
-        for qi in qs:
+    for ki in trips(ks):                            # pass B
+        for qi in trips(qs):
             qc, _, p, ds = tile(qi, ki)
             doc = do[:, qi]
             dv[:, ki] += torch.einsum("bqht,bqhv->bthv", p.to(doc.dtype),

@@ -8,8 +8,11 @@
 hold ``tokens`` (B, S) and (B, 1) and/or a stub frontend's ``embeds``
 (B, S, d) and (B, 1, d); ``pos`` is the decode position (host int).
 Logits are float32.  The train step updates the model's parameters in
-place.  The reference's ``mesh`` and ``pure_dp`` arguments place its step
-on a GSPMD mesh; they wait for the port of ``models/sharding.py``.
+place.  ``mesh`` (``launch/mesh.Mesh``) and ``pure_dp`` place a step on a
+mesh as the reference's do (``transformer.RunCtx``): MoE's experts run per
+(data, model) shard on the mesh's logical devices, and the rest is layout,
+so without a MoE layer a mesh step computes what the single-device step
+does.  Without a mesh every step is the single-device one.
 """
 
 from __future__ import annotations
@@ -20,20 +23,23 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: Optional[adamw.AdamWConfig] = None,
-                    remat: bool = True, microbatches: int = 1):
+def make_train_step(cfg: ModelConfig, mesh=None,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    remat: bool = True, microbatches: int = 1, pure_dp: bool = False):
     """Train step: the loss's gradients, then one AdamW update in place.
     ``microbatches > 1`` accumulates float32 gradients over that many batch
     slices and divides loss and gradients by their number, as the
     reference's scan does (activation memory / microbatches).
     ``info`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d device tensors."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
+    ctx = RunCtx(mesh=mesh, pure_dp=pure_dp)
 
     def grads_of(model, params, batch):
-        loss = transformer.loss_fn(cfg, model, batch, remat=remat)
+        loss = transformer.loss_fn(cfg, model, batch, ctx=ctx, remat=remat)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(params, grads)]
@@ -68,23 +74,27 @@ def _last_logits(model, hidden) -> torch.Tensor:
     return (hidden[:, -1] @ model.unembed_matrix()).to(torch.float32)
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    ctx = RunCtx(mesh=mesh)
+
     @torch.no_grad()
     def prefill_step(model, batch, caches):
         hidden, caches = model(batch.get("tokens"), embeds=batch.get("embeds"),
-                               caches=caches)
+                               caches=caches, ctx=ctx)
         return _last_logits(model, hidden), caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    ctx = RunCtx(mesh=mesh)
+
     @torch.no_grad()
     def decode_step(model, caches, inputs, pos):
         x = inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
         positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
         hidden, caches = model(inputs.get("tokens"), positions=positions, caches=caches,
-                               embeds=inputs.get("embeds"))
+                               embeds=inputs.get("embeds"), ctx=ctx)
         return _last_logits(model, hidden), caches
 
     return decode_step

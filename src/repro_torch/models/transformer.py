@@ -11,9 +11,18 @@ names and shapes follow the reference's tree (``norm1``, ``mix``,
 ``init_params`` tree across and :func:`params_to_numpy` carries one back.
 Parameters are trainable; serving runs under ``torch.no_grad()``
 (``models/steps.py``).  :func:`loss_fn` is the training objective.
+
+:class:`RunCtx` is the reference's distribution context: a mesh
+(``launch/mesh.Mesh``) and its layout.  The reference's sharding
+constraints (``constrain``, ``boundary``, ``seq_shard``) only lay out what
+GSPMD partitions and change no result, so the port has none; what runs per
+shard is MoE's experts, which take the mesh unless ``pure_dp``.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -23,6 +32,30 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import device as _device
 from repro_torch.models import attention, layers, mla, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """The distribution context threaded through the forward pass.
+
+    ``pure_dp``: the batch over ALL mesh axes (ZeRO-3 data parallelism, no
+    tensor parallelism; MoE's experts then run unsharded).
+    """
+
+    mesh: Optional[object] = None
+    pure_dp: bool = False
+
+    @property
+    def dp_axes(self) -> tuple:
+        if self.mesh is None:
+            return ()
+        axes = ("pod", "data", "model") if self.pure_dp else ("pod", "data")
+        return tuple(a for a in axes if a in self.mesh.axis_names)
+
+    @property
+    def moe_mesh(self):
+        """The mesh MoE's experts are split over: none under ``pure_dp``."""
+        return None if self.pure_dp else self.mesh
 
 
 def _ff_kind(cfg: ModelConfig, layer_idx: int, kind: str) -> str:
@@ -96,7 +129,8 @@ class Block(nn.Module):
                                        device=device)
             self.ff = layers.parameters(tree)
 
-    def forward(self, x, positions, cache=None, arange: bool = False):
+    def forward(self, x, positions, cache=None, arange: bool = False,
+                ctx: RunCtx = RunCtx()):
         cfg = self.cfg
         kind, ff = self.spec
         h = layers.rms_norm(x, self.norm1, cfg.norm_eps)
@@ -117,7 +151,10 @@ class Block(nn.Module):
         if ff == "none":
             return x, cache
         h2 = layers.rms_norm(x, self.norm2, cfg.norm_eps)
-        h2 = moe.moe_ff(cfg, self.ff, h2) if ff == "moe" else layers.mlp(self.ff, h2)
+        if ff == "moe":
+            h2 = moe.moe_ff(cfg, self.ff, h2, ctx.moe_mesh, ctx.dp_axes)
+        else:
+            h2 = layers.mlp(self.ff, h2)
         return x + h2, cache
 
     def init_cache(self, batch: int, s_max: int, dtype) -> dict:
@@ -157,12 +194,12 @@ class Transformer(nn.Module):
         self.final_norm = _param(torch.zeros((d,), dtype=dtype, device=dev))
 
     def forward(self, tokens=None, positions=None, caches=None, *, embeds=None,
-                remat: bool = False):
+                remat: bool = False, ctx: RunCtx = RunCtx()):
         """tokens (B, S_txt) and/or stub ``embeds`` (B, S_emb, d), the
         embeds first -> (hidden (B, S, d), caches or None); the caches are
         written in place.  ``remat`` recomputes each block's activations in
         the backward (``torch.utils.checkpoint``, a block at a time, as the
-        reference's ``jax.checkpoint``)."""
+        reference's ``jax.checkpoint``).  ``ctx`` places the pass on a mesh."""
         parts = []
         if embeds is not None:
             parts.append(embeds.to(self.final_norm.dtype))
@@ -177,10 +214,10 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.blocks):
             cache = None if caches is None else caches[i]
             if remat and cache is None and torch.is_grad_enabled():
-                x, _ = checkpoint(block, x, positions, None, arange,
+                x, _ = checkpoint(block, x, positions, None, arange, ctx,
                                   use_reentrant=False, preserve_rng_state=False)
             else:
-                x, _ = block(x, positions, cache, arange)
+                x, _ = block(x, positions, cache, arange, ctx)
         return layers.rms_norm(x, self.final_norm, self.cfg.norm_eps), caches
 
     def init_caches(self, batch: int, s_max: int, dtype=None) -> list:
@@ -192,12 +229,13 @@ class Transformer(nn.Module):
 
 
 def loss_fn(cfg: ModelConfig, model: Transformer, batch: dict,
-            remat: bool = True) -> torch.Tensor:
+            ctx: RunCtx = RunCtx(), remat: bool = True) -> torch.Tensor:
     """The training objective (``repro/models/transformer.py:loss_fn``):
     the chunked cross-entropy of the next-token labels; the mean over
     codebooks when there are several (labels (B, S, n_codebooks)); only the
     trailing label positions when a frontend prepends embeds."""
-    hidden, _ = model(batch.get("tokens"), embeds=batch.get("embeds"), remat=remat)
+    hidden, _ = model(batch.get("tokens"), embeds=batch.get("embeds"), remat=remat,
+                      ctx=ctx)
     labels = batch["labels"]
     w = model.unembed_matrix()
     if cfg.n_codebooks > 1:
@@ -272,35 +310,67 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> Transforme
     return model
 
 
-def params_to_numpy(cfg: ModelConfig, model: Transformer, values=None) -> dict:
-    """The inverse of :func:`params_from_numpy`: the reference's
-    ``init_params`` tree (``embed``, ``unembed``, ``final_norm``, and
-    ``groups[g][li]`` nested dicts whose leaves stack the group's layers
-    ``(repeats, ...)``) with numpy leaves.  ``values`` (tensors in
-    ``model.parameters()`` order: gradients, optimizer moments) are laid
-    out in the parameters' places instead of the parameters."""
+def params_tree(cfg: ModelConfig, model: Transformer, values=None) -> dict:
+    """The reference's ``init_params`` tree of the model's tensors
+    (``embed``, ``unembed``, ``final_norm``, and ``groups[g][li]`` nested
+    dicts whose leaves stack the group's layers ``(repeats, ...)``), detached.
+    ``values`` (tensors in ``model.parameters()`` order: gradients,
+    optimizer moments) are laid out in the parameters' places instead.  On
+    the ``meta`` device this is a tree of shapes (``models/sharding.py``)."""
     swap = ({id(p): t for p, t in zip(model.parameters(), values)}
             if values is not None else None)
 
     def leaf(p):
-        return p if swap is None else swap[id(p)]
+        return (p if swap is None else swap[id(p)]).detach()
 
-    tree = {name: _numpy(leaf(getattr(model, name)))
+    tree = {name: leaf(getattr(model, name))
             for name in ("embed", "unembed", "final_norm") if hasattr(model, name)}
-    tree["groups"], i = [], 0
+    tree["groups"] = _stack_groups(cfg, [dict(b.named_parameters()) for b in model.blocks],
+                                   leaf)
+    return tree
+
+
+def _stack_groups(cfg: ModelConfig, per_layer: list, leaf) -> list:
+    """Per-layer flat dicts ({dotted key: value}) -> the reference's groups:
+    a list of units, each a list of nested dicts whose leaves stack the
+    group's layers."""
+    groups, i = [], 0
     for unit, repeats in group_layers(cfg):
         unit_trees = []
         for li in range(len(unit)):
-            blocks = [model.blocks[i + r * len(unit) + li] for r in range(repeats)]
+            layers_ = [per_layer[i + r * len(unit) + li] for r in range(repeats)]
             sub: dict = {}
-            for key, _ in blocks[0].named_parameters():
+            for key in layers_[0]:
                 *path, name = key.split(".")
                 node = sub
                 for part in path:
                     node = node.setdefault(part, {})
-                node[name] = _numpy(torch.stack([leaf(dict(b.named_parameters())[key])
-                                                 for b in blocks]))
+                node[name] = torch.stack([leaf(lay[key]) for lay in layers_])
             unit_trees.append(sub)
-        tree["groups"].append(unit_trees)
+        groups.append(unit_trees)
         i += repeats * len(unit)
-    return tree
+    return groups
+
+
+def caches_tree(cfg: ModelConfig, caches: list) -> list:
+    """The port's per-layer caches -> the reference's ``init_caches`` layout
+    (a list a group of units, leaves stacked ``(repeats, ...)``); a host
+    position becomes an int32 0-d tensor, as the reference keeps it."""
+    dev = next(v.device for c in caches for v in c.values() if torch.is_tensor(v))
+
+    def leaf(v):
+        return v if torch.is_tensor(v) else torch.tensor(v, dtype=torch.int32, device=dev)
+
+    return _stack_groups(cfg, list(caches), leaf)
+
+
+def params_to_numpy(cfg: ModelConfig, model: Transformer, values=None) -> dict:
+    """The inverse of :func:`params_from_numpy`: :func:`params_tree` with
+    numpy leaves."""
+    tree = params_tree(cfg, model, values)
+    return {k: ([[_numpy_tree(u) for u in g] for g in v] if k == "groups" else _numpy(v))
+            for k, v in tree.items()}
+
+
+def _numpy_tree(tree: dict) -> dict:
+    return {k: _numpy_tree(v) if isinstance(v, dict) else _numpy(v) for k, v in tree.items()}

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.trace_scope import fold_backward, trips, unfolded
 
 _GATES = ("z", "i", "f", "o")
 # profiler ranges around the mLSTM core (chunkwise, or a decode step) and
@@ -204,15 +205,17 @@ def _slstm_scan(cfg: ModelConfig, params, x, state: dict, chunk: int = 64):
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w_in, r_rec, *st))
     outs = []
-    for c0 in range(0, S, chunk):
-        args = (H, x.dtype, w_in, r_rec, *st, x[:, c0:c0 + chunk])
+    starts = range(0, S, chunk)
+    for c0 in trips(starts):
+        args = (w_in, r_rec, *st, x[:, c0:c0 + chunk])
         if grad:
-            *st, hs = checkpoint(_slstm_chunk, *args, use_reentrant=False,
-                                 preserve_rng_state=False)
+            *st, hs = fold_backward(
+                lambda *a: checkpoint(_slstm_chunk, H, x.dtype, *a, use_reentrant=False,
+                                      preserve_rng_state=False), *args)
         else:
-            *st, hs = _slstm_chunk(*args)
+            *st, hs = _slstm_chunk(H, x.dtype, *args)
         outs.append(hs)
-    out = torch.cat(outs, dim=1).reshape(B, S, d).to(x.dtype)
+    out = torch.cat(unfolded(outs, starts), dim=1).reshape(B, S, d).to(x.dtype)
     return out, dict(zip(("c", "n", "h", "m"), st))
 
 

@@ -185,8 +185,9 @@ def test_port_saved_artifact_loads_in_reference(tmp_path):
     _assert_artifacts_equal(a, b)
     _assert_artifacts_equal(a, port_compiler.CompiledTM.load(path))
     # the same bank saved by each package: identical arrays, and identical
-    # meta but for the cost-model features' HLO terms, which the port has
-    # no lowering for (the rest of the features are equal)
+    # meta but for the cost-model features' HLO terms, which each package
+    # reads from its own program (compiled HLO, the op stream on meta);
+    # every other feature is equal
     paths = (ref_compiler.compile_tm(rcfg, ta).save(str(tmp_path / "ref.npz")),
              port_compiler.compile_tm(pcfg, ta).save(str(tmp_path / "port2.npz")))
     z = [np.load(p) for p in paths]
@@ -197,9 +198,9 @@ def test_port_saved_artifact_loads_in_reference(tmp_path):
     meta = [json.loads(bytes(zz["meta"]).decode()) for zz in z]
     hlo = ("hlo_flops_per_sample", "hlo_bytes_per_sample", "xla_flops_per_sample",
            "roofline_t_comp", "roofline_t_mem")
-    assert set(hlo) <= set(meta[0]["features"])
+    assert set(hlo) <= set(meta[0]["features"]) and set(hlo) <= set(meta[1]["features"])
     assert {k: v for k, v in meta[0]["features"].items() if k not in hlo} \
-        == meta[1]["features"]
+        == {k: v for k, v in meta[1]["features"].items() if k not in hlo}
     for m in meta:
         m.pop("checksum")
         m.pop("features")
