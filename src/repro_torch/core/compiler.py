@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import packetizer, tm
 from repro_torch.runtime import faults
 
@@ -44,6 +45,13 @@ from repro_torch.runtime import faults
 # least this fraction of the artifact's per-word AND terms are absorbed by
 # sub-clause sharing
 FACTORIZE_SHARING_THRESHOLD = 0.30
+
+# host spans of run_compiled (``repro_torch/spans.py``): the whole call, the
+# route (kwarg checks, engine choice, device tables, schedule lookup) and
+# the dead-word gather
+RUN_RANGE = "run_compiled"
+ROUTE_RANGE = "run_compiled.route"
+GATHER_RANGE = "run_compiled.gather"
 
 # On-disk artifact schema (the reference's).  Version-0 artifacts (no tag)
 # predate the integrity envelope and are REJECTED at load.
@@ -269,13 +277,14 @@ class CompiledTM:
         gather index) and ``votes`` (int32) as tensors on ``device``."""
         key = str(device)
         if key not in self._dev:
-            self._dev[key] = dict(
-                include_words=packetizer.words_to_tensor(self.include_words, device),
-                word_ids=torch.from_numpy(
-                    np.asarray(self.word_ids, np.int64)).to(device),
-                votes=torch.from_numpy(
-                    np.ascontiguousarray(self.votes, np.int32)).to(device),
-            )
+            with spans.span(spans.BUILD_RANGE):
+                self._dev[key] = dict(
+                    include_words=packetizer.words_to_tensor(self.include_words, device),
+                    word_ids=torch.from_numpy(
+                        np.asarray(self.word_ids, np.int64)).to(device),
+                    votes=torch.from_numpy(
+                        np.ascontiguousarray(self.votes, np.int32)).to(device),
+                )
         return self._dev[key]
 
     def schedule(self, block_c: int | None = None, block_j: int | None = None):
@@ -309,7 +318,8 @@ class CompiledTM:
         if term_w is None:
             # picked once: the serve loop asks for the default on every bucket
             if self._auto_term_w is None:
-                self._auto_term_w = term_infer.pick_term_width(self.include_words)
+                with spans.span(spans.BUILD_RANGE):
+                    self._auto_term_w = term_infer.pick_term_width(self.include_words)
             term_w = self._auto_term_w
         key = (
             block_c or term_infer.DEFAULT_BLOCK_C,
@@ -318,10 +328,11 @@ class CompiledTM:
             term_w,
         )
         if key not in self._fschedules:
-            self._fschedules[key] = term_infer.build_factorized_schedule(
-                self.include_words, block_c=key[0], block_j=key[1],
-                block_t=key[2], term_w=key[3],
-            )
+            with spans.span(spans.BUILD_RANGE):
+                self._fschedules[key] = term_infer.build_factorized_schedule(
+                    self.include_words, block_c=key[0], block_j=key[1],
+                    block_t=key[2], term_w=key[3],
+                )
         return self._fschedules[key]
 
     @property
@@ -969,6 +980,38 @@ def run_compiled(
     """
     from repro_torch.kernels import ops
 
+    with spans.span(RUN_RANGE):
+        with spans.span(ROUTE_RANGE):
+            name, spec, sched, margin = _route(compiled, x_packed, engine, quality,
+                                               early_exit, blocks)
+            tabs = compiled.tensors(x_packed.device)
+        with spans.span(GATHER_RANGE):
+            xw = x_packed[:, tabs["word_ids"]]             # dead-word elimination
+        votes = tabs["votes"]
+        if name == "factorized":
+            return ops.tm_forward_factorized(xw, votes, sched, tile_margin=margin,
+                                             block_s=blocks.get("block_s"))
+        if name == "sparse":
+            return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin,
+                                           block_s=blocks.get("block_s"))
+        if name == "dense":
+            dense = ({k: blocks[k] for k in ("block_b", "block_c", "block_w")
+                      if k in blocks} if blocks.keys() & {"block_b", "block_w"} else {})
+            return ops.tm_forward_packed(xw, tabs["include_words"], votes, None,
+                                         fuse=spec.fuse, **dense)
+        from repro_torch.kernels import ref
+
+        return ref.class_sum_ref(ref.clause_fire_ref(xw, tabs["include_words"]), votes)
+
+
+def _route(compiled: CompiledTM, x_packed, engine, quality: int, early_exit: bool,
+           blocks: dict):
+    """:func:`run_compiled`'s checks and engine choice -> ``(name, spec,
+    schedule, margin)``: the engine that runs, its ``EngineSpec``, and for
+    the schedule engines the schedule (a tile prefix when ``quality > 0``)
+    and the early-exit margin table (else None)."""
+    from repro_torch.kernels import ops
+
     known = {"block_b", "block_c", "block_w", "block_j", "block_s",
              "block_t", "term_w"}
     unknown = blocks.keys() - known
@@ -993,42 +1036,21 @@ def run_compiled(
         raise TypeError(
             f"run_compiled: engine {name!r} with factorized-only block "
             f"kwargs {sorted(fact_keys)} — they would be silently dropped")
-
-    tabs = compiled.tensors(x_packed.device)
-    xw = x_packed[:, tabs["word_ids"]]                 # dead-word elimination
-    votes = tabs["votes"]
-    if name == "factorized":
-        ftiling = {k: blocks.get(k) for k in ("block_c", "block_j",
-                                              "block_t", "term_w")}
-        if quality > 0:
-            fsched = compiled.quality_prefix_schedule(
-                quality, "factorized", **ftiling)
-        else:
-            fsched = compiled.factorized_schedule(**ftiling)
-        margin = None
-        if early_exit and quality <= 0 and fsched.n_tiles:
-            margin = compiled.margin_tensor("factorized", x_packed.device, **ftiling)
-        return ops.tm_forward_factorized(xw, votes, fsched, tile_margin=margin,
-                                         block_s=blocks.get("block_s"))
-    if name == "sparse":
-        stiling = {k: blocks.get(k) for k in ("block_c", "block_j")}
-        if quality > 0:
-            sched = compiled.quality_prefix_schedule(quality, "sparse", **stiling)
-        else:
-            sched = compiled.schedule(**stiling)
-        margin = None
-        if early_exit and quality <= 0 and sched.n_tiles:
-            margin = compiled.margin_tensor("sparse", x_packed.device, **stiling)
-        return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin,
-                                       block_s=blocks.get("block_s"))
-    if name == "dense":
-        dense = ({k: blocks[k] for k in ("block_b", "block_c", "block_w")
-                  if k in blocks} if dense_keys else {})
-        return ops.tm_forward_packed(xw, tabs["include_words"], votes, None,
-                                     fuse=spec.fuse, **dense)
-    from repro_torch.kernels import ref
-
-    return ref.class_sum_ref(ref.clause_fire_ref(xw, tabs["include_words"]), votes)
+    if name not in ("factorized", "sparse"):
+        return name, spec, None, None
+    keys = ("block_c", "block_j", "block_t", "term_w") if name == "factorized" else (
+        "block_c", "block_j")
+    tiling = {k: blocks.get(k) for k in keys}
+    if quality > 0:
+        sched = compiled.quality_prefix_schedule(quality, name, **tiling)
+    elif name == "factorized":
+        sched = compiled.factorized_schedule(**tiling)
+    else:
+        sched = compiled.schedule(**tiling)
+    margin = None
+    if early_exit and quality <= 0 and sched.n_tiles:
+        margin = compiled.margin_tensor(name, x_packed.device, **tiling)
+    return name, spec, sched, margin
 
 
 def predict_compiled(compiled: CompiledTM, x: torch.Tensor, **kw) -> torch.Tensor:

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import class_sum as _class_sum_kernel
 from repro_torch.kernels import clause_eval as _clause_eval_kernel
@@ -344,6 +345,18 @@ def tm_forward_factorized(
 # Kernel-path TM training step (hash RNG; equals the reference bit for bit)
 # ---------------------------------------------------------------------------
 
+# host spans of the step (``repro_torch/spans.py``): the whole call, the
+# set-up (the batch on the device, ``StepShard``'s packed include masks and
+# clause tables), the class sums, the feedback scalars, the delta and the
+# clamp that applies it; a clause-sharded caller's ``StepShard`` nests the
+# middle three
+STEP_RANGE = "train_step"
+PREPARE_RANGE = "train_step.prepare"
+SUMS_RANGE = "train_step.sums"
+FEEDBACK_RANGE = "train_step.feedback"
+DELTA_RANGE = "train_step.delta"
+APPLY_RANGE = "train_step.apply"
+
 _NEG_XOR = 0x9E3779B9     # negative-class stream
 _SEL_MIX = 0x9E3779B1     # selection stream: must match csrc/hash_rng.cuh
 _SEL_XOR = 0x85EBCA6B
@@ -504,47 +517,53 @@ class StepShard:
         int32 class sums over this shard's clauses."""
         from repro_torch.core import packetizer, tm
 
-        lits = tm.literals(xc)
-        lit_words = packetizer.pack_bits(lits)
-        if self.fuse:
-            # launch 1: class sums (no empty-clause mask in training)
-            sums = _fused_infer_kernel.fused_tm_forward(
-                lit_words, self.inc_words, self.votes, None, **self.infer_blocks)
-            return (lits, lit_words, None), sums
-        if self.use_kernel:
-            fire = clause_fire(lit_words, self.inc_words).to(torch.uint8)
-            return (lits, lit_words, fire), class_sums(fire, self.votes)
-        fire = _clause_eval_kernel.clause_fire_plain(
-            lit_words.contiguous(), self.inc_words.contiguous()).to(torch.uint8)
-        return (lits, lit_words, fire), _class_sum_kernel.class_sum_plain(fire, self.votes)
+        with spans.span(SUMS_RANGE):
+            lits = tm.literals(xc)
+            lit_words = packetizer.pack_bits(lits)
+            if self.fuse:
+                # launch 1: class sums (no empty-clause mask in training)
+                sums = _fused_infer_kernel.fused_tm_forward(
+                    lit_words, self.inc_words, self.votes, None, **self.infer_blocks)
+                return (lits, lit_words, None), sums
+            if self.use_kernel:
+                fire = clause_fire(lit_words, self.inc_words).to(torch.uint8)
+                return (lits, lit_words, fire), class_sums(fire, self.votes)
+            fire = _clause_eval_kernel.clause_fire_plain(
+                lit_words.contiguous(), self.inc_words.contiguous()).to(torch.uint8)
+            sums = _class_sum_kernel.class_sum_plain(fire, self.votes)
+            return (lits, lit_words, fire), sums
 
     def delta(self, prep, sums, yc, b_off, valid):
         """Phase 2 -> the chunk's (C_loc, L) int32 delta; ``sums`` are the
         completed class sums, ``valid`` masks a padded tail (or None)."""
         lits, lit_words, fire = prep
         T, K, seed = self.config.threshold, self.config.n_classes, self.seed
-        sums = torch.clamp(sums, -T, T)
-        if self.fuse:
-            kn, p_t, p_n = feedback_probs(sums, yc, K, T, seed, b_offset=b_off)
-            if valid is not None:     # padded tail samples select nothing
-                p_t = torch.where(valid, p_t, 0.0)
-                p_n = torch.where(valid, p_n, 0.0)
-            # launch 2: fire -> feedback type -> delta
-            return _fused_train_kernel.fused_tm_train_delta(
-                self.ta, lits, lit_words, self.inc_words, yc, kn, p_t, p_n,
-                self.cls, self.pol, seed, b_offset=b_off, **self.step_kw,
-                **(self.blocks or {}))
-        ftype, _ = feedback_plan(fire, yc, self.votes, self.cls, self.pol, T, seed,
-                                 b_offset=b_off, c_offset=self.step_kw["c_offset"],
-                                 sums=sums)
-        if valid is not None:
-            ftype = torch.where(valid[:, None], ftype, 0).to(torch.uint8)
-        if self.use_kernel:
-            return ta_delta(self.ta, lits, fire, ftype, seed, b_offset=b_off,
-                            **self.step_kw)
-        return _ta_update_kernel.ta_delta_plain(
-            self.ta.contiguous(), lits.contiguous(), fire.contiguous(),
-            ftype.contiguous(), seed, b_offset=b_off, **self.step_kw)
+        with spans.span(FEEDBACK_RANGE):
+            sums = torch.clamp(sums, -T, T)
+            if self.fuse:
+                kn, p_t, p_n = feedback_probs(sums, yc, K, T, seed, b_offset=b_off)
+                if valid is not None:     # padded tail samples select nothing
+                    p_t = torch.where(valid, p_t, 0.0)
+                    p_n = torch.where(valid, p_n, 0.0)
+            else:
+                ftype, _ = feedback_plan(fire, yc, self.votes, self.cls, self.pol, T,
+                                         seed, b_offset=b_off,
+                                         c_offset=self.step_kw["c_offset"], sums=sums)
+                if valid is not None:
+                    ftype = torch.where(valid[:, None], ftype, 0).to(torch.uint8)
+        with spans.span(DELTA_RANGE):
+            if self.fuse:
+                # launch 2: fire -> feedback type -> delta
+                return _fused_train_kernel.fused_tm_train_delta(
+                    self.ta, lits, lit_words, self.inc_words, yc, kn, p_t, p_n,
+                    self.cls, self.pol, seed, b_offset=b_off, **self.step_kw,
+                    **(self.blocks or {}))
+            if self.use_kernel:
+                return ta_delta(self.ta, lits, fire, ftype, seed, b_offset=b_off,
+                                **self.step_kw)
+            return _ta_update_kernel.ta_delta_plain(
+                self.ta.contiguous(), lits.contiguous(), fire.contiguous(),
+                ftype.contiguous(), seed, b_offset=b_off, **self.step_kw)
 
 
 def batch_chunks(x, y, batch_chunk, b_offset=0) -> list:
@@ -610,24 +629,27 @@ def tm_train_step_kernel(
     rows, and ``new_ta`` applies only this batch's delta.  The two phases
     of each chunk are :class:`StepShard`'s.
     """
-    dev = ta_state.device
-    x = x.to(dev)
-    y = y.to(device=dev, dtype=torch.int32)
-    B = x.shape[0]
-    chunk_b = batch_chunk if (batch_chunk and B > batch_chunk) else B
-    shard = StepShard(config, ta_state, seed, fuse=fuse, autotune=autotune,
-                      blocks=blocks, chunk_b=chunk_b, c_offset=c_offset,
-                      c_total=c_total, use_kernel=use_kernel)
-    delta = None
-    for xc, yc, b_off, valid in batch_chunks(x, y, batch_chunk, b_offset):
-        prep, sums = shard.sums(xc)
-        if sums_reduce is not None:
-            sums = sums_reduce(sums)
-        d = shard.delta(prep, sums, yc, b_off, valid)
-        delta = d if delta is None else delta + d
-    new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
-                         config.n_states - 1).to(torch.int8)
-    return new_ta, delta
+    with spans.span(STEP_RANGE):
+        with spans.span(PREPARE_RANGE):
+            dev = ta_state.device
+            x = x.to(dev)
+            y = y.to(device=dev, dtype=torch.int32)
+            B = x.shape[0]
+            chunk_b = batch_chunk if (batch_chunk and B > batch_chunk) else B
+            shard = StepShard(config, ta_state, seed, fuse=fuse, autotune=autotune,
+                              blocks=blocks, chunk_b=chunk_b, c_offset=c_offset,
+                              c_total=c_total, use_kernel=use_kernel)
+        delta = None
+        for xc, yc, b_off, valid in batch_chunks(x, y, batch_chunk, b_offset):
+            prep, sums = shard.sums(xc)
+            if sums_reduce is not None:
+                sums = sums_reduce(sums)
+            d = shard.delta(prep, sums, yc, b_off, valid)
+            delta = d if delta is None else delta + d
+        with spans.span(APPLY_RANGE):
+            new_ta = torch.clamp(ta_state.to(torch.int32) + delta, -config.n_states,
+                                 config.n_states - 1).to(torch.int8)
+        return new_ta, delta
 
 
 # ---------------------------------------------------------------------------

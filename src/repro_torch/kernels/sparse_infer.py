@@ -34,6 +34,7 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
@@ -472,8 +473,9 @@ def chain_lengths(chain: torch.Tensor, sentinel, *deps: torch.Tensor) -> torch.T
     if (hit is not None and hit[0]() is chain and hit[1] == tag
             and all(r() is d for r, d in zip(hit[2], deps))):
         return hit[3]
-    value = sentinel(*deps) if callable(sentinel) else sentinel
-    lens = (chain != value).sum(1, dtype=torch.int32)
+    with spans.span(spans.BUILD_RANGE):
+        value = sentinel(*deps) if callable(sentinel) else sentinel
+        lens = (chain != value).sum(1, dtype=torch.int32)
     _chain_lens[key] = (weakref.ref(chain, lambda _: _chain_lens.pop(key, None)), tag,
                         tuple(weakref.ref(d) for d in deps), lens)
     return lens

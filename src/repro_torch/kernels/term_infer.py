@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
@@ -48,9 +49,14 @@ DEFAULT_BLOCK_T = 32768
 # for one word
 GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 
-# kernel launches (stage 1 + stage 2 pairs) through
-# factorized_tm_forward_tables on CUDA tensors
+# kernel launches (stage 1 + stage 2 pairs) on CUDA tensors
 launches = 0
+
+# host spans (``repro_torch/spans.py``): what precedes a launch (the device
+# tables, the checks, the scratch buffers, the entry point and the ctypes
+# arguments) and the launch call itself
+PREP_RANGE = "term_infer.prep"
+LAUNCH_RANGE = "term_infer.launch"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -118,16 +124,17 @@ class FactorizedSchedule:
         """Term, clause, tile and CSR tables as int32 tensors on ``device``."""
         key = str(device)
         if key not in self._dev:
-            tiles = np.stack([self.tile_stage, self.tile_tb, self.tile_cb,
-                              self.tile_jb, self.tile_first,
-                              self.tile_last]).astype(np.int32).reshape(6, -1)
+            with spans.span(spans.BUILD_RANGE):
+                tiles = np.stack([self.tile_stage, self.tile_tb, self.tile_cb,
+                                  self.tile_jb, self.tile_first,
+                                  self.tile_last]).astype(np.int32).reshape(6, -1)
 
-            def t(a):
-                return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+                def t(a):
+                    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
-            self._dev[key] = dict(term_chain=t(self.term_chain),
-                                  clause_chain=t(self.clause_chain),
-                                  tiles=t(tiles), indptr=t(self.indptr))
+                self._dev[key] = dict(term_chain=t(self.term_chain),
+                                      clause_chain=t(self.clause_chain),
+                                      tiles=t(tiles), indptr=t(self.indptr))
         return self._dev[key]
 
 
@@ -393,7 +400,19 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
     """Launch ``csrc/term_infer.cu`` (bit transpose, stage 1 into a term
     buffer allocated here, then the stage-2 walk at ``block_s`` sample words
     a block, ``sparse_infer.slab_words``) on CUDA tensors -> (B, K) int32."""
-    global launches
+    with spans.span(PREP_RANGE):
+        call = _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr,
+                            block_c=block_c, block_j=block_j, n_term_tiles=n_term_tiles,
+                            tile_margin=tile_margin, block_s=block_s)
+    return _launch(*call)
+
+
+def _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr, *,
+                 block_c, block_j, n_term_tiles, tile_margin, block_s):
+    """The checks, scratch buffers and entry point of one launch of
+    :func:`factorized_tables_cuda` -> ``(fn, args, keep, out)``: the ctypes
+    entry, its arguments, the tensors they point into (held until the
+    launch returns) and the (B, K) view of the output it fills."""
     _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
     _check_terms(lit_words, term_chain)
     slab = slab_words(block_s)
@@ -423,17 +442,28 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
     fn = _build.entry("term_infer", "term_infer_launch",
                       [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
                        I, P, I, I, I, P, P, P])
-    err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
-             _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
-             _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
-             _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
-             _build.ptr(jb), _build.ptr(last), n_term_tiles,
-             None if tile_margin is None else _build.ptr(tile_margin),
-             block_c, block_j, slab, _build.ptr(out),
-             None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
-    _build.check("term_infer", err)
+    args = (_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
+            _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
+            _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
+            _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
+            _build.ptr(jb), _build.ptr(last), n_term_tiles,
+            None if tile_margin is None else _build.ptr(tile_margin),
+            block_c, block_j, slab, _build.ptr(out),
+            None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
+    keep = (lit_words, lit_t, term_chain, term_bits, clause_chain, lens, votes, indptr,
+            jb, last, tile_margin, out, fired)
+    return fn, args, keep, out[:B]
+
+
+def _launch(fn, args, keep, out):
+    """Call the entry point of :func:`_launch_args` while ``keep`` holds
+    the tensors its pointers address, check its error code and count the
+    launch -> ``out``."""
+    global launches
+    with spans.span(LAUNCH_RANGE):
+        _build.check("term_infer", fn(*args))
     launches += 1
-    return out[:B]
+    return out
 
 
 def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dict:
@@ -466,20 +496,25 @@ def factorized_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
     """Packed literals -> (B, K) int32 class sums via the factorized
     schedule, the stage-2 walk at ``block_s`` sample words a block; with
     ``tile_margin`` argmax-identical (exact early exit)."""
-    B, W = lit_words.shape
-    K = votes.shape[1]
-    if schedule.n_lit_bits != W * 32:
-        raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
-                         f"lit_words has {W} words")
-    slab_words(block_s)
-    if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
-        return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
-    tabs = schedule.tensors(lit_words.device)
-    return factorized_tm_forward_tables(
-        lit_words.contiguous(), tabs["term_chain"], tabs["clause_chain"], votes,
-        tabs["tiles"], tabs["indptr"], block_c=schedule.block_c,
-        block_j=schedule.block_j, n_term_tiles=schedule.n_term_tiles,
-        tile_margin=tile_margin, block_s=block_s)
+    with spans.span(PREP_RANGE):
+        B, W = lit_words.shape
+        K = votes.shape[1]
+        if schedule.n_lit_bits != W * 32:
+            raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
+                             f"lit_words has {W} words")
+        slab_words(block_s)
+        if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
+            return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
+        tabs = schedule.tensors(lit_words.device)
+        args = (lit_words.contiguous(), tabs["term_chain"], tabs["clause_chain"], votes,
+                tabs["tiles"], tabs["indptr"])
+        kw = dict(block_c=schedule.block_c, block_j=schedule.block_j,
+                  n_term_tiles=schedule.n_term_tiles, tile_margin=tile_margin,
+                  block_s=block_s)
+        call = _launch_args(*args, **kw) if lit_words.is_cuda else None
+    if call is None:
+        return factorized_tables_plain(*args, **kw)
+    return _launch(*call)
 
 
 def factorized_class_sums_ref(lit_words, term_chain, clause_chain, votes):
