@@ -22,7 +22,11 @@ batch size, with offsets, a half-bank shard and saturated feedback
 (p_t = p_n = 1), ``fused_infer`` with them on the whole bank as a fused
 step runs it, and their occupancy is printed (``TRAIN_OCCUPANCY``; the
 serve bucket's ``fused_infer``, ``sparse_infer`` and ``term_infer`` in
-``INFER_OCCUPANCY``).
+``INFER_OCCUPANCY``).  At the benchmark's batch (65,536 samples) on its two
+artifacts ``term_infer`` takes its slab-resident design: held to its plain
+version at tolerance 0 in one launch and one ``term_infer.slab`` span a
+call, and timed beside its bound (``SLAB``; the kernels line's
+``term_infer`` row holds it as ``slab``).
 The three trained banks must
 equal each other and a run of the plain versions; a resumed run must
 equal an uninterrupted one; the trained bank must compile and serve equal
@@ -121,6 +125,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 ASSET = os.path.join(ROOT, "src", "repro_torch", "assets", "tm_mnist_e1.npz")
 BATCHES = (1, 33, 97, 512)
 BUCKET = 512
+# the benchmark's inference batch and artifacts, where term_infer takes its
+# slab-resident design (SLAB)
+SLAB_BATCH = 65536
+SLAB_ASSETS = {"tm-mnist": ("mnist", "tmbench/assets/tm_mnist_10k_e1.npz"),
+               "tm-cifar2": ("cifar2", "tmbench/assets/tm_cifar2_e1.npz")}
 # H100 SXM peaks at its 700 W limit: device memory rate (NVIDIA data
 # sheet), and the 32-bit integer and bitwise issue rate these kernels'
 # operations run at (no tensor-core path): 132 SMs x 64 INT32 lanes per SM
@@ -1170,6 +1179,99 @@ def bound(n_bytes, t_ops_ms):
     time at their peak rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_bytes, t_ops_ms), ("bytes" if t_bytes >= t_ops_ms else "operations")
+
+
+def factorized_work(xw, inc, votes, fsched, ftab) -> tuple:
+    """(bytes, integer operations) of the factorized walk over the (B, Wa)
+    literal words ``xw``: the words, the votes and the (B, K) sums once,
+    the term chains, the clause chain ids the walk reaches (``chain_need``)
+    and the tile tables; every term's ANDs a sample word, the walk's ANDs
+    and a vote add for each fired clause, class and sample."""
+    import torch
+
+    from repro_torch.kernels import ref, sparse_infer
+
+    B = xw.shape[0]
+    U, K = votes.shape
+    fold_ops = K * sum(int(ref.clause_fire_ref(xw[lo:lo + 4096], inc).sum(dtype=torch.int64))
+                       for lo in range(0, B, 4096))
+    lit_t = sparse_infer.bit_transpose_literals(xw, xw.shape[1] * 32)
+    term_bits = sparse_infer.and_reduce(lit_t[ftab["term_chain"].long()])
+    f_bytes, f_ops = chain_need(
+        term_bits, ftab["clause_chain"], ftab["tiles"][3], ftab["indptr"],
+        n_rows=U, block_c=fsched.block_c, block_j=fsched.block_j,
+        tile_off=fsched.n_term_tiles, sentinel=fsched.n_terms)
+    stage1_ops = int((ftab["term_chain"] != fsched.n_lit_bits).sum()) * term_bits.shape[1]
+    n_clause_tiles = fsched.n_tiles - fsched.n_term_tiles
+    return (nbytes(xw, votes) + B * K * 4 + nbytes(ftab["term_chain"]) + f_bytes
+            + 2 * n_clause_tiles * 4 + nbytes(ftab["indptr"]),
+            stage1_ops + f_ops + fold_ops)
+
+
+def slab_phase(dev) -> dict:
+    """term_infer's slab-resident design (SLAB) at the benchmark's batch on
+    both of its artifacts and the port's synthetic datasets of their
+    widths: ``factorized_tables_cuda`` held to ``factorized_tables_plain``
+    at tolerance 0, in one launch and one ``term_infer.slab`` span a call
+    and no kernel but the slab kernel; its device time from the profiler
+    (``profile_device``) and its bound (``factorized_work``) -> {config:
+    fields}, which the kernels line's term_infer row holds as ``slab``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import spans
+    from repro_torch.core import compiler, packetizer
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import term_infer
+
+    out = {}
+    for cfg, (data, path) in SLAB_ASSETS.items():
+        comp = compiler.CompiledTM.load(os.path.join(ROOT, path))
+        tabs, fsched = comp.tensors(dev), comp.default_factorized_schedule
+        ftab = fsched.tensors(dev)
+        X, _, _, _ = paper_dataset(data, n_train=SLAB_BATCH, n_test=0, seed=3)
+        xw = packetizer.pack_literals(torch.from_numpy(X).to(dev))[:, tabs["word_ids"]]
+        xw = xw.contiguous()
+        votes, inc = tabs["votes"], tabs["include_words"]
+        args = (xw, ftab["term_chain"], ftab["clause_chain"], votes, ftab["tiles"],
+                ftab["indptr"])
+        kw = dict(block_c=fsched.block_c, block_j=fsched.block_j,
+                  n_term_tiles=fsched.n_term_tiles)
+        want = term_infer.factorized_tables_plain(*args, **kw)
+        term_infer.factorized_tables_cuda(*args, **kw)           # the derived tables
+        torch.cuda.synchronize()
+        n0 = term_infer.launches
+        spans.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = term_infer.factorized_tables_cuda(*args, **kw)
+            torch.cuda.synchronize()
+        n_launches = term_infer.launches - n0
+        n_slab = spans.totals().get(term_infer.SLAB_RANGE, (0, 0))[0]
+        check(n_launches == 1 and n_slab == 1,
+              f"{cfg} B={SLAB_BATCH}: {n_launches} term_infer launches, {n_slab} "
+              f"{term_infer.SLAB_RANGE} spans, expected 1 and 1")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(err == 0, f"{cfg} B={SLAB_BATCH}: the slab design differs from "
+              f"factorized_tables_plain by {err}")
+        dev_ms, per = profile_device(lambda: term_infer.factorized_tables_cuda(*args, **kw))
+        check(len(per) == 1 and "slab_term_eval_kernel" in next(iter(per)),
+              f"{cfg} B={SLAB_BATCH}: the call launched {sorted(per)}, expected only "
+              "the slab kernel")
+        sms, shared = term_infer._limits(dev)
+        U, K = votes.shape
+        n_planes = term_infer.vote_planes(votes)[1]
+        row = dict(B=SLAB_BATCH, slab_words=term_infer.slab_words_for(
+                       SLAB_BATCH, xw.shape[1], ftab["term_chain"].shape[0], K, U,
+                       fsched.n_cblocks, n_planes, tile_margin=None, block_s=None,
+                       sm_count=sms, shared_bytes=shared),
+                   launches=n_launches, slab_spans=n_slab, max_abs_err=err, tolerance=0,
+                   ms=cuda_time_ms(lambda: term_infer.factorized_tables_cuda(*args, **kw)),
+                   **dev_ms)
+        nb, ops = factorized_work(xw, inc, votes, fsched, ftab)
+        row["bound_ms"], row["bound_by"] = bound(nb, ops / INT32_OPS_PER_S * 1e3)
+        out[cfg] = row
+    print("SLAB " + json.dumps(out))
+    return out
 
 
 def bnn_phase(dev) -> dict:
@@ -3190,6 +3292,8 @@ def main() -> None:
         fused_infer=fused_infer.occupancy(BUCKET, inc.shape[0]),
         sparse_infer=sparse_infer.occupancy(BUCKET, sched.n_cblocks, sched.block_c, K),
         term_infer=term_infer.occupancy(BUCKET, fsched.n_cblocks, fsched.block_c, K))))
+    # 5b. term_infer's slab design at the benchmark's batch (SLAB)
+    slab = slab_phase(dev)
 
     # 6. the serving path, once per kernel rung, counts zeroed around each
     runs = {"term_infer": [], "sparse_infer": ["--no-factorize"],
@@ -3275,7 +3379,6 @@ def main() -> None:
     # memory rate, against its integer operations over the issue rate
     B = BUCKET
     xw = xw_all[:B]
-    Sw = -(-B // 32)
     fired = ref.clause_fire_ref(xw, inc).to(torch.int64)
     fold_ops = int(fired.sum()) * votes.shape[1]
     U, K = votes.shape
@@ -3285,13 +3388,6 @@ def main() -> None:
         lit_t, stab["chain_ids"], stab["tiles"][1], stab["indptr"], n_rows=U,
         block_c=sched.block_c, block_j=sched.block_j, tile_off=0,
         sentinel=sched.n_lit_bits)
-    term_bits = sparse_infer.and_reduce(lit_t[ftab["term_chain"].long()])
-    f_bytes, f_ops = chain_need(
-        term_bits, ftab["clause_chain"], ftab["tiles"][3], ftab["indptr"],
-        n_rows=U, block_c=fsched.block_c, block_j=fsched.block_j,
-        tile_off=fsched.n_term_tiles, sentinel=fsched.n_terms)
-    stage1_ops = int((ftab["term_chain"] != fsched.n_lit_bits).sum()) * Sw
-    n_clause_tiles = fsched.n_tiles - fsched.n_term_tiles
     work = {
         # one three-input logic op (viol |= inc & ~lit) per sample, clause, word
         "fused_infer": (io_bytes + nbytes(inc, nonempty),
@@ -3299,9 +3395,7 @@ def main() -> None:
         "sparse_infer": (io_bytes + s_bytes + 2 * sched.n_tiles * 4
                          + nbytes(stab["indptr"]),
                          s_ops + fold_ops),
-        "term_infer": (io_bytes + nbytes(ftab["term_chain"]) + f_bytes
-                       + 2 * n_clause_tiles * 4 + nbytes(ftab["indptr"]),
-                       stage1_ops + f_ops + fold_ops),
+        "term_infer": factorized_work(xw, inc, votes, fsched, ftab),
     }
     print("BOUND_WORK " + json.dumps(
         {k: dict(bytes=b, ops=o) for k, (b, o) in work.items()}))
@@ -3325,6 +3419,8 @@ def main() -> None:
                 row[extra] = times[name][B][extra]
         if name in train_times:   # fused_infer: also its launch in every fused step
             row.update({f"train_{k}": v for k, v in train_times[name].items()})
+        if name == "term_infer":  # also its slab design at the benchmark's batch
+            row["slab"] = slab
         rows.append(row)
     for name, meta in TRAIN_KERNELS.items():
         nb, ops = train_work[name]

@@ -29,12 +29,10 @@ vote rows must be zero — true for every ``compile_tm`` artifact.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
 
-from repro_torch import spans
 from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
@@ -59,11 +57,6 @@ launches = 0
 # reference's block_s, a power of two up to 8 (csrc/chain_walk.cuh); None
 # lets the kernel take the smallest that covers the bucket, capped at 8
 SLAB_WORDS = (1, 2, 4, 8)
-
-# per-clause chain lengths, derived once per chain table (chain_lengths):
-# id(chain) -> (weak reference, versions and sentinel, deps' references,
-# lengths); an entry leaves with its chain
-_chain_lens: dict = {}
 
 
 def _rup(x: int, m: int) -> int:
@@ -465,20 +458,13 @@ def chain_lengths(chain: torch.Tensor, sentinel, *deps: torch.Tensor) -> torch.T
     an id, or a function of ``deps`` that gives one on their device.
     Derived once per chain tensor, then reused while the chain and
     ``deps`` are the same tensors at the same version, so the kernels'
-    wrappers launch nothing for it after the first call."""
-    tag = (chain._version, None if callable(sentinel) else sentinel,
-           *(d._version for d in deps))
-    key = id(chain)
-    hit = _chain_lens.get(key)
-    if (hit is not None and hit[0]() is chain and hit[1] == tag
-            and all(r() is d for r, d in zip(hit[2], deps))):
-        return hit[3]
-    with spans.span(spans.BUILD_RANGE):
+    wrappers launch nothing for it after the first call (``_build.derived``)."""
+    def count(chain, *deps):
         value = sentinel(*deps) if callable(sentinel) else sentinel
-        lens = (chain != value).sum(1, dtype=torch.int32)
-    _chain_lens[key] = (weakref.ref(chain, lambda _: _chain_lens.pop(key, None)), tag,
-                        tuple(weakref.ref(d) for d in deps), lens)
-    return lens
+        return (chain != value).sum(1, dtype=torch.int32)
+
+    return _build.derived("chain_lengths", chain, count, *deps,
+                          tag=None if callable(sentinel) else sentinel)
 
 
 def slab_words(block_s) -> int:

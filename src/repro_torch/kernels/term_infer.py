@@ -14,12 +14,16 @@ factorized schedule exploits it:
 Stage 1 evaluates each unique term once per sample word into a term bit
 table; stage 2 walks the clause chains over that table and folds the
 votes.  :func:`factorized_tm_forward_tables` runs the CUDA kernel
-(``csrc/term_infer.cu``: bit transpose, stage 1 and the stage-2 walk of
-``csrc/chain_walk.cuh`` as three launches on one stream, a fourth that
-folds in order with early exit) for CUDA tensors and
-:func:`factorized_tables_plain` for CPU tensors.  Padding terms (rows past
-``n_terms``) have all-sentinel chains and evaluate to all ones, so
-sentinel-padded clause chains are exact.
+(``csrc/term_infer.cu``) for CUDA tensors and
+:func:`factorized_tables_plain` for CPU tensors.  On the card a call takes
+one of two designs, by :func:`slab_words_for` from what it can observe
+(the batch, the tables' shapes, the card's SMs and shared memory): at
+large batches in exact mode ONE launch, a CTA a slab of sample words with
+its literal rows and term table in shared memory; else bit transpose,
+stage 1 and the stage-2 walk of ``csrc/chain_walk.cuh`` as three launches
+on one stream (a fourth that folds in order with early exit).  Padding
+terms (rows past ``n_terms``) have all-sentinel chains and evaluate to all
+ones, so sentinel-padded clause chains are exact.
 """
 
 from __future__ import annotations
@@ -49,14 +53,24 @@ DEFAULT_BLOCK_T = 32768
 # for one word
 GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 
-# kernel launches (stage 1 + stage 2 pairs) on CUDA tensors
+# calls that launched the kernel (either design) on CUDA tensors
 launches = 0
 
 # host spans (``repro_torch/spans.py``): what precedes a launch (the device
 # tables, the checks, the scratch buffers, the entry point and the ctypes
-# arguments) and the launch call itself
+# arguments), the launch call itself and, inside it, the slab design's
 PREP_RANGE = "term_infer.prep"
 LAUNCH_RANGE = "term_infer.launch"
+SLAB_RANGE = "term_infer.slab"
+
+# the slab design: sample words a CTA, largest first, and the slabs an SM
+# the batch must give at that size (its ceil(B / 32) sample words over S).
+# A CTA's time grows slower than S (on an H100 a wave of CTAs took 14, 17
+# and 26 us at S 1, 2 and 4 on tm-mnist), so half a wave of large slabs
+# beats a wave of small ones; the three launches stay faster at 16 sample
+# words and slower from 64 on (PERF.md, the crossover sweep)
+SLAB_SIZES = (8, 4, 2, 1)
+SLAB_MIN_SLABS_PER_SM = 0.5
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -394,12 +408,86 @@ def factorized_tables_plain(lit_words, term_chain, clause_chain, votes, tiles,
     return sums[:B]
 
 
+def slab_shared_words(S: int, W: int, Tp: int, K: int, U: int, n_cblocks: int,
+                      n_planes: int) -> int:
+    """4-byte words of shared memory the slab design needs at ``S`` sample
+    words a CTA (``csrc/term_infer.cu:slab_layout``): the literal rows
+    (32 W x S), the term rows (Tp x S, at least the slab's raw literal
+    words, 32 rows of ``W | 1``), an int4 walk plan a clause block, the
+    (32 S, K) class sums, the fired table (32 S rows of the ``U`` clauses'
+    32-clause chunks, padded to 8, and one word more) and the votes' bit
+    planes (``K n_planes`` rows, padded to 8, of those chunks)."""
+    term_rows = max(Tp, 32 * (W | 1))
+    ncp = _rup(-(-U // 32), 8)
+    return (_rup(32 * W * S, 4) + _rup(term_rows * S, 4) + 4 * n_cblocks
+            + _rup(32 * S * K, 4) + _rup(32 * S * (ncp + 1), 4) + _rup(K * n_planes, 8) * ncp)
+
+
+def slab_words_for(B: int, W: int, Tp: int, K: int, U: int, n_cblocks: int, n_planes: int, *,
+                   tile_margin, block_s, sm_count: int, shared_bytes: int) -> int:
+    """The slab design's sample words a CTA for one call, or 0 for the three
+    launches.  A pure function of what the call observes: ``B`` samples of
+    ``W`` literal words, ``Tp`` term rows, ``K`` classes, ``U`` vote rows,
+    ``n_cblocks`` clause blocks, the ``n_planes`` bit planes that hold the
+    votes, the card's ``sm_count`` and the ``shared_bytes`` a block may opt
+    in to.  Only in exact mode (no ``tile_margin``) with the kernel's own
+    tiling (``block_s`` None): the largest S of :data:`SLAB_SIZES` whose
+    tables fit and whose slabs give every SM :data:`SLAB_MIN_SLABS_PER_SM`
+    of them; 0 where none does."""
+    if tile_margin is not None or block_s is not None:
+        return 0
+    sw_total = packetizer.n_words(B)
+    for S in SLAB_SIZES:
+        if (4 * slab_shared_words(S, W, Tp, K, U, n_cblocks, n_planes) <= shared_bytes
+                and sw_total >= SLAB_MIN_SLABS_PER_SM * S * sm_count):
+            return S
+    return 0
+
+
+def vote_planes(votes: torch.Tensor) -> tuple:
+    """The (U, K) votes as the slab design's fold reads them: ``(planes,
+    n_planes)``, planes a (K, 32, ceil(U / 32)) int32 table whose word j of
+    class kk's plane p has bit c set iff bit p of ``votes[32 j + c, kk]``
+    is (two's complement; rows past U are 0), and n_planes the fewest
+    planes that hold every vote (at least 1).  Derived on the votes'
+    device once per votes tensor and version (``_build.derived``); reading
+    n_planes is its one copy to the host."""
+    return _build.derived("vote_planes", votes, _vote_planes)
+
+
+def _vote_planes(votes: torch.Tensor) -> tuple:
+    U, K = votes.shape
+    n = -(-U // 32)
+    v = torch.zeros((n * 32, K), dtype=torch.int64, device=votes.device)
+    v[:U] = votes
+    p = torch.arange(32, device=votes.device)
+    bits = (v.view(n, 32, K, 1) >> p) & 1                     # (n, clause, K, plane)
+    words = (bits << p.view(1, 32, 1, 1)).sum(1)              # (n, K, plane)
+    planes = (words - (words >> 31 << 32)).to(torch.int32).permute(1, 2, 0).contiguous()
+    mag = (v ^ (v >> 31)).max()
+    return planes, int(1 + (mag >= (1 << p[:31])).sum())
+
+
+# device index -> (SM count, opt-in shared bytes a block)
+_LIMITS: dict = {}
+
+
+def _limits(dev) -> tuple:
+    """The card's SM count and the shared bytes a block may opt in to."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _LIMITS:
+        props = torch.cuda.get_device_properties(idx)
+        _LIMITS[idx] = (props.multi_processor_count, props.shared_memory_per_block_optin)
+    return _LIMITS[idx]
+
+
 def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
                            indptr, *, block_c, block_j, n_term_tiles,
                            tile_margin=None, block_s=None):
-    """Launch ``csrc/term_infer.cu`` (bit transpose, stage 1 into a term
-    buffer allocated here, then the stage-2 walk at ``block_s`` sample words
-    a block, ``sparse_infer.slab_words``) on CUDA tensors -> (B, K) int32."""
+    """Launch ``csrc/term_infer.cu`` on CUDA tensors -> (B, K) int32: the
+    slab design where :func:`slab_words_for` picks it, else bit transpose,
+    stage 1 into a term buffer allocated here, then the stage-2 walk at
+    ``block_s`` sample words a block (``sparse_infer.slab_words``)."""
     with spans.span(PREP_RANGE):
         call = _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr,
                             block_c=block_c, block_j=block_j, n_term_tiles=n_term_tiles,
@@ -410,9 +498,10 @@ def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
 def _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr, *,
                  block_c, block_j, n_term_tiles, tile_margin, block_s):
     """The checks, scratch buffers and entry point of one launch of
-    :func:`factorized_tables_cuda` -> ``(fn, args, keep, out)``: the ctypes
-    entry, its arguments, the tensors they point into (held until the
-    launch returns) and the (B, K) view of the output it fills."""
+    :func:`factorized_tables_cuda` -> ``(fn, args, keep, out, slab)``: the
+    ctypes entry, its arguments, the tensors they point into (held until
+    the launch returns), the (B, K) view of the output it fills and whether
+    it is the slab design."""
     _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
     _check_terms(lit_words, term_chain)
     slab = slab_words(block_s)
@@ -423,6 +512,29 @@ def _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr, *,
     Tp, term_w = term_chain.shape
     Sw = packetizer.n_words(B)
     dev = lit_words.device
+    n_cblocks = indptr.shape[0] - 1
+    # the clause chains' sentinel is the first padding term, whose
+    # literal chain is all sentinels (real terms hold at least one bit)
+    lens = chain_lengths(clause_chain, lambda tc: (tc[:, 0] != W * 32).sum(),
+                         term_chain)
+    jb, last = tiles[3].contiguous(), tiles[5].contiguous()
+    P, I = _build.P, _build.I
+    sm_count, shared_bytes = _limits(dev)
+    planes, n_planes = vote_planes(votes)
+    S = slab_words_for(B, W, Tp, K, U, n_cblocks, n_planes, tile_margin=tile_margin,
+                       block_s=block_s, sm_count=sm_count, shared_bytes=shared_bytes)
+    if S:
+        out = torch.empty((B, K), dtype=torch.int32, device=dev)
+        fn = _build.entry("term_infer", "term_infer_slab_launch",
+                          [P, I, I, P, I, I, P, P, I, P, I, I, I, P, I, P, P, I, I, I, I, I,
+                           P, P])
+        args = (_build.ptr(lit_words), B, W, _build.ptr(term_chain), Tp, term_w,
+                _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
+                _build.ptr(planes), n_planes, U, K, _build.ptr(indptr), n_cblocks,
+                _build.ptr(jb), _build.ptr(last), n_term_tiles, block_c, block_j, S,
+                shared_bytes, _build.ptr(out), _build.stream_ptr(dev))
+        keep = (lit_words, term_chain, clause_chain, lens, planes, indptr, jb, last, out)
+        return fn, args, keep, out, True
     # scratch: the kernel's bit-transposed literals, stage-1 term table
     # (rows of Sw words padded to a multiple of 4, for its 16-byte loads)
     # and, with early exit, the fired words the walk stores for the
@@ -433,35 +545,34 @@ def _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr, *,
     term_bits = torch.empty((Tp, stride), dtype=torch.int32, device=dev)
     out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
     fired = None if tile_margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
-    # the clause chains' sentinel is the first padding term, whose
-    # literal chain is all sentinels (real terms hold at least one bit)
-    lens = chain_lengths(clause_chain, lambda tc: (tc[:, 0] != W * 32).sum(),
-                         term_chain)
-    jb, last = tiles[3].contiguous(), tiles[5].contiguous()
-    P, I = _build.P, _build.I
     fn = _build.entry("term_infer", "term_infer_launch",
                       [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
                        I, P, I, I, I, P, P, P])
     args = (_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
             _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
             _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
-            _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
+            _build.ptr(votes), U, K, _build.ptr(indptr), n_cblocks,
             _build.ptr(jb), _build.ptr(last), n_term_tiles,
             None if tile_margin is None else _build.ptr(tile_margin),
             block_c, block_j, slab, _build.ptr(out),
             None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     keep = (lit_words, lit_t, term_chain, term_bits, clause_chain, lens, votes, indptr,
             jb, last, tile_margin, out, fired)
-    return fn, args, keep, out[:B]
+    return fn, args, keep, out[:B], False
 
 
-def _launch(fn, args, keep, out):
+def _launch(fn, args, keep, out, slab):
     """Call the entry point of :func:`_launch_args` while ``keep`` holds
     the tensors its pointers address, check its error code and count the
     launch -> ``out``."""
     global launches
     with spans.span(LAUNCH_RANGE):
-        _build.check("term_infer", fn(*args))
+        if slab:
+            with spans.span(SLAB_RANGE):
+                err = fn(*args)
+        else:
+            err = fn(*args)
+        _build.check("term_infer", err)
     launches += 1
     return out
 

@@ -7,6 +7,7 @@ flash attention.  No JAX needed: run on the card with
 Without a card every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -890,6 +891,190 @@ def test_cuda_schedule_walks_every_slab_equal_plain(cuda_device, case, B):
             assert occ["grid_y"] == -(-(-(-B // 32)) // slab), occ
             assert occ["grid_x"] == 4 * -(-512 // (256 // slab)), occ
             assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
+
+
+# -- the slab-resident factorized walk (term_infer.cu: slab_term_eval_kernel) ---
+
+BENCH_ASSETS = {name: os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "tmbench", "assets", f)
+                for name, f in (("mnist", "tm_mnist_10k_e1.npz"),
+                                ("cifar2", "tm_cifar2_e1.npz"))}
+
+
+@contextlib.contextmanager
+def _slab_spans():
+    """Under the autograd profiler in its NVTX mode (the spans record
+    under any profiler; this one starts no kineto session: after the
+    kineto sessions of the wide-bank cases, a later CUDA trace in the same
+    process recorded no device kernels), a function ``once(fn, *args,
+    calls=1, **kw)`` -> fn's result, holding that the call made `calls`
+    factorized launches and took the slab design in each (the span
+    term_infer.slab once a launch)."""
+    from repro_torch import spans
+    from repro_torch.kernels import term_infer
+
+    def once(fn, *args, calls=1, **kw):
+        n0 = term_infer.launches
+        s0 = spans.totals().get(term_infer.SLAB_RANGE, (0, 0))[0]
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert term_infer.launches - n0 == calls
+        assert spans.totals().get(term_infer.SLAB_RANGE, (0, 0))[0] - s0 == calls
+        return got
+
+    spans.reset()
+    with torch.autograd.profiler.emit_nvtx():
+        yield once
+
+
+def _dataset_literals(comp, name, B, seed):
+    """(B, W) packed literals of the port's synthetic dataset of `name`'s
+    widths, and their (B, Wa) words gathered to the artifact's active words."""
+    from repro_torch.data.synthetic import paper_dataset
+    X, _, _, _ = paper_dataset(name, n_train=B, n_test=0, seed=seed)
+    lit = packetizer.pack_literals(torch.from_numpy(X))
+    return lit, lit[:, torch.from_numpy(np.asarray(comp.word_ids, np.int64))].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mnist", "cifar2"])
+@pytest.mark.parametrize("B", [65536, 65519])
+def test_cuda_slab_walk_equals_plain_on_benchmark_artifacts(cuda_device, name, B):
+    """The benchmark's artifacts at its batch and a ragged one, through the
+    schedule wrapper and through run_compiled: one launch, the slab design,
+    the plain version's sums at tolerance 0."""
+    from repro_torch.kernels import term_infer
+    comp = compiler.CompiledTM.load(BENCH_ASSETS[name])
+    x, lit = _dataset_literals(comp, name, B, B)
+    v = torch.from_numpy(np.asarray(comp.votes, np.int32))
+    fs = comp.factorized_schedule()
+    want = term_infer.factorized_tm_forward(lit, v, fs)
+    assert 0 < int((want != 0).sum()) < want.numel()
+    # votes of 13 bit planes (they fit beside tm-mnist's tables at 4 sample
+    # words a CTA) and of 22 (they do not: the rule takes 2)
+    scales = (3000, 1 << 20) if name == "mnist" and B == 65519 else ()
+    wants = [term_infer.factorized_tm_forward(lit, v * scale, fs) for scale in scales]
+    lit_d, v_d = lit.to(cuda_device), v.to(cuda_device)
+    with _slab_spans() as once:
+        got = once(term_infer.factorized_tm_forward, lit_d, v_d, fs)
+        got_run = once(compiler.run_compiled, comp, x.to(cuda_device), engine="factorized")
+        got_scaled = [once(term_infer.factorized_tm_forward, lit_d, v_d * scale, fs)
+                      for scale in scales]
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    np.testing.assert_array_equal(got_run.cpu().numpy(), want.numpy())
+    for scale, w, g in zip(scales, wants, got_scaled):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=str(scale))
+
+
+def _wide_bank(W, K, U, seed, long_every=0):
+    """(include words (U, W) uint32, votes (U, K)): 1-8 include bits a
+    clause over W words, every 13th clause empty (fires everywhere), and
+    with `long_every` every such clause 150 bits long (many tiles)."""
+    rng = np.random.default_rng(seed)
+    bits = np.zeros((U, W * 32), np.uint8)
+    for c in range(U):
+        bits[c, rng.choice(W * 32, rng.integers(1, 9), replace=False)] = 1
+        if long_every and c % long_every == 5:
+            bits[c, rng.choice(W * 32, 150, replace=False)] = 1
+    bits[::13] = 0
+    iw = packetizer.pack_bits_np(bits).view(np.uint32)
+    return iw, rng.integers(-4, 5, (U, K)).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,K,tiling", [(70, 2, dict()), (70, 10, dict(block_c=64, block_j=8)),
+                                        (97, 32, dict()), (65, 10, dict(block_c=8, block_j=4))])
+def test_cuda_slab_walk_equals_plain_on_wide_banks(cuda_device, W, K, tiling):
+    """Banks past 64 literal words at K 2, 10 and 32, chains longer than one
+    tile, every prefix of a budgeted schedule that leaves a clause block
+    unclosed (it must add nothing) and tiles in reverse order: the slab
+    design against the plain version, tolerance 0, one launch a call."""
+    from repro_torch.kernels import anytime, term_infer
+    iw, votes = _wide_bank(W, K, 700, W + K, long_every=37)
+    B = 48000
+    lit = _requests("random", B, W, W).to(cuda_device)
+    v = torch.from_numpy(votes).to(cuda_device)
+    fs = term_infer.build_factorized_schedule(iw, **tiling)
+    assert int(fs.counts.max()) > 1                     # a chain past one tile
+    schedules = [fs]
+    for n in range(fs.n_term_tiles + 1, fs.n_tiles, max(1, fs.n_tiles // 6)):
+        ps = anytime.factorized_prefix_schedule(fs, n)
+        t1 = ps.n_term_tiles + ps.indptr[1:]
+        if ((t1 > ps.n_term_tiles + ps.indptr[:-1]) & (ps.tile_last[t1 - 1] != 1)).any():
+            schedules.append(ps)                          # a block left unclosed
+    assert len(schedules) > 1
+    wants = [term_infer.factorized_tm_forward(lit.cpu(), v.cpu(), s) for s in schedules]
+    t = fs.tensors(cuda_device)
+    tiles = t["tiles"].clone()
+    for cb in range(fs.n_cblocks):
+        lo = fs.n_term_tiles + int(fs.indptr[cb])
+        hi = fs.n_term_tiles + int(fs.indptr[cb + 1])
+        tiles[3, lo:hi] = tiles[3, lo:hi].flip(0)
+    args = (lit, t["term_chain"], t["clause_chain"], v, tiles, t["indptr"])
+    kw = dict(block_c=fs.block_c, block_j=fs.block_j, n_term_tiles=fs.n_term_tiles)
+    want_rev = term_infer.factorized_tables_plain(*(a.cpu() for a in args), **kw)
+    with _slab_spans() as once:
+        gots = [once(term_infer.factorized_tm_forward, lit, v, s) for s in schedules]
+        got_rev = once(term_infer.factorized_tables_cuda, *args, **kw)
+    for s, want, got in zip(schedules, wants, gots):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=f"{s.n_tiles}/{fs.n_tiles} tiles")
+    np.testing.assert_array_equal(got_rev.cpu().numpy(), want_rev.numpy(),
+                                  err_msg="tiles reversed")
+
+
+@pytest.mark.cuda
+def test_cuda_slab_walk_clause_sharded_equals_unsharded(card_mesh, cuda_device):
+    """The stacked clause-sharded forward on the tm-mnist benchmark artifact
+    at 65,536 samples: each shard's call is one slab launch, and the psum
+    of the shards equals the unsharded sums."""
+    from repro_torch.core import sharding
+    from repro_torch.kernels import term_infer
+    comp = compiler.CompiledTM.load(BENCH_ASSETS["mnist"])
+    mesh = card_mesh("model=2")
+    xw = _dataset_literals(comp, "mnist", 65536, 5)[1].to(cuda_device)
+    v = torch.from_numpy(np.asarray(comp.votes, np.int32))
+    want = term_infer.factorized_tm_forward(xw.cpu(), v, comp.factorized_schedule())
+    fs, *stacks, _ = term_infer.stack_shard_factorized(comp.include_words, comp.votes, 2)
+    fwd = sharding.sharded_factorized_forward_fn(mesh, block_t=fs[0].block_t,
+                                                 block_c=fs[0].block_c, block_j=fs[0].block_j)
+    tabs = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in stacks]
+    with _slab_spans() as once:
+        got = once(fwd, *tabs, xw, calls=mesh.size)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_slab_choice_and_ptxas_figures(cuda_device):
+    """At the benchmark's shapes the card's limits pick 4 sample words a
+    CTA (2 for votes of 22 bit planes), the serve bucket keeps the three
+    launches, and no instance of the slab kernel spills (ptxas)."""
+    import re
+
+    from repro_torch.kernels import _build, term_infer
+    sms, shared = term_infer._limits(cuda_device)
+    assert sms >= 100 and shared >= 227 * 1024
+    for name in ("mnist", "cifar2"):
+        comp = compiler.CompiledTM.load(BENCH_ASSETS[name])
+        fs = comp.factorized_schedule()
+        (U, W), K = comp.include_words.shape, comp.votes.shape[1]
+        Tp = fs.term_chain.shape[0]
+        n_planes = term_infer.vote_planes(
+            torch.from_numpy(np.asarray(comp.votes, np.int32)).to(cuda_device))[1]
+        pick = dict(tile_margin=None, block_s=None, sm_count=sms, shared_bytes=shared)
+        shape = (W, Tp, K, U, fs.n_cblocks)
+        assert n_planes == 2
+        assert term_infer.slab_words_for(65536, *shape, n_planes, **pick) == 4
+        assert term_infer.slab_words_for(512, *shape, n_planes, **pick) == 0
+        if name == "mnist":
+            assert term_infer.slab_words_for(65536, *shape, 22, **pick) == 2
+    _build.build()
+    entries = [e for e in _build.build_log("term_infer").split("Compiling entry function")
+               if "slab_term_eval_kernel" in e.split("\n")[0]]
+    assert len(entries) == len(term_infer.SLAB_SIZES), entries
+    for e in entries:
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e)
+        assert spills and spills.groups() == ("0", "0"), e
 
 
 @pytest.mark.cuda

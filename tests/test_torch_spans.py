@@ -5,8 +5,9 @@ With no profiler recording a span dispatches no ``profiler.*`` op and
 records nothing; under ``torch.profiler`` each span is a range in the
 trace, nested as the code nests, on the clock of the ops inside it, and
 counted in ``spans.totals()``.  Results are the same bits either way.  The
-``cuda`` case checks on the card that the ``term_infer`` launches lie
-inside ``term_infer.launch``.
+``cuda`` cases check on the card that the ``term_infer`` launches lie
+inside ``term_infer.launch``: the three of a small batch, and the slab
+design's one of a large batch inside ``term_infer.slab`` as well.
 """
 
 import numpy as np
@@ -182,9 +183,22 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _term_infer_kernels(events):
+    """The device's term_infer kernels and the host's launches of them."""
+    kernels = [e for e in events if str(e.device_type()).endswith("CUDA")
+               and not e.is_user_annotation()
+               and any(k in e.name() for k in ("bit_transpose_kernel", "term_eval_kernel",
+                                               "chain_exact_kernel"))]
+    ids = {i for e in kernels for i in (e.correlation_id(), e.linked_correlation_id()) if i}
+    launches = [e for e in events if not str(e.device_type()).endswith("CUDA")
+                and e.correlation_id() in ids and "aunch" in e.name()]
+    return kernels, launches
+
+
 @pytest.mark.cuda
 def test_term_infer_launches_lie_inside_the_launch_span(cuda_device):
-    compiled, x = _artifact(), _packed(batch=4096).to(cuda_device)
+    # 1,024 samples: too few slabs for the card, so the three launches
+    compiled, x = _artifact(), _packed(batch=1024).to(cuda_device)
     want = _infer(compiled, x)
     torch.cuda.synchronize()
     before = term_infer.launches
@@ -194,15 +208,34 @@ def test_term_infer_launches_lie_inside_the_launch_span(cuda_device):
         torch.cuda.synchronize()
     assert term_infer.launches == before + 1 and torch.equal(got, want)
     assert spans.totals()[term_infer.LAUNCH_RANGE][0] == 1
+    assert term_infer.SLAB_RANGE not in spans.totals()
     events = list(prof.profiler.kineto_results.events())
-    kernels = [e for e in events if str(e.device_type()).endswith("CUDA")
-               and not e.is_user_annotation()
-               and any(k in e.name() for k in ("bit_transpose_kernel", "term_eval_kernel",
-                                               "chain_exact_kernel"))]
+    kernels, launches = _term_infer_kernels(events)
     assert len(kernels) >= 3, [e.name() for e in events if "kernel" in e.name()]
-    ids = {i for e in kernels for i in (e.correlation_id(), e.linked_correlation_id()) if i}
-    launches = [e for e in events if not str(e.device_type()).endswith("CUDA")
-                and e.correlation_id() in ids and "aunch" in e.name()]
     assert len(launches) >= 3, sorted({e.name() for e in events})
     (launch,) = _ranges(events, term_infer.LAUNCH_RANGE)
     assert all(_inside((e.start_ns(), e.end_ns()), launch) for e in launches)
+
+
+@pytest.mark.cuda
+def test_slab_launch_lies_inside_the_slab_span(cuda_device):
+    # 65,536 samples: the slab design's one launch, inside both spans
+    compiled, x = _artifact(), _packed(batch=65536).to(cuda_device)
+    want = _infer(compiled, x)
+    torch.cuda.synchronize()
+    before = term_infer.launches
+    spans.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = _infer(compiled, x)
+        torch.cuda.synchronize()
+    assert term_infer.launches == before + 1 and torch.equal(got, want)
+    totals = spans.totals()
+    assert totals[term_infer.LAUNCH_RANGE][0] == 1 and totals[term_infer.SLAB_RANGE][0] == 1
+    events = list(prof.profiler.kineto_results.events())
+    kernels, launches = _term_infer_kernels(events)
+    assert [e.name() for e in kernels if "slab_term_eval_kernel" in e.name()] == [
+        e.name() for e in kernels], [e.name() for e in kernels]
+    assert len(kernels) == 1 and len(launches) == 1, sorted({e.name() for e in events})
+    (launch,), (slab,) = (_ranges(events, n) for n in (term_infer.LAUNCH_RANGE,
+                                                        term_infer.SLAB_RANGE))
+    assert _inside(slab, launch) and _inside((launches[0].start_ns(), launches[0].end_ns()), slab)
