@@ -28,6 +28,9 @@ import torch
 from tmbench import datagen, work
 from tmbench.reference import tm_reference
 
+# the keys of a configuration that name files this kind reads
+CONFIG_FILES = ("serve_artifact", "serve_bank")
+
 # the program's launch counters that tell which route "auto" took
 ROUTES = {"factorized": "term_infer", "sparse": "sparse_infer", "dense": "fused_infer"}
 

@@ -32,6 +32,10 @@ import torch
 from tmbench import datagen, work
 from tmbench.reference import tm_reference
 
+# the keys of a configuration that name files this kind reads: none, the
+# pool and the bank are drawn from the seed
+CONFIG_FILES = ()
+
 # share of the card's free memory set aside, in a traced run, for the banks
 # the window keeps
 KEEP_SHARE = 0.5

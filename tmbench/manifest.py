@@ -6,7 +6,8 @@ A cell (``workloads`` entry) names a configuration (``configs``, whose
 ``tmbench/kinds/<kind>.py``.  Every metric, end-to-end or per-layer, is
 read by ``tmbench/metrics/<metric>.py``.  A metric belongs to a cell when
 its ``workloads`` list names the cell; a per-layer metric without the key
-belongs to every cell that reports the end-to-end metric it moves.
+belongs to every cell that reports the end-to-end metric it moves.  A
+configuration's file keeps to ``config_errors``.
 """
 
 from __future__ import annotations
@@ -93,20 +94,13 @@ def validate(m: dict, root: str = ROOT) -> list:
         if f in files or not any(f.startswith(p.rstrip("/") + "/") for p in paths):
             errors.append(f"config {c.get('name')}: file {f!r} not under paths or shared")
         files.add(f)
-        widths = {}
+        cfg = {}
         if os.path.isfile(os.path.join(root, f)):
             with open(os.path.join(root, f)) as fh:
-                widths = json.load(fh).get("model", {})
+                cfg = json.load(fh)
         else:
             errors.append(f"config {c.get('name')}: no file {f}")
-        red = c.get("reduced", [])
-        if not isinstance(red, list) or len(red) > 16:
-            errors.append(f"config {c.get('name')}: reduced is a list of at most 16 keys")
-        for k in red:
-            _name(k, "reduced key", errors)
-            if k in widths:
-                errors.append(f"config {c.get('name')}: reduced names a width {k!r} "
-                              "(a key of the TM's model)")
+        errors += config_errors(c, cfg)
     cfg_names = {c.get("name") for c in configs}
     cells = m.get("workloads", [])
     if not 1 <= len(cells) <= 24:
@@ -165,6 +159,59 @@ def validate(m: dict, root: str = ROOT) -> list:
             if p.get("moves") not in got:
                 errors.append(f"cell {w.get('name')}: {p.get('name')} moves "
                               f"{p.get('moves')}, which the cell does not report")
+    return errors
+
+
+def _number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def config_errors(entry: dict, cfg: dict) -> list:
+    """The ways the file ``cfg`` of the configuration ``entry`` breaks the
+    contract of a configuration (empty when none).
+
+    ``model`` holds the widths, which are never cut; ``held``, where the
+    file has it, the counts cut to one chip's share (layers, experts held,
+    vocabulary rows), each listed in ``reduced``; ``published`` the
+    source's own value of every key of ``model`` and ``held``.  A number at
+    the top level of the file that ``published`` names (where a published
+    model's own ``config.json`` is copied) reads its ``held`` value where
+    the key is held, else its published one.
+    """
+    errors = []
+    name = entry.get("name")
+    model, held = cfg.get("model", {}), cfg.get("held", {})
+    published = cfg.get("published", {})
+    if not all(isinstance(b, dict) for b in (model, held, published)):
+        return [f"config {name}: model, held and published are objects"]
+    red = entry.get("reduced", [])
+    if not isinstance(red, list) or len(red) > 16:
+        errors.append(f"config {name}: reduced is a list of at most 16 keys")
+        red = []
+    for k in red:
+        _name(k, "reduced key", errors)
+        if k in model:
+            errors.append(f"config {name}: reduced names a width {k!r} "
+                          "(a key of the configuration's model)")
+    if "held" in cfg and "published" not in cfg:
+        errors.append(f"config {name}: held without published")
+    for k, v in held.items():
+        if k not in red:
+            errors.append(f"config {name}: held key {k!r} is not in reduced")
+        if k not in published:
+            errors.append(f"config {name}: held key {k!r} has no published value")
+        elif not (_number(v) and _number(published[k]) and 0 < v <= published[k]):
+            errors.append(f"config {name}: held {k!r} is {v!r}, not above 0 and at most "
+                          f"its published {published[k]!r}")
+    for k, v in model.items():
+        if k in published and v != published[k]:
+            errors.append(f"config {name}: model key {k!r} is {v!r}, unlike its "
+                          f"published {published[k]!r}")
+    for k, v in cfg.items():
+        want = held.get(k, published.get(k))
+        if _number(v) and k in published and v != want:
+            errors.append(f"config {name}: top-level {k!r} is {v!r}, not its held or "
+                          f"published {want!r}")
     return errors
 
 
