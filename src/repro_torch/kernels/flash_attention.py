@@ -69,17 +69,20 @@ def _check(q, k, v):
         raise ValueError("attention over an empty key sequence")
 
 
-def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = False):
+def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = False,
+                        scale: float | None = None):
     """Plain PyTorch version (any device): one masked softmax over all
     keys in float32 -> (B, S, H, dv) (v's width dv may differ from the qk
-    width hd; the scale is hd^-0.5), and with ``return_lse`` also each
-    row's log-sum-exp (B, S, H) float32, ``max + log(max(l, 1e-30))``."""
+    width hd; the scale is ``scale``, default hd^-0.5), and with
+    ``return_lse`` also each row's log-sum-exp (B, S, H) float32,
+    ``max + log(max(l, 1e-30))``."""
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, G = k.shape[1], H // k.shape[2]
     kf = k.to(torch.float32).repeat_interleave(G, dim=2)
     vf = v.repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32), kf) * hd ** -0.5
+    s = torch.einsum("bqhd,bthd->bhqt", q.to(torch.float32), kf) * (
+        hd ** -0.5 if scale is None else scale)
     if causal:
         mask = (torch.arange(T, device=q.device)[None, :]
                 <= torch.arange(S, device=q.device)[:, None])
@@ -95,11 +98,13 @@ def flash_forward_plain(q, k, v, *, causal: bool = True, return_lse: bool = Fals
     return out, (m[..., 0] + torch.log(l)).transpose(1, 2).contiguous()
 
 
-def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False):
+def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False,
+                       scale: float | None = None):
     """Launch ``csrc/flash_attention.cu`` on CUDA tensors -> (B, S, H, dv):
     the tensor-core kernel for bf16, the CUDA-core kernel for float32; with
     ``return_lse`` the kernel also writes each row's log-sum-exp (B, S, H)
-    float32 -> ``(out, lse)``."""
+    float32 -> ``(out, lse)``.  ``scale`` multiplies the scores (default
+    hd^-0.5)."""
     global launches, launches_wgmma, launches_simt
     _check(q, k, v)
     if not q.is_cuda:
@@ -122,7 +127,8 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
                       [P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P])
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
              P(None) if lse is None else _build.ptr(lse),
-             B, S, T, H, KH, hd, dv, int(causal), hd ** -0.5, _build.stream_ptr(q.device))
+             B, S, T, H, KH, hd, dv, int(causal), hd ** -0.5 if scale is None else scale,
+             _build.stream_ptr(q.device))
     _build.check("flash_attention", err)
     launches += 1
     if q.dtype == torch.bfloat16:
@@ -133,12 +139,14 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, return_lse: bool = False):
+                  causal: bool = True, return_lse: bool = False,
+                  scale: float | None = None):
     """Attention forward == ``repro.kernels.ref.flash_ref`` (kv heads
     grouped, not expanded; v's width may differ from q's and k's);
     ``return_lse`` adds each row's log-sum-exp
-    (B, S, H) float32, the training backward's residual."""
+    (B, S, H) float32, the training backward's residual; ``scale``
+    multiplies the scores (default hd^-0.5)."""
     if q.is_cuda:
         return flash_forward_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, return_lse=return_lse)
-    return flash_forward_plain(q, k, v, causal=causal, return_lse=return_lse)
+                                  causal=causal, return_lse=return_lse, scale=scale)
+    return flash_forward_plain(q, k, v, causal=causal, return_lse=return_lse, scale=scale)

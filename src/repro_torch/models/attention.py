@@ -60,13 +60,14 @@ def _expand_kv(x: torch.Tensor, H: int) -> torch.Tensor:
     return x if K == H else x.repeat_interleave(H // K, dim=2)
 
 
-def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk):
+def _flash_fwd(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk, scale=None):
     """The reference's jnp route (``attention.py:_flash_fwd``): online
     softmax over (q_chunk x kv_chunk) tiles with explicit positions, kv
-    expanded to H heads -> (out (B, S, H, dv), lse (B, S, H) float32)."""
+    expanded to H heads -> (out (B, S, H, dv), lse (B, S, H) float32).
+    ``scale`` multiplies the scores (default hd^-0.5)."""
     B, S, H, hd = q.shape
     T, dv = k.shape[1], v.shape[-1]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     outs, lses = [], []
     q_starts = range(0, S, q_chunk)
     for q0 in trips(q_starts):
@@ -111,7 +112,8 @@ def _flash_tile_p(qc, kc, qpc, kpc, lse_c, scale, window):
     return torch.where(_tile_mask(qpc, kpc, window)[:, :, None, :], p, 0.0)
 
 
-def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk):
+def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk,
+               scale=None):
     """The reference's two recomputing passes (``attention.py:bwd``) on kv
     expanded to H heads -> (dq, dk, dv) with dk, dv per query head, in
     float32: pass A sums dq over kv tiles for each q tile, pass B dk and
@@ -120,7 +122,7 @@ def _flash_bwd(q, k, v, q_pos, kv_pos, out, lse, do, window, q_chunk, kv_chunk):
     float32."""
     B, S, H, hd = q.shape
     T, dv_ = k.shape[1], v.shape[-1]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     delta = torch.sum(do.to(torch.float32) * out.to(torch.float32), dim=-1)   # (B, S, H)
     qs = [slice(i, min(i + q_chunk, S)) for i in range(0, S, q_chunk)]
     ks = [slice(i, min(i + kv_chunk, T)) for i in range(0, T, kv_chunk)]
@@ -167,15 +169,16 @@ class _FlashAttention(torch.autograd.Function):
     the chunked route."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk, kernel):
+    def forward(ctx, q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk, kernel, scale=None):
         H = q.shape[2]
         if kernel:
-            out, lse = _flash_kernel.flash_forward(q, k, v, causal=True, return_lse=True)
+            out, lse = _flash_kernel.flash_forward(q, k, v, causal=True, return_lse=True,
+                                                   scale=scale)
         else:
             out, lse = _flash_fwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
-                                  window, q_chunk, kv_chunk)
+                                  window, q_chunk, kv_chunk, scale)
         ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
-        ctx.cfg = (window, q_chunk, kv_chunk)
+        ctx.cfg = (window, q_chunk, kv_chunk, scale)
         return out
 
     @staticmethod
@@ -187,7 +190,7 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_bwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
                                     out, lse, do, *ctx.cfg)
         return (dq.to(q.dtype), _group_sum(dk, K).to(k.dtype),
-                _group_sum(dv, K).to(v.dtype), None, None, None, None, None, None)
+                _group_sum(dv, K).to(v.dtype), None, None, None, None, None, None, None)
 
 
 def _is_arange(q_pos, kv_pos) -> bool:
@@ -198,7 +201,7 @@ def _is_arange(q_pos, kv_pos) -> bool:
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
-                    q_chunk: int = 1024, kv_chunk: int = 1024, arange=None):
+                    q_chunk: int = 1024, kv_chunk: int = 1024, arange=None, scale=None):
     """Causal (optionally windowed) attention: q (B, S, H, hd), k (B, T, K,
     hd) and v (B, T, K, dv) with K dividing H, positions (B, S) and (B, T).
 
@@ -211,7 +214,8 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
     says the positions are 0..S-1 in every row (the caller made them so);
     None checks on the device, one sync.  When q, k or v needs a gradient
     it goes through the recomputing VJP (``_FlashAttention``), whose
-    forward takes the same route.
+    forward takes the same route.  ``scale`` multiplies the scores
+    (default hd^-0.5).
     """
     B, S, H, hd = q.shape
     T = k.shape[1]
@@ -225,11 +229,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, window: int = 0,
         kv_chunk //= 2
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, q_pos, kv_pos, window, q_chunk, kv_chunk,
-                                     bool(kernel))
+                                     bool(kernel), scale)
     if kernel:
-        return _flash_kernel.flash_forward(q, k, v, causal=True)
+        return _flash_kernel.flash_forward(q, k, v, causal=True, scale=scale)
     return _flash_fwd(q, _expand_kv(k, H), _expand_kv(v, H), q_pos, kv_pos,
-                      window, q_chunk, kv_chunk)[0]
+                      window, q_chunk, kv_chunk, scale)[0]
 
 
 def _decode_attention(cfg: ModelConfig, q, k, v, positions, kv_pos, window):

@@ -55,6 +55,20 @@ class ModelConfig:
     # long-context capability (sub-quadratic): run long_500k iff True
     subquadratic: bool = False
 
+    # DeepSeek-V2's published routing, dispatch and RoPE scaling, at the
+    # values that give every other configuration its rule (a softmax top-k
+    # renormalized, capacity dispatch over all experts, plain RoPE).  Class
+    # constants, not fields: the reference's config has none of them, and
+    # only :class:`DeepSeekV2Config` sets them.
+    topk_method = "greedy"
+    n_group = 1
+    topk_group = 1
+    norm_topk_prob = True
+    routed_scaling_factor = 1.0
+    dropless = False
+    held_group = None
+    yarn = None
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -77,13 +91,76 @@ class ModelConfig:
         return _param_count(self, active_only=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class Yarn:
+    """YaRN's RoPE scaling (``rope_scaling`` of type ``yarn`` in a config.json):
+    the context ``factor`` over ``original_max_position_embeddings``, the
+    rotation counts ``beta_fast`` and ``beta_slow`` that bound the ramp
+    between extrapolated and interpolated frequencies, and the ``mscale``
+    factors of the rotation and of the attention scale."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+# DeepSeek-V2's ``rope_scaling`` (its config.json)
+DEEPSEEK_V2_YARN = Yarn(factor=40.0, original_max_position_embeddings=4096, beta_fast=32.0,
+                        beta_slow=1.0, mscale=0.707, mscale_all_dim=0.707)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV2Config(ModelConfig):
+    """A :class:`ModelConfig` with DeepSeek-V2's published settings
+    (``DeepseekV2MoEGate``, ``DeepseekV2MoE.moe_infer``,
+    ``DeepseekV2YarnRotaryEmbedding``), by default at its published values.
+
+    ``topk_method`` "group_limited_greedy" keeps each token's ``topk_group``
+    best of ``n_group`` expert groups (a group scores its best expert's
+    probability) before its top-k; the gates are renormalized only under
+    ``norm_topk_prob``, then scaled by ``routed_scaling_factor``.  The
+    dispatch is always dropless: every routed (token, expert) pair is
+    computed, with no capacity.  ``held_group``: the routing group whose
+    experts this device holds (the router still scores all ``n_experts``),
+    None for all.  ``yarn``: YaRN frequencies and the mscale^2 softmax scale
+    on MLA's rope dimensions.
+    """
+
+    topk_method: str = "group_limited_greedy"
+    n_group: int = 8
+    topk_group: int = 3
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 16.0
+    held_group: Optional[int] = None
+    yarn: Optional[Yarn] = DEEPSEEK_V2_YARN
+    dropless = True
+
+    def __post_init__(self):
+        if self.n_experts % self.n_group:
+            raise ValueError(f"{self.n_group} groups do not divide {self.n_experts} experts")
+        if self.held_group is not None and not 0 <= self.held_group < self.n_group:
+            raise ValueError(f"held group {self.held_group} of {self.n_group}")
+
+
+def held_experts(cfg: ModelConfig) -> range:
+    """The experts this device holds of ``cfg.n_experts``: one routing
+    group's under ``held_group``, else all of them."""
+    if cfg.held_group is None:
+        return range(cfg.n_experts)
+    size = cfg.n_experts // cfg.n_group
+    return range(cfg.held_group * size, (cfg.held_group + 1) * size)
+
+
 def _ff_params(cfg: ModelConfig, kind: str, layer_idx: int, active: bool) -> int:
     d = cfg.d_model
     if kind in ("mlstm", "slstm"):
         return 0  # recurrent blocks carry their own FF inside block params
     if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
         fe = cfg.d_ff_expert
-        routed = cfg.n_experts * 3 * d * fe
+        routed = len(held_experts(cfg)) * 3 * d * fe
         if active:
             routed = cfg.top_k * 3 * d * fe
         shared = cfg.n_shared_experts * 3 * d * fe

@@ -5,6 +5,8 @@ input's type; the loss's logits in float32."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -54,13 +56,50 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S) int.  Rotates the two halves."""
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's magnitude factor ``0.1 mscale ln(scale) + 1`` (1 for scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_correction_range(dim: int, theta: float, yarn) -> tuple:
+    """The frequency indices (low, high) between which YaRN's ramp runs:
+    the dimensions that turn ``beta_fast`` and ``beta_slow`` times over the
+    original context, floor and ceil, clamped to [0, dim - 1]."""
+    def dim_of(rotations):
+        return (dim * math.log(yarn.original_max_position_embeddings
+                               / (rotations * 2 * math.pi)) / (2 * math.log(theta)))
+
+    low = math.floor(dim_of(yarn.beta_fast))
+    high = math.ceil(dim_of(yarn.beta_slow))
+    return max(low, 0), min(high, dim - 1)
+
+
+def yarn_frequencies(dim: int, theta: float, yarn, device=None) -> torch.Tensor:
+    """YaRN's (dim/2,) inverse frequencies (``DeepseekV2YarnRotaryEmbedding``):
+    each plain frequency f_i, below the ramp kept, past it divided by the
+    factor, and mixed linearly along it."""
+    f = rope_frequencies(dim, theta, device)
+    low, high = yarn_correction_range(dim, theta, yarn)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    return f / yarn.factor * ramp + f * (1 - ramp)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None, mscale: float = 1.0) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) int.  Rotates the two halves by
+    ``freqs`` (hd/2,) (default: the plain frequencies of ``theta``), with
+    cos and sin multiplied by ``mscale``."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)                 # (hd/2,)
+    if freqs is None:
+        freqs = rope_frequencies(hd, theta, x.device)             # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs       # (B, S, hd/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 

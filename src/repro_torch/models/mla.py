@@ -10,6 +10,11 @@ rope_head_dim``) and v (``v_head_dim``) and attends over its own tokens,
 which on the card is the flash kernel at qk width != v width; one decoded
 token attends in the latent space (``_mla_decode``), with ``wk_b`` folded
 into the query and ``wv_b`` into the output.
+
+Under a ``yarn`` setting (:class:`config.DeepSeekV2Config`) the rope
+dimensions rotate by YaRN's frequencies, and the softmax scale is
+``(nope + rope)^-0.5 mscale(factor, mscale_all_dim)^2``, as DeepSeek-V2
+publishes them; otherwise plain RoPE and ``(nope + rope)^-0.5``.
 """
 
 from __future__ import annotations
@@ -39,17 +44,35 @@ def init_mla(generator, cfg: ModelConfig, dtype, device) -> dict:
             "wo": dense(H * vd, d, (H, vd, d))}
 
 
+def softmax_scale(cfg: ModelConfig) -> float:
+    """The attention scale: qk width^-0.5, times YaRN's mscale^2 under ``yarn``."""
+    scale = (cfg.resolved_head_dim + cfg.rope_head_dim) ** -0.5
+    if cfg.yarn is not None and cfg.yarn.mscale_all_dim:
+        scale *= layers.yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim) ** 2
+    return scale
+
+
+def _rope(cfg: ModelConfig, x, positions):
+    """RoPE on the rope dimensions x (B, S, H, rope): YaRN's under ``yarn``."""
+    y = cfg.yarn
+    if y is None:
+        return layers.apply_rope(x, positions, cfg.rope_theta)
+    freqs = layers.yarn_frequencies(cfg.rope_head_dim, cfg.rope_theta, y, x.device)
+    mscale = (layers.yarn_mscale(y.factor, y.mscale)
+              / layers.yarn_mscale(y.factor, y.mscale_all_dim))
+    return layers.apply_rope(x, positions, cfg.rope_theta, freqs, mscale)
+
+
 def _mla_qkv(cfg: ModelConfig, params, x, positions):
     """-> q_nope (B, S, H, nope), q_rope (B, S, H, rope), c_kv (B, S, kv_lora),
     k_rope (B, S, 1, rope)."""
     nope = cfg.resolved_head_dim
     q_lat = layers.rms_norm(x @ params["wq_a"], params["q_norm"], cfg.norm_eps)
     q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"])
-    q_rope = layers.apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    q_rope = _rope(cfg, q[..., nope:], positions)
     kv = x @ params["wkv_a"]
     c_kv = layers.rms_norm(kv[..., :cfg.kv_lora], params["kv_norm"], cfg.norm_eps)
-    k_rope = layers.apply_rope(kv[..., cfg.kv_lora:][:, :, None, :], positions,
-                               cfg.rope_theta)
+    k_rope = _rope(cfg, kv[..., cfg.kv_lora:][:, :, None, :], positions)
     return q[..., :nope], q_rope, c_kv, k_rope
 
 
@@ -68,10 +91,12 @@ def mla_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = No
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, params, x, positions)
     q = torch.cat([q_nope, q_rope], dim=-1)
     S = x.shape[1]
+    scale = softmax_scale(cfg)
     with torch.profiler.record_function(attention.ATTEND_RANGE):
         if cache is None:
             k, v = _expand_kv(params, c_kv, k_rope)
-            out = attention.flash_attention(q, k, v, positions, positions, arange=arange or None)
+            out = attention.flash_attention(q, k, v, positions, positions, arange=arange or None,
+                                            scale=scale)
         else:
             pos, cc, cr = cache["pos"], cache["c_kv"], cache["k_rope"]
             S_max = cc.shape[1]
@@ -87,13 +112,13 @@ def mla_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = No
                 # the prompt's own k and v, the flash kernel's route on the card
                 k, v = _expand_kv(params, c_kv, k_rope)
                 out = attention.flash_attention(q, k, v, positions, positions,
-                                                arange=arange or None)
+                                                arange=arange or None, scale=scale)
             else:
                 k, v = _expand_kv(params, cc, cr[:, :, None, :])
                 kv_pos = torch.arange(S_max, dtype=positions.dtype,
                                       device=x.device)[None, :].expand(x.shape[0], S_max)
                 kv_pos = torch.where(kv_pos < pos + S, kv_pos, 2 ** 30)   # mask empties
-                out = attention.flash_attention(q, k, v, positions, kv_pos)
+                out = attention.flash_attention(q, k, v, positions, kv_pos, scale=scale)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
 
 
@@ -106,7 +131,7 @@ def _mla_decode(cfg: ModelConfig, params, q, c_kv, k_rope, positions):
     q_lat = torch.einsum("bshk,rhk->bshr", q[..., :nope], params["wk_b"])[:, 0]
     s = torch.einsum("bhr,btr->bht", q_lat.to(f32), c_kv.to(f32))
     s = s + torch.einsum("bshk,btk->bht", q[..., nope:].to(f32), k_rope.to(f32))
-    s = s * (nope + cfg.rope_head_dim) ** -0.5
+    s = s * softmax_scale(cfg)
     T = c_kv.shape[1]
     mask = torch.arange(T, dtype=positions.dtype, device=q.device)[None, :] <= positions[:, :1]
     p = torch.softmax(torch.where(mask[:, None, :], s, attention.NEG_INF), dim=-1)

@@ -21,10 +21,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import RunCtx
 from repro_torch.optim import adamw
+
+# the span around a prefill step's forward and last logits
+PREFILL_RANGE = "prefill_step"
 
 
 def make_train_step(cfg: ModelConfig, mesh=None,
@@ -79,9 +83,10 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
 
     @torch.no_grad()
     def prefill_step(model, batch, caches):
-        hidden, caches = model(batch.get("tokens"), embeds=batch.get("embeds"),
-                               caches=caches, ctx=ctx)
-        return _last_logits(model, hidden), caches
+        with spans.span(PREFILL_RANGE):
+            hidden, caches = model(batch.get("tokens"), embeds=batch.get("embeds"),
+                                   caches=caches, ctx=ctx)
+            return _last_logits(model, hidden), caches
 
     return prefill_step
 

@@ -13,6 +13,9 @@ a window, then read :func:`totals`.
 Each site names its span with a module-level constant, as the LM layers
 name their profiler ranges.  A span inside another span of the same name
 counts twice.
+
+``count(NAME, n)`` adds ``n`` to a counter on the same terms: only while a
+profiler records, read by :func:`counts`.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ BUILD_RANGE = "run_compiled.build"
 
 _NULL = contextlib.nullcontext()
 _totals: dict = {}
+_counts: dict = {}
 _lock = threading.Lock()
 
 
@@ -66,6 +70,20 @@ def span(name: str):
     return _Recorded(name)
 
 
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while a torch profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counts() -> dict:
+    """``{name: total}`` of the counters recorded so far."""
+    with _lock:
+        return dict(_counts)
+
+
 def totals() -> dict:
     """``{name: (calls, host ns)}`` of the spans recorded so far."""
     with _lock:
@@ -73,6 +91,7 @@ def totals() -> dict:
 
 
 def reset() -> None:
-    """Forget every span recorded so far."""
+    """Forget every span and counter recorded so far."""
     with _lock:
         _totals.clear()
+        _counts.clear()

@@ -593,6 +593,27 @@ def test_cuda_flash_qk_wider_than_v_equals_plain(cuda_device, dtype, B, S, H, K,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_scale_equals_plain(cuda_device, dtype):
+    """A given softmax scale (DeepSeek-V2's 192^-0.5 mscale^2, 0.114721)
+    reaches the kernel: at MLA's widths the output equals the plain
+    version's at that scale, at test_cuda_flash_forward_equals_plain's
+    tolerances, and misses the default scale's."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(192128)
+    dt = getattr(torch, dtype)
+    g = [torch.from_numpy(rng.normal(size=(2, 300, 4, w)).astype(np.float32)).to(dt)
+         .to(cuda_device) for w in (192, 192, 128)]
+    scale = 0.114721
+    want = fa.flash_forward_plain(*g, scale=scale).float()
+    got = fa.flash_forward_cuda(*g, scale=scale).float()
+    tol = 2e-5 if dtype == "float32" else flash_bf16_tolerance(g[2].float(), want)
+    assert float((got - want).abs().max()) <= tol
+    default = fa.flash_forward_plain(*g).float()
+    assert float((got - default).abs().max()) > 10 * tol
+
+
+@pytest.mark.cuda
 def test_cuda_flash_forward_counts_each_kernel(cuda_device):
     """bf16 goes to the tensor-core kernel and float32 to the CUDA-core one,
     each counted; other types and head widths the kernels do not take
