@@ -10,7 +10,8 @@ Each turn is a fresh process that puts its tree's ``src`` first on
 dv == hd <= 128): the profiler's device ms of one call (the median of
 ``WINDOWS`` windows of ``CALLS`` calls after ``WARM_S`` seconds of calls,
 so the card leaves its idle clocks first), its CUDA-event ms and the SM
-clock ``nvidia-smi`` reads after the windows.  The turns run the trees in
+clock ``nvidia-smi`` reads after the windows, and the rate of the causal
+products at that device time (``causal_flops``).  The turns run the trees in
 order, then in reverse, ``--rounds`` times, so each tree goes first as
 often as last.  The last line is ``FLASH_AB`` and one JSON object: the
 card's name and power limit, each tree's compiler lines for the
@@ -30,13 +31,22 @@ import sys
 import time
 
 # name -> (B, S, H, KH, hd, dv): tinyllama-1.1b's prefill (B 16 x 1024),
-# chip_smoke.py's hd-128 check, qwen3-moe's and deepseek-v2's (MLA) prefill
+# chip_smoke.py's hd-128 check, qwen3-moe's and deepseek-v2's (MLA) prefill,
+# and the shortest and longest batches of the deepseek-v2.prefill-16k cell
 SHAPES = {"hd64": (16, 1024, 32, 4, 64, 64),
           "hd128": (4, 2048, 64, 8, 128, 128),
           "qwen3_moe": (16, 1024, 64, 4, 128, 128),
-          "mla": (16, 1024, 128, 128, 192, 128)}
+          "mla": (16, 1024, 128, 128, 192, 128),
+          "mla_2k": (8, 2048, 128, 128, 192, 128),
+          "mla_16k": (1, 16384, 128, 128, 192, 128)}
 CALLS, WINDOWS = 20, 5
 WARM_S = 2.0
+
+
+def causal_flops(B: int, S: int, H: int, hd: int, dv: int) -> int:
+    """The products at or below the diagonal: 2 (hd + dv) FLOP a visible
+    (query, key) pair, S (S + 1) / 2 pairs a head."""
+    return 2 * (hd + dv) * B * H * S * (S + 1) // 2
 
 
 def measure(tree: str) -> dict:
@@ -81,8 +91,10 @@ def measure(tree: str) -> dict:
         b.synchronize()
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
                              capture_output=True, text=True)
-        out[name] = dict(device_ms=statistics.median(windows),
-                         ms=a.elapsed_time(b) / CALLS, sm_clock=smi.stdout.strip())
+        dms = statistics.median(windows)
+        out[name] = dict(device_ms=dms, ms=a.elapsed_time(b) / CALLS,
+                         causal_tflops=causal_flops(B, S, H, hd, dv) / dms / 1e9,
+                         sm_clock=smi.stdout.strip())
         del q, k, v
     log = _build.build_log("flash_attention").splitlines()
     # each tensor-core kernel's entry line, then its spill and register lines
@@ -128,7 +140,8 @@ def main() -> None:
             ptxas[args.tree[t]] = res["ptxas"]
         turns.append(dict(tree=args.tree[t], **res["shapes"]))
         print(f"turn {len(turns)} tree {args.tree[t]}: "
-              + json.dumps({k: round(u["device_ms"], 4) for k, u in res["shapes"].items()}),
+              + json.dumps({k: [round(u["device_ms"], 4), round(u["causal_tflops"], 1)]
+                            for k, u in res["shapes"].items()}),
               flush=True)
     summary = {}
     for name in SHAPES:
@@ -136,8 +149,11 @@ def main() -> None:
         for tree in args.tree:
             v = [u[name]["device_ms"] for u in turns if u["tree"] == tree and name in u]
             if v:
-                row[tree] = dict(device_ms_median=statistics.median(v),
-                                 device_ms_quartiles=quartiles(v), turns=len(v))
+                med = statistics.median(v)
+                row[tree] = dict(device_ms_median=med, device_ms_quartiles=quartiles(v),
+                                 causal_tflops=causal_flops(*SHAPES[name][:3],
+                                                            *SHAPES[name][4:]) / med / 1e9,
+                                 turns=len(v))
         summary[name] = row
     print("FLASH_AB " + json.dumps(dict(card=card, trees=args.tree, rounds=args.rounds,
                                         shapes=SHAPES, ptxas=ptxas, turns=turns,

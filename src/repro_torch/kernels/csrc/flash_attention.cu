@@ -27,12 +27,14 @@
 // hd 64) the causal products are 68.8 GFLOP against ~151 MB of q, k, v and
 // o, so the dense bf16 tensor-core rate (989 TFLOP/s) bounds it: 0.070 ms.
 // At DeepSeek-V2's MLA prefill (B 16, S = T 1024, H = KH 128, 192 over 128)
-// they are 688 GFLOP (0.70 ms) against 2.68 GB (0.80 ms): bytes bound it.
+// they are 688 GFLOP (0.70 ms) against 2.68 GB (0.80 ms): bytes bound it;
+// at S 16,384 (B 1) 11.0 TFLOP (11.1 ms) against 2.68 GB: the products.
 // At hd 64 the exponentials cost about as much again: one MUFU.EX2 per
 // score at 16 per SM per clock takes as long as the score's 256 FLOPs at
-// that rate.
+// that rate.  A 128-row q tile does 128 FLOP per byte of k and v it reads,
+// under the card's ~295 FLOP/B ridge, so k and v have to come from L2.
 //
-// Two kernels, chosen by the input type:
+// Three kernels, chosen by the input type, the widths and the alignment:
 //
 // * bfloat16: flash_fwd_wgmma_kernel, on the tensor cores through
 //   Hopper's warpgroup MMA.  A block of two warpgroups (8 warps) owns one
@@ -64,6 +66,13 @@
 //   hd or dv is not a multiple of 8 (or a pointer is not 16-byte aligned)
 //   tiles are staged with 2-byte loads instead of cp.async, the products
 //   unchanged.
+// * bfloat16 at qk widths past 64 (hd 128; MLA's 192 over 128) with
+//   16-byte rows and addresses: flash_fwd_wgmma_kernel_tma (HDK 128 or 192,
+//   HDV 128), the same products, softmax and epilogue on
+//   128-key tiles, with the q tiles of a head side by side in the grid (k
+//   and v reach HBM about once per head, then come from L2) and a producer
+//   warp that loads q, k and v by TMA into mbarrier rings while two consumer
+//   warpgroups take turns on the tensor cores (its own note, below).
 // * float32: flash_fwd_simt_kernel, on the CUDA cores (tensor cores take
 //   float32 only as TF32, which would not keep the reference's 2e-5
 //   tolerance).  One block per (batch * head, 64-row q
@@ -71,7 +80,9 @@
 //   memory as float32, probabilities through shared memory.  Widths pad to
 //   HDK = HDV in {32, 64, 128}, or to (192, 128).
 
+#include <algorithm>
 #include <cstdint>
+#include <cuda.h>   // CUtensorMap and its encoder's types; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -375,6 +386,17 @@ __device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 128, float32) (+)= a (64 x 16, shared, K-major) b (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 16, float32) += a (64 x 16, registers) b (16 x 16, shared, MN-major)
 __device__ __forceinline__ void wgmma_n16_mn(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -458,9 +480,9 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], const uint32_t (&qf)[HD
 }
 
 // The same with Q read from shared memory: the warpgroup's 64 rows, from
-// row q_row0 of the kTcBQ-row q tile, K-major like K
-template <int HDP>
-__device__ __forceinline__ void qk_issue_ss(float (&s)[32], const bf16* qt, int q_row0,
+// row q_row0 of the kTcBQ-row q tile, K-major like K (BK keys: 64 or 128)
+template <int HDP, int BK = kTcBK>
+__device__ __forceinline__ void qk_issue_ss(float (&s)[BK / 2], const bf16* qt, int q_row0,
                                             const bf16* kt) {
   using T = TcTile<HDP>;
   wgmma_fence();
@@ -468,9 +490,11 @@ __device__ __forceinline__ void qk_issue_ss(float (&s)[32], const bf16* qt, int 
   for (int kk = 0; kk < HDP / 16; ++kk) {
     const int atom = kk * 16 / T::AW, col = kk * 16 % T::AW;
     const bf16* a = qt + atom * kTcBQ * T::AW + q_row0 * T::AW + col;
-    const bf16* b = kt + atom * kTcBK * T::AW + col;
-    wgmma_n64_ss(s, smem_desc(a, 16, T::SBO, T::SWIZZLE), smem_desc(b, 16, T::SBO, T::SWIZZLE),
-                 kk > 0);
+    const bf16* b = kt + atom * BK * T::AW + col;
+    const uint64_t da = smem_desc(a, 16, T::SBO, T::SWIZZLE);
+    const uint64_t db = smem_desc(b, 16, T::SBO, T::SWIZZLE);
+    if constexpr (BK == 64) wgmma_n64_ss(s, da, db, kk > 0);
+    else wgmma_n128_ss(s, da, db, kk > 0);
   }
   wgmma_commit();
 }
@@ -485,30 +509,32 @@ __device__ __forceinline__ void qk_any(float (&s)[32],
   else qk_issue<HDP>(s, qf, kt);
 }
 
-// O (64 x HDP per warpgroup) += P V, P from registers, V (64 keys) MN-major
-template <int HDP>
-__device__ __forceinline__ void pv_issue(float (&acc)[HDP / 2], const uint32_t (&pf)[4][4],
+// O (64 x HDP per warpgroup) += P V, P from registers, V (BK keys) MN-major
+template <int HDP, int BK = kTcBK>
+__device__ __forceinline__ void pv_issue(float (&acc)[HDP / 2], const uint32_t (&pf)[BK / 16][4],
                                          const bf16* vt) {
   using T = TcTile<HDP>;
   wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < kTcBK / 16; ++j)
-    wgmma_pv<HDP>(acc, pf[j], smem_desc(vt + j * 16 * T::AW, kTcBK * T::AW * 2, T::SBO,
+  for (int j = 0; j < BK / 16; ++j)
+    wgmma_pv<HDP>(acc, pf[j], smem_desc(vt + j * 16 * T::AW, BK * T::AW * 2, T::SBO,
                                         T::SWIZZLE));
   wgmma_commit();
 }
 
 // The online softmax step on one tile's score fragments: a thread holds
-// rows row0 and row0 + 8, 16 keys each.  Masks only where the tile crosses
-// the diagonal or t_len.  p = exp(s * scale - m * scale) = 2^(s * sl2 -
-// m * sl2), with m the running max of the unscaled scores, in float32,
-// summed into l; s is overwritten by p; corr = exp(m_old - m_new) per row.
-__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+// rows row0 and row0 + 8, BK / 4 keys each.  Masks only where the tile
+// crosses the diagonal or t_len.  p = exp(s * scale - m * scale) = 2^(s *
+// sl2 - m * sl2), with m the running max of the unscaled scores, in
+// float32, summed into l; s is overwritten by p; corr = exp(m_old - m_new)
+// per row.
+template <int BK = kTcBK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], bool masked, int k0, int row0,
                                              int t_len, int causal, float sl2, int tq) {
   float mx0 = m[0], mx1 = m[1];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < BK / 8; ++n) {
     if (masked) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -528,7 +554,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
   m[1] = mx1;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < BK / 8; ++n) {
     s[4 * n] = exp2_ftz(fmaf(s[4 * n], sl2, -mb0));
     s[4 * n + 1] = exp2_ftz(fmaf(s[4 * n + 1], sl2, -mb0));
     s[4 * n + 2] = exp2_ftz(fmaf(s[4 * n + 2], sl2, -mb1));
@@ -542,9 +568,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], floa
 
 // p packed to bf16: the C fragments of score tiles 2j and 2j + 1 are the A
 // fragment j of P
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[4][4], const float (&s)[32]) {
+template <int BK = kTcBK>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[BK / 16][4], const float (&s)[BK / 2]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < BK / 16; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) pf[j][e] = pack_bf16(s[8 * j + 2 * e], s[8 * j + 2 * e + 1]);
 }
@@ -553,6 +580,53 @@ template <int N>
 __device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] *= corr[(i >> 1) & 1];
+}
+
+// The epilogue of a warp's 16 rows from row_lo: o = acc / max(l, 1e-30) as
+// bf16, staged in `os`, 16 x HDV bf16 of shared memory the warp owns (chunk
+// c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8), then written with
+// 16-byte stores (vec) or 2-byte ones; and, where lse is not null, the rows'
+// log-sum-exp for the backward: m is in raw-dot units and l the
+// natural-base sum, so lse = m * scale + log(l); the quad shares m and l
+template <int HDV>
+__device__ __forceinline__ void store_rows(const float (&acc)[HDV / 2], const float (&m)[2],
+                                           const float (&l)[2], bf16* os, bf16* o, float* lse,
+                                           int b, int h, int row_lo, int s_len, int n_heads,
+                                           int dv, int o_step, float scale, bool vec) {
+  constexpr int CPR = HDV / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3, row0 = row_lo + g;
+  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && tq == 0) {
+    if (row0 < s_len)
+      lse[(static_cast<size_t>(b) * s_len + row0) * n_heads + h] = fmaf(m[0], scale, logf(d0));
+    if (row0 + 8 < s_len)
+      lse[(static_cast<size_t>(b) * s_len + row0 + 8) * n_heads + h] =
+          fmaf(m[1], scale, logf(d1));
+  }
+#pragma unroll
+  for (int n = 0; n < HDV / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(os + n * 64 + g * 8 + 2 * tq) =
+        pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
+    *reinterpret_cast<uint32_t*>(os + (CPR + n) * 64 + g * 8 + 2 * tq) =
+        pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
+  }
+  __syncwarp();
+  bf16* ob = o + static_cast<size_t>(b) * s_len * o_step + static_cast<size_t>(h) * dv;
+  if (vec) {
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int r = i / CPR, c = i % CPR;
+      if (row_lo + r < s_len && c * 8 < dv)
+        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(row_lo + r) * o_step + c * 8) =
+            *reinterpret_cast<const uint4*>(os + ((r >> 3) * CPR + c) * 64 + (r & 7) * 8);
+    }
+  } else {
+    for (int i = lane; i < 16 * HDV; i += 32) {
+      const int r = i / HDV, d = i % HDV;
+      if (row_lo + r < s_len && d < dv)
+        ob[static_cast<size_t>(row_lo + r) * o_step + d] =
+            os[((r >> 3) * CPR + (d >> 3)) * 64 + (r & 7) * 8 + (d & 7)];
+    }
+  }
 }
 
 // q, 2 k and 2 v stages in shared memory
@@ -584,7 +658,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using TK = TcTile<HDK>;
   using TV = TcTile<HDV>;
   constexpr bool Q_SMEM = HDK > 128;
-  constexpr int BQ = kTcBQ, BK = kTcBK, CPR = HDV / 8;
+  constexpr int BQ = kTcBQ, BK = kTcBK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // BQ rows
   bf16* ks = qs + BQ * HDK;                        // 2 stages of BK rows
@@ -675,45 +749,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   fence_regs(acc);
   fence_regs(pf);
 
-  // o = acc / max(l, 1e-30) as bf16, staged in the warp's own 16 x HDV
-  // slice of the q tile (chunk c of row r at (r / 8 * CPR + c) * 64 + r % 8 * 8);
   // every warp's reads of q (ldmatrix, or wgmma at HDK 192) ended before
-  // the __syncthreads above
-  const float d0 = fmaxf(l[0], 1e-30f), d1 = fmaxf(l[1], 1e-30f);
-  // the rows' log-sum-exp for the backward: m is in raw-dot units and l the
-  // natural-base sum, so lse = m * scale + log(l); the quad shares m and l
-  if (lse != nullptr && tq == 0) {
-    if (row0 < s_len)
-      lse[(static_cast<size_t>(b) * s_len + row0) * n_heads + h] = fmaf(m[0], scale, logf(d0));
-    if (row0 + 8 < s_len)
-      lse[(static_cast<size_t>(b) * s_len + row0 + 8) * n_heads + h] =
-          fmaf(m[1], scale, logf(d1));
-  }
-  bf16* os = qs + wrow * HDV;
-#pragma unroll
-  for (int n = 0; n < HDV / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(os + n * 64 + g * 8 + 2 * tq) =
-        pack_bf16(acc[4 * n] / d0, acc[4 * n + 1] / d0);
-    *reinterpret_cast<uint32_t*>(os + (CPR + n) * 64 + g * 8 + 2 * tq) =
-        pack_bf16(acc[4 * n + 2] / d1, acc[4 * n + 3] / d1);
-  }
-  __syncwarp();
-  bf16* ob = o + static_cast<size_t>(b) * s_len * o_step + static_cast<size_t>(h) * dv;
-  if (vec) {
-    for (int i = lane; i < 16 * CPR; i += 32) {
-      const int r = i / CPR, c = i % CPR;
-      if (row_lo + r < s_len && c * 8 < dv)
-        *reinterpret_cast<uint4*>(ob + static_cast<size_t>(row_lo + r) * o_step + c * 8) =
-            *reinterpret_cast<const uint4*>(os + ((r >> 3) * CPR + c) * 64 + (r & 7) * 8);
-    }
-  } else {
-    for (int i = lane; i < 16 * HDV; i += 32) {
-      const int r = i / HDV, d = i % HDV;
-      if (row_lo + r < s_len && d < dv)
-        ob[static_cast<size_t>(row_lo + r) * o_step + d] =
-            os[((r >> 3) * CPR + (d >> 3)) * 64 + (r & 7) * 8 + (d & 7)];
-    }
-  }
+  // the __syncthreads above: the warp's 16 x HDV slice of the q tile stages o
+  store_rows<HDV>(acc, m, l, qs + wrow * HDV, o, lse, b, h, row_lo, s_len, n_heads, dv, o_step,
+                  scale, vec);
 }
 
 template <int HDK, int HDV, bool SPLIT>
@@ -750,6 +789,305 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
                                          n_kv_heads, hd, dv, causal, scale, vec16, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16, warp-specialized: TMA loads, a head's q tiles side by side
+
+constexpr int kTmaBK = 128;                        // keys per kv tile
+constexpr int kTmaStages = 2;                      // k and v tiles in flight, each
+constexpr int kTmaThreads = 128 * (kWarpgroups + 1);   // a producer warpgroup, two consumers
+// named barriers (0 is __syncthreads): a consumer warpgroup's turn to issue
+// its products, and each consumer warpgroup's own
+constexpr int kTurnBar = 1, kWgBar = 3;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA writes before the phase ends
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a (64 columns, 1 head, rows, 1 batch) box at coordinates c0..c3 of a 4-D
+// tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int HDK, int HDV>
+struct TmaLayout {
+  static constexpr uint32_t Q = kTcBQ * HDK * 2, K = kTmaBK * HDK * 2, V = kTmaBK * HDV * 2;
+  // q | k stages | v stages | barriers: q, k full, v full, k empty, v empty
+  static constexpr size_t BARS = Q + kTmaStages * (K + V);
+  // 1024 bytes of slack align the base to the 128-byte swizzle's period
+  static constexpr size_t BYTES = 1024 + BARS + (1 + 4 * kTmaStages) * sizeof(uint64_t);
+};
+
+// One block per (batch * head, 128-row q tile), as flash_fwd_wgmma_kernel,
+// with two changes.  The q tile is blockIdx.x, fastest, with the heaviest
+// first, and b * H + h is blockIdx.y: the blocks resident together are most
+// of one head's q tiles (of a few heads' at short lengths), so a k or v tile
+// reaches HBM about once per head and then comes from L2; query heads that
+// share a kv head are adjacent.  And the block is warp-specialized: warp 0
+// of warpgroup 0 (40 registers) loads q once and k and v tiles of kTmaBK
+// keys by TMA into rings of kTmaStages, each stage with a full and an empty
+// mbarrier, k and v apart so a k stage is refilled as soon as its S product
+// is done; warpgroups 1 and 2 (232 registers) own 64 query rows each and
+// run flash_fwd_wgmma_kernel's steps (S of tile t + 1 and PV of tile t
+// issued together, the softmax of tile t + 1 under the PV product), with
+// no block-wide barrier in the loop.  Two named barriers hand the turn to
+// issue products from one consumer warpgroup to the other, so one's softmax
+// runs under the other's products.  The tensor maps' 128-byte swizzle is
+// TcTile's layout; the maps are 4-D (width, heads, rows, batch), so rows
+// past a batch's end and columns past hd or dv arrive as zeros.
+template <int HDK, int HDV>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+flash_fwd_wgmma_kernel_tma(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o,
+                           float* __restrict__ lse, int s_len, int t_len, int n_heads,
+                           int n_kv_heads, int dv, int causal, float scale) {
+  using L = TmaLayout<HDK, HDV>;
+  constexpr int BQ = kTcBQ, BK = kTmaBK, ST = kTmaStages;
+  extern __shared__ __align__(1024) unsigned char smem_tma[];
+  unsigned char* base = smem_tma + ((1024 - (smem_addr(smem_tma) & 1023)) & 1023);
+  bf16* qs = reinterpret_cast<bf16*>(base);
+  bf16* ks = reinterpret_cast<bf16*>(base + L::Q);
+  bf16* vs = reinterpret_cast<bf16*>(base + L::Q + ST * L::K);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::BARS);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;
+  uint64_t* v_empty = k_empty + ST;
+
+  const int b = blockIdx.y / n_heads, h = blockIdx.y % n_heads;
+  const int hk = h / (n_heads / n_kv_heads);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  int n_tiles = (t_len + BK - 1) / BK;
+  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(k_empty + i, kWarpgroups);
+      mbar_init(v_empty + i, kWarpgroups);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // producer: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::Q);
+#pragma unroll
+      for (int a = 0; a < HDK / 64; ++a)
+        tma_load(qs + a * BQ * 64, &qmap, q_full, a * 64, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % ST, use = t / ST;
+        if (use > 0) mbar_wait(k_empty + st, (use - 1) & 1);
+        mbar_expect_tx(k_full + st, L::K);
+#pragma unroll
+        for (int a = 0; a < HDK / 64; ++a)
+          tma_load(ks + st * BK * HDK + a * BK * 64, &kmap, k_full + st, a * 64, hk, t * BK, b);
+        if (use > 0) mbar_wait(v_empty + st, (use - 1) & 1);
+        mbar_expect_tx(v_full + st, L::V);
+#pragma unroll
+        for (int a = 0; a < HDV / 64; ++a)
+          tma_load(vs + st * BK * HDV + a * BK * 64, &vmap, v_full + st, a * 64, hk, t * BK, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup cw owns rows cw * 64 ... of the q tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int warp = (threadIdx.x >> 5) - 4;      // 0..7 over both consumer warpgroups
+    const int wrow = warp * 16;                    // the warp's first row in the q tile
+    const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+    const int row_lo = q0 + wrow, row0 = row_lo + g;
+    const bool leader = (threadIdx.x & 127) == 0;  // arrives on the empty barriers
+    const float sl2 = scale * 1.4426950408889634f;
+    auto masked = [&](int t) {
+      return (causal && t * BK + BK - 1 > row_lo) || t * BK + BK > t_len;
+    };
+    // the turn to issue: warpgroup 0 first; each hands it over after issuing,
+    // warpgroup 1 not after its last, so every arrival meets a wait
+    auto take_turn = [&] { bar_sync(kTurnBar + cw, 256); };
+    auto pass_turn = [&](int t) {
+      if (cw == 0 || t + 1 < n_tiles) bar_arrive(kTurnBar + 1 - cw, 256);
+    };
+    if (cw == 1) bar_arrive(kTurnBar, 256);
+
+    float acc[HDV / 2];
+#pragma unroll
+    for (int i = 0; i < HDV / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+    float s[BK / 2];
+    uint32_t pf[BK / 16][4];
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full, 0);
+    take_turn();
+    qk_issue_ss<HDK, BK>(s, qs, cw * 64, ks);
+    pass_turn(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (leader) mbar_arrive(k_empty);
+    softmax_tile<BK>(s, m, l, corr, masked(0), 0, row0, t_len, causal, sl2, tq);
+    pack_p<BK>(pf, s);
+
+    for (int t = 0; t + 1 < n_tiles; ++t) {
+      const int s0 = t % ST, s1 = (t + 1) % ST;
+      mbar_wait(k_full + s1, ((t + 1) / ST) & 1);
+      take_turn();
+      qk_issue_ss<HDK, BK>(s, qs, cw * 64, ks + s1 * BK * HDK);
+      rescale(acc, corr);
+      mbar_wait(v_full + s0, (t / ST) & 1);
+      pv_issue<HDV, BK>(acc, pf, vs + s0 * BK * HDV);
+      pass_turn(t + 1);
+      wgmma_wait<1>();       // S of tile t + 1
+      fence_regs(s);
+      if (leader) mbar_arrive(k_empty + s1);
+      softmax_tile<BK>(s, m, l, corr, masked(t + 1), (t + 1) * BK, row0, t_len, causal, sl2, tq);
+      wgmma_wait<0>();       // PV of tile t
+      fence_regs(acc);
+      fence_regs(pf);
+      if (leader) mbar_arrive(v_empty + s0);
+      pack_p<BK>(pf, s);
+    }
+    const int sl = (n_tiles - 1) % ST;
+    mbar_wait(v_full + sl, ((n_tiles - 1) / ST) & 1);
+    rescale(acc, corr);
+    pv_issue<HDV, BK>(acc, pf, vs + sl * BK * HDV);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pf);
+
+    // o staged in the warpgroup's own q rows (16 x HDV a warp: warps 0, 1 in
+    // q's first 64-column atom, warps 2, 3 in its second), once every warp of
+    // the warpgroup is past its last product
+    bar_sync(kWgBar + cw, 128);
+    const int wl = warp & 3;
+    store_rows<HDV>(acc, m, l, qs + (wl >> 1) * BQ * 64 + cw * 64 * 64 + (wl & 1) * 32 * 64, o,
+                    lse, b, h, row_lo, s_len, n_heads, dv, n_heads * dv, scale, true);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime, so the library
+// needs no -lcuda; null where the driver has none
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got{};
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &got);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
+#endif
+    return e == cudaSuccess && got == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// (batch, rows, heads, width) bf16 as a 4-D map, innermost first, read in
+// boxes of 64 columns x `box_rows` rows with the 128-byte swizzle; reads
+// past an edge fill with zeros
+bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* p, int width, int heads, int rows,
+                int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(width) * heads * sizeof(bf16);
+  const cuuint64_t strides[3] = {width * sizeof(bf16), row, row * rows};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// grid (q tiles, batches * H); gridDim.y's 65,535 is kept by launching
+// batches in groups
+template <int HDK, int HDV>
+int launch_tma(const void* q, const void* k, const void* v, void* o, void* lse, int b_total,
+               int s_len, int t_len, int n_heads, int n_kv_heads, int hd, int dv, int causal,
+               float scale, cudaStream_t stream) {
+  using L = TmaLayout<HDK, HDV>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (n_heads > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel_tma<HDK, HDV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::BYTES));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int group = 65535 / n_heads, nq = (s_len + kTcBQ - 1) / kTcBQ;
+  const size_t q_b = static_cast<size_t>(s_len) * n_heads * hd;
+  const size_t k_b = static_cast<size_t>(t_len) * n_kv_heads * hd;
+  const size_t v_b = static_cast<size_t>(t_len) * n_kv_heads * dv;
+  const size_t o_b = static_cast<size_t>(s_len) * n_heads * dv;
+  for (int b0 = 0; b0 < b_total; b0 += group) {
+    const int nb = std::min(group, b_total - b0);
+    CUtensorMap qm, km, vm;
+    if (!encode_map(enc, &qm, static_cast<const bf16*>(q) + b0 * q_b, hd, n_heads, s_len, nb,
+                    kTcBQ) ||
+        !encode_map(enc, &km, static_cast<const bf16*>(k) + b0 * k_b, hd, n_kv_heads, t_len, nb,
+                    kTmaBK) ||
+        !encode_map(enc, &vm, static_cast<const bf16*>(v) + b0 * v_b, dv, n_kv_heads, t_len, nb,
+                    kTmaBK))
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* lse_b = static_cast<float*>(lse);
+    if (lse_b != nullptr) lse_b += static_cast<size_t>(b0) * s_len * n_heads;
+    const dim3 grid(nq, nb * n_heads);
+    flash_fwd_wgmma_kernel_tma<HDK, HDV><<<grid, kTmaThreads, L::BYTES, stream>>>(
+        qm, km, vm, static_cast<bf16*>(o) + b0 * o_b, lse_b, s_len, t_len, n_heads, n_kv_heads, dv,
+        causal, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 // the widths the kernels take: dv <= hd <= 128, or hd <= 192 with dv <= 128
 // (flash_attention.py:takes)
 bool bad_shape(int hd, int dv, int t_len, int n_heads, int n_kv_heads) {
@@ -783,11 +1121,13 @@ extern "C" int flash_forward_simt_launch(const void* q, const void* k, const voi
                                dv, causal, scale, st);
 }
 
-// bfloat16 on the tensor cores
+// bfloat16 on the tensor cores; *tma is set to 1 where the warp-specialized
+// design ran
 extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const void* v,
                                           void* o, void* lse, int b_total, int s_len, int t_len,
                                           int n_heads, int n_kv_heads, int hd, int dv,
-                                          int causal, float scale, void* stream) {
+                                          int causal, float scale, void* stream, int* tma) {
+  *tma = 0;
   if (b_total <= 0 || s_len <= 0) return static_cast<int>(cudaSuccess);
   if (bad_shape(hd, dv, t_len, n_heads, n_kv_heads))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -795,6 +1135,15 @@ extern "C" int flash_forward_wgmma_launch(const void* q, const void* k, const vo
                               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   const int vec16 = hd % 8 == 0 && dv % 8 == 0 && addr_bits % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the warp-specialized design past qk width 64 (flash_attention.py:tma_design);
+  // TMA needs 16-byte rows and addresses
+  *tma = hd > 64 && vec16;
+  if (*tma && hd > 128)
+    return launch_tma<192, 128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                                dv, causal, scale, st);
+  if (*tma)
+    return launch_tma<128, 128>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads, hd,
+                                dv, causal, scale, st);
   if (hd <= 16)
     return launch_wgmma<16, 16>(q, k, v, o, lse, b_total, s_len, t_len, n_heads, n_kv_heads,
                                 hd, dv, causal, scale, vec16, st);

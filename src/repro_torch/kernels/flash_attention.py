@@ -8,13 +8,15 @@ up to 192 over v widths up to 128 (DeepSeek-V2's MLA: 128 + 64 over 128);
 
 :func:`flash_forward` runs ``csrc/flash_attention.cu`` for CUDA tensors and
 :func:`flash_forward_plain` for CPU tensors.  On the card the input type
-picks the kernel: bf16 goes to the tensor-core kernel (Hopper's ``wgmma``),
-float32 to the CUDA-core one (the tensor cores take float32 only as TF32,
-which would not keep the reference's 2e-5 tolerance); any other type
-raises.  ``models/attention.py`` routes a prefill that starts at position 0
-here on the card, and a training forward, which also asks for each row's
-log-sum-exp ``lse`` (B, S, H) float32, the recomputing backward's residual
-(``return_lse``; serving passes no lse pointer and the kernels skip it).
+picks the kernel: bf16 goes to the tensor-core kernels (Hopper's ``wgmma``;
+past qk width 64 with 16-byte aligned rows, the warp-specialized TMA
+design, :func:`tma_design`), float32 to the CUDA-core one (the tensor cores
+take float32 only as TF32, which would not keep the reference's 2e-5
+tolerance); any other type raises.  ``models/attention.py`` routes a
+prefill that starts at position 0 here on the card, and a training
+forward, which also asks for each row's log-sum-exp ``lse`` (B, S, H)
+float32, the recomputing backward's residual (``return_lse``; serving
+passes no lse pointer and the kernels skip it).
 Both versions compute the reference kernel's function
 (``repro/kernels/flash_attention.py``): scores and softmax in float32, the
 unnormalized probabilities cast to v's dtype before the product with v,
@@ -28,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -38,10 +41,15 @@ _ENTRY = {torch.bfloat16: "flash_forward_wgmma_launch",
           torch.float32: "flash_forward_simt_launch"}
 
 # kernel launches through flash_forward on CUDA tensors: all of them, the
-# bf16 tensor-core kernel's and the float32 CUDA-core kernel's
+# bf16 tensor-core kernels' (of which the warp-specialized TMA design's) and
+# the float32 CUDA-core kernel's
 launches = 0
 launches_wgmma = 0
+launches_tma = 0
 launches_simt = 0
+# the same two counts as program counters (``spans.count``) while a profiler records
+LAUNCHES_COUNTER = "flash.launches"
+TMA_COUNTER = "flash.tma_launches"
 
 
 def takes(hd: int, dv: int) -> bool:
@@ -49,6 +57,18 @@ def takes(hd: int, dv: int) -> bool:
     width pads to the kernels' tile widths, dv <= hd (the narrower v tile's
     pad is zero), both up to 128, or hd up to 192 over dv up to 128."""
     return 0 < dv <= hd and (hd <= MAX_HEAD_DIM or (hd <= MAX_QK_DIM and dv <= MAX_HEAD_DIM))
+
+
+def tma_design(hd: int, dv: int, aligned: bool) -> bool:
+    """Whether a bf16 launch at qk width ``hd`` over v width ``dv`` takes
+    the warp-specialized TMA design (``flash_fwd_wgmma_kernel_tma``): qk
+    widths past 64 (hd 128; MLA's 192 over 128) whose rows are whole
+    16-byte units at 16-byte aligned addresses (``aligned``: q, k, v and the
+    output), as TMA needs; every other launch takes
+    ``flash_fwd_wgmma_kernel``, hd 64 among them (two blocks an SM, bound by
+    its exponentials, GQA already sharing k and v).  The rule
+    ``flash_forward_wgmma_launch`` applies."""
+    return takes(hd, dv) and hd > 64 and hd % 8 == 0 and dv % 8 == 0 and aligned
 
 
 def _check(q, k, v):
@@ -105,7 +125,7 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
     ``return_lse`` the kernel also writes each row's log-sum-exp (B, S, H)
     float32 -> ``(out, lse)``.  ``scale`` multiplies the scores (default
     hd^-0.5)."""
-    global launches, launches_wgmma, launches_simt
+    global launches, launches_wgmma, launches_tma, launches_simt
     _check(q, k, v)
     if not q.is_cuda:
         raise ValueError("flash_forward_cuda takes CUDA tensors")
@@ -123,18 +143,24 @@ def flash_forward_cuda(q, k, v, *, causal: bool = True, return_lse: bool = False
     lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     P, I = _build.P, _build.I
+    args = [P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P]
+    bf16 = q.dtype == torch.bfloat16
+    tma = ctypes.c_int(0)       # the bf16 entry reports the design it ran
     fn = _build.entry("flash_attention", _ENTRY[q.dtype],
-                      [P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P])
+                      args + [ctypes.POINTER(ctypes.c_int)] if bf16 else args)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
              P(None) if lse is None else _build.ptr(lse),
              B, S, T, H, KH, hd, dv, int(causal), hd ** -0.5 if scale is None else scale,
-             _build.stream_ptr(q.device))
+             _build.stream_ptr(q.device), *((ctypes.byref(tma),) if bf16 else ()))
     _build.check("flash_attention", err)
     launches += 1
-    if q.dtype == torch.bfloat16:
+    if bf16:
         launches_wgmma += 1
+        launches_tma += tma.value
     else:
         launches_simt += 1
+    spans.count(LAUNCHES_COUNTER, 1)
+    spans.count(TMA_COUNTER, tma.value)
     return (out, lse) if return_lse else out
 
 

@@ -515,12 +515,13 @@ def flash_bf16_tolerance(v, want):
     return 2 ** -7 * (float(v.abs().max()) + float(want.abs().max()))
 
 
-def flash_bf16_elem_tolerance(fa, q, k, v, want, causal):
+def flash_bf16_elem_tolerance(fa, q, k, v, want, causal, scale=None):
     """Per output element: the output's bf16 rounding on both sides (<= 2^-7
     x |out| together) and p's (<= 2^-7 of the p-weighted mean of |v|, the
-    plain version's attention over |v| in float32), with 2^-6 of that for
-    the float32 sums and the kernel's ex2.approx."""
-    w = fa.flash_forward_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    plain version's attention over |v| in float32, at the launch's scale),
+    with 2^-6 of that for the float32 sums and the kernel's ex2.approx."""
+    w = fa.flash_forward_plain(q.float(), k.float(), v.float().abs(), causal=causal,
+                               scale=scale)
     return 2 ** -7 * (1 + 2 ** -6) * (want.abs() + w)
 
 
@@ -611,6 +612,83 @@ def test_cuda_flash_scale_equals_plain(cuda_device, dtype):
     assert float((got - want).abs().max()) <= tol
     default = fa.flash_forward_plain(*g).float()
     assert float((got - default).abs().max()) > 10 * tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 1, 2, 2, 192), (2, 63, 3, 3, 192), (3, 129, 2, 1, 192), (1, 1000, 4, 4, 192),
+    (2, 2065, 2, 2, 192), (1, 8192, 3, 3, 192),   # one q tile to 64, ragged, grouped, long
+    (2, 300, 8, 2, 128), (1, 2065, 4, 1, 128)])   # hd 128, grouped
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_cuda_flash_tma_design_equals_plain(cuda_device, B, S, H, K, hd, return_lse):
+    """The warp-specialized TMA design (aligned, MLA's qk 192 over v 128 and
+    hd 128) at YaRN's scale (DeepSeek-V2's 192^-0.5 mscale^2) against the
+    plain version, at test_cuda_flash_forward_equals_plain's bf16
+    tolerances and test_cuda_flash_lse_equals_plain's lse tolerance; one
+    launch, counted as the TMA design's; with or without the lse pointer,
+    the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(S + 7 * B + hd)
+    g = [torch.from_numpy(rng.normal(size=(B, S, h, w)).astype(np.float32))
+         .to(torch.bfloat16).to(cuda_device) for h, w in ((H, hd), (K, hd), (K, 128))]
+    scale = 0.114721
+    n0, t0 = fa.launches, fa.launches_tma
+    got = fa.flash_forward_cuda(*g, scale=scale, return_lse=return_lse)
+    assert (fa.launches - n0, fa.launches_tma - t0) == (1, 1)
+    out = got[0] if return_lse else got
+    want, want_lse = fa.flash_forward_plain(*g, scale=scale, return_lse=True)
+    want = want.float()
+    diff = (out.float() - want).abs()
+    assert float(diff.max()) <= flash_bf16_tolerance(g[2].float(), want)
+    assert bool((diff <= flash_bf16_elem_tolerance(fa, *g, want, True, scale=scale)).all())
+    if return_lse:
+        assert float((got[1] - want_lse).abs().max()) <= LSE_BF16_ATOL
+        assert torch.equal(out, fa.flash_forward_cuda(*g, scale=scale))
+
+
+def _offset(t, by):
+    """``t``'s values in a contiguous tensor whose data starts ``by``
+    elements into its storage (2-byte steps off 16-byte alignment)."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    out = buf[by:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dv,H,K,by", [
+    (192, 128, 2, 2, 0),                  # MLA, aligned: the TMA design
+    (192, 128, 2, 1, 1),                  # MLA one element off: the present kernel
+    (64, 64, 4, 2, 0),                    # tinyllama's width: the present kernel
+    (128, 128, 4, 2, 0),                  # hd 128, grouped: the TMA design
+    (128, 128, 4, 2, 3)])                 # hd 128 three elements off: the present kernel
+def test_cuda_flash_design_follows_the_rule(cuda_device, hd, dv, H, K, by):
+    """Each bf16 launch takes the design ``flash_attention.tma_design`` names
+    from its widths and its pointers' alignment, equals the plain version at
+    the bf16 tolerances, and adds to the program counters ``flash.launches``
+    and ``flash.tma_launches`` while a profiler records."""
+    from repro_torch import spans
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(hd + by)
+    g = [_offset(torch.from_numpy(rng.normal(size=(2, 300, h, w)).astype(np.float32))
+                 .to(torch.bfloat16).to(cuda_device), by)
+         for h, w in ((H, hd), (K, hd), (K, dv))]
+    aligned = all(t.data_ptr() % 16 == 0 for t in g)
+    assert aligned == (by == 0)
+    tma = fa.tma_design(hd, dv, aligned)
+    assert tma == (hd > 64 and by == 0)
+    t0 = fa.launches_tma
+    spans.reset()
+    with torch.autograd.profiler.emit_nvtx():
+        got = fa.flash_forward_cuda(*g).float()
+    torch.cuda.synchronize()
+    assert fa.launches_tma - t0 == int(tma)
+    assert spans.counts() == {fa.LAUNCHES_COUNTER: 1, fa.TMA_COUNTER: int(tma)}
+    spans.reset()
+    want = fa.flash_forward_plain(*g).float()
+    diff = (got - want).abs()
+    assert float(diff.max()) <= flash_bf16_tolerance(g[2].float(), want)
+    assert bool((diff <= flash_bf16_elem_tolerance(fa, *g, want, True)).all())
 
 
 @pytest.mark.cuda
