@@ -1181,7 +1181,7 @@ def bound(n_bytes, t_ops_ms):
     return max(t_bytes, t_ops_ms), ("bytes" if t_bytes >= t_ops_ms else "operations")
 
 
-def factorized_work(xw, inc, votes, fsched, ftab) -> tuple:
+def factorized_work(xw, inc, votes, fsched, placed) -> tuple:
     """(bytes, integer operations) of the factorized walk over the (B, Wa)
     literal words ``xw``: the words, the votes and the (B, K) sums once,
     the term chains, the clause chain ids the walk reaches (``chain_need``)
@@ -1196,22 +1196,22 @@ def factorized_work(xw, inc, votes, fsched, ftab) -> tuple:
     fold_ops = K * sum(int(ref.clause_fire_ref(xw[lo:lo + 4096], inc).sum(dtype=torch.int64))
                        for lo in range(0, B, 4096))
     lit_t = sparse_infer.bit_transpose_literals(xw, xw.shape[1] * 32)
-    term_bits = sparse_infer.and_reduce(lit_t[ftab["term_chain"].long()])
+    term_bits = sparse_infer.and_reduce(lit_t[placed.term_chain.long()])
     f_bytes, f_ops = chain_need(
-        term_bits, ftab["clause_chain"], ftab["tiles"][3], ftab["indptr"],
+        term_bits, placed.clause_chain, placed.jb, placed.indptr,
         n_rows=U, block_c=fsched.block_c, block_j=fsched.block_j,
         tile_off=fsched.n_term_tiles, sentinel=fsched.n_terms)
-    stage1_ops = int((ftab["term_chain"] != fsched.n_lit_bits).sum()) * term_bits.shape[1]
+    stage1_ops = int((placed.term_chain != fsched.n_lit_bits).sum()) * term_bits.shape[1]
     n_clause_tiles = fsched.n_tiles - fsched.n_term_tiles
-    return (nbytes(xw, votes) + B * K * 4 + nbytes(ftab["term_chain"]) + f_bytes
-            + 2 * n_clause_tiles * 4 + nbytes(ftab["indptr"]),
+    return (nbytes(xw, votes) + B * K * 4 + nbytes(placed.term_chain) + f_bytes
+            + 2 * n_clause_tiles * 4 + nbytes(placed.indptr),
             stage1_ops + f_ops + fold_ops)
 
 
 def slab_phase(dev) -> dict:
     """term_infer's slab-resident design (SLAB) at the benchmark's batch on
     both of its artifacts and the port's synthetic datasets of their
-    widths: ``factorized_tables_cuda`` held to ``factorized_tables_plain``
+    widths: ``factorized_tm_forward`` on the card held to its plain version
     at tolerance 0, in one launch and one ``term_infer.slab`` span a call
     and no kernel but the slab kernel; its device time from the profiler
     (``profile_device``) and its bound (``factorized_work``) -> {config:
@@ -1228,22 +1228,22 @@ def slab_phase(dev) -> dict:
     for cfg, (data, path) in SLAB_ASSETS.items():
         comp = compiler.CompiledTM.load(os.path.join(ROOT, path))
         tabs, fsched = comp.tensors(dev), comp.default_factorized_schedule
-        ftab = fsched.tensors(dev)
         X, _, _, _ = paper_dataset(data, n_train=SLAB_BATCH, n_test=0, seed=3)
         xw = packetizer.pack_literals(torch.from_numpy(X).to(dev))[:, tabs["word_ids"]]
         xw = xw.contiguous()
         votes, inc = tabs["votes"], tabs["include_words"]
-        args = (xw, ftab["term_chain"], ftab["clause_chain"], votes, ftab["tiles"],
-                ftab["indptr"])
-        kw = dict(block_c=fsched.block_c, block_j=fsched.block_j,
-                  n_term_tiles=fsched.n_term_tiles)
-        want = term_infer.factorized_tables_plain(*args, **kw)
-        term_infer.factorized_tables_cuda(*args, **kw)           # the derived tables
+        placed = term_infer.place(fsched, votes)
+
+        def call():
+            return term_infer.factorized_tm_forward(xw, placed)
+
+        want = term_infer._plain(xw, placed)
+        call()
         torch.cuda.synchronize()
         n0 = term_infer.launches
         spans.reset()
         with profile(activities=[ProfilerActivity.CPU]):
-            got = term_infer.factorized_tables_cuda(*args, **kw)
+            got = call()
             torch.cuda.synchronize()
         n_launches = term_infer.launches - n0
         n_slab = spans.totals().get(term_infer.SLAB_RANGE, (0, 0))[0]
@@ -1252,22 +1252,19 @@ def slab_phase(dev) -> dict:
               f"{term_infer.SLAB_RANGE} spans, expected 1 and 1")
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         check(err == 0, f"{cfg} B={SLAB_BATCH}: the slab design differs from "
-              f"factorized_tables_plain by {err}")
-        dev_ms, per = profile_device(lambda: term_infer.factorized_tables_cuda(*args, **kw))
+              f"its plain version by {err}")
+        dev_ms, per = profile_device(call)
         check(len(per) == 1 and "slab_term_eval_kernel" in next(iter(per)),
               f"{cfg} B={SLAB_BATCH}: the call launched {sorted(per)}, expected only "
               "the slab kernel")
-        sms, shared = term_infer._limits(dev)
         U, K = votes.shape
-        n_planes = term_infer.vote_planes(votes)[1]
         row = dict(B=SLAB_BATCH, slab_words=term_infer.slab_words_for(
-                       SLAB_BATCH, xw.shape[1], ftab["term_chain"].shape[0], K, U,
-                       fsched.n_cblocks, n_planes, tile_margin=None, block_s=None,
-                       sm_count=sms, shared_bytes=shared),
+                       SLAB_BATCH, xw.shape[1], placed.term_chain.shape[0], K, U,
+                       fsched.n_cblocks, placed.n_planes, tile_margin=None, block_s=None,
+                       sm_count=placed.sm_count, shared_bytes=placed.shared_bytes),
                    launches=n_launches, slab_spans=n_slab, max_abs_err=err, tolerance=0,
-                   ms=cuda_time_ms(lambda: term_infer.factorized_tables_cuda(*args, **kw)),
-                   **dev_ms)
-        nb, ops = factorized_work(xw, inc, votes, fsched, ftab)
+                   ms=cuda_time_ms(call), **dev_ms)
+        nb, ops = factorized_work(xw, inc, votes, fsched, placed)
         row["bound_ms"], row["bound_by"] = bound(nb, ops / INT32_OPS_PER_S * 1e3)
         out[cfg] = row
     print("SLAB " + json.dumps(out))
@@ -2241,7 +2238,8 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
         exact = {k: 0 for k in autotune.kernels()}
 
         # 1. every candidate == its plain version, tolerance 0
-        walks = {"sparse_infer": ("sparse", sparse_infer), "term_infer": ("factorized", term_infer)}
+        walks = {"sparse_infer": ("sparse", sparse_infer, sparse_infer.sparse_tm_forward),
+                 "term_infer": ("factorized", term_infer, term_infer.factorized_tm_forward)}
         for B in BATCHES:
             xw = xw_all[:B].contiguous()
             want = fused_infer.fused_forward_plain(xw, inc, votes, ones)
@@ -2249,34 +2247,19 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
                 got = fused_infer.fused_tm_forward(xw, inc, votes, ones, **blk)
                 check(torch.equal(got, want), f"fused_infer {blk} B={B} != plain version")
                 exact["fused_infer"] += 1
-            for kernel, (eng, mod) in walks.items():
+            for kernel, (eng, mod, fwd) in walks.items():
                 plains = {}
                 for blk in autotune.candidates_for(kernel, B=B, K=K, include_words=iw):
                     tiling = {k: v for k, v in blk.items() if k != "block_s"}
-                    sched = (compiled.schedule(**tiling) if eng == "sparse"
-                             else compiled.factorized_schedule(**tiling))
-                    t = sched.tensors(dev)
                     for early in (False, True):
-                        m = compiled.margin_tensor(eng, dev, **tiling) if early else None
                         key = (tuple(sorted(tiling.items())), early)
-                        if eng == "sparse":
-                            args = (xw, t["chain_ids"], votes, t["tiles"], t["indptr"])
-                            kw = dict(block_c=sched.block_c, block_j=sched.block_j,
-                                      tile_margin=m)
-                            if key not in plains:
-                                plains[key] = sparse_infer.sparse_tables_plain(*args, **kw)
-                            got = sparse_infer.sparse_tables_cuda(*args, **kw,
-                                                                  block_s=blk["block_s"])
-                        else:
-                            args = (xw, t["term_chain"], t["clause_chain"], votes, t["tiles"],
-                                    t["indptr"])
-                            kw = dict(block_c=sched.block_c, block_j=sched.block_j,
-                                      n_term_tiles=sched.n_term_tiles, tile_margin=m)
-                            if key not in plains:
-                                plains[key] = term_infer.factorized_tables_plain(*args, **kw)
-                            got = term_infer.factorized_tables_cuda(*args, **kw,
-                                                                    block_s=blk["block_s"])
-                        check(torch.equal(got, plains[key]),
+                        if key not in plains:
+                            p = comp_mod.place(compiled, dev, engine=eng, early_exit=early,
+                                               **tiling)
+                            plains[key] = p, mod._plain(xw, p)
+                        p, want = plains[key]
+                        got = fwd(xw, p, block_s=blk["block_s"])
+                        check(torch.equal(got, want),
                               f"{kernel} {blk} B={B} early_exit={early} != plain version")
                         exact[kernel] += 1
         print(f"autotune: every candidate of fused_infer, sparse_infer and term_infer == "
@@ -2382,7 +2365,7 @@ def autotune_phase(dev, compiled, xp_all, xw_all) -> dict:
                 base = [mod.DEFAULT_BLOCK_C, mod.DEFAULT_BLOCK_J]
                 if kernel == "term_infer":
                     base.append(mod.DEFAULT_BLOCK_T)
-                cand = (*base, sparse_infer.covering_slab(B)) + (
+                cand = (*base, sparse_infer.covering_walk_words(B)) + (
                     (0,) if kernel == "term_infer" else ())
                 default = tuner.clip([cand], problem)[0]
             refit = as_tuple(autotune.rank_candidates(kernel, device=dev, **shape)[0][0])
@@ -3184,13 +3167,14 @@ def main() -> None:
 
     # 5. each kernel against its plain version, every engine against the
     # oracle, early exit against the full walk, quality tiers in bound
-    stab = sched.tensors(dev)
-    ftab = fsched.tensors(dev)
-    smargin = torch.from_numpy(np.asarray(compiled.tile_margins(), np.int32)).to(dev)
-    fmargin = torch.from_numpy(
-        np.asarray(compiled.factorized_tile_margins(), np.int32)).to(dev)
     votes, inc = tabs["votes"], tabs["include_words"]
     nonempty = torch.ones(inc.shape[0], dtype=torch.int32, device=dev)
+    # each schedule kernel's placement, exact and early exit
+    placed = {(mod, margin_on): mod.place(s, votes, tile_margin=m if margin_on else None)
+              for mod, s, m in ((sparse_infer, sched, compiled.tile_margins()),
+                                (term_infer, fsched, compiled.factorized_tile_margins()))
+              for margin_on in (False, True)}
+    spl, fpl = placed[sparse_infer, False], placed[term_infer, False]
 
     def calls(name, xw, margin_on=False):
         """(kernel call, plain call) on the same inputs."""
@@ -3198,19 +3182,10 @@ def main() -> None:
             args = (xw, inc, votes, nonempty)
             return (lambda: fused_infer.fused_forward_cuda(*args),
                     lambda: fused_infer.fused_forward_plain(*args))
-        if name == "sparse_infer":
-            kw = dict(block_c=sched.block_c, block_j=sched.block_j,
-                      tile_margin=smargin if margin_on else None)
-            args = (xw, stab["chain_ids"], votes, stab["tiles"], stab["indptr"])
-            return (lambda: sparse_infer.sparse_tables_cuda(*args, **kw),
-                    lambda: sparse_infer.sparse_tables_plain(*args, **kw))
-        kw = dict(block_c=fsched.block_c, block_j=fsched.block_j,
-                  n_term_tiles=fsched.n_term_tiles,
-                  tile_margin=fmargin if margin_on else None)
-        args = (xw, ftab["term_chain"], ftab["clause_chain"], votes,
-                ftab["tiles"], ftab["indptr"])
-        return (lambda: term_infer.factorized_tables_cuda(*args, **kw),
-                lambda: term_infer.factorized_tables_plain(*args, **kw))
+        mod, fwd = ((sparse_infer, sparse_infer.sparse_tm_forward) if name == "sparse_infer"
+                    else (term_infer, term_infer.factorized_tm_forward))
+        p = placed[mod, margin_on]
+        return lambda: fwd(xw, p), lambda: mod._plain(xw, p)
 
     max_err = {name: 0 for name in KERNELS}
     for B in BATCHES:
@@ -3385,7 +3360,7 @@ def main() -> None:
     io_bytes = nbytes(xw, votes) + B * K * 4
     lit_t = sparse_infer.bit_transpose_literals(xw, xw.shape[1] * 32)
     s_bytes, s_ops = chain_need(
-        lit_t, stab["chain_ids"], stab["tiles"][1], stab["indptr"], n_rows=U,
+        lit_t, spl.chain_ids, spl.jb, spl.indptr, n_rows=U,
         block_c=sched.block_c, block_j=sched.block_j, tile_off=0,
         sentinel=sched.n_lit_bits)
     work = {
@@ -3393,9 +3368,9 @@ def main() -> None:
         "fused_infer": (io_bytes + nbytes(inc, nonempty),
                         B * inc.shape[0] * inc.shape[1] + fold_ops),
         "sparse_infer": (io_bytes + s_bytes + 2 * sched.n_tiles * 4
-                         + nbytes(stab["indptr"]),
+                         + nbytes(spl.indptr),
                          s_ops + fold_ops),
-        "term_infer": factorized_work(xw, inc, votes, fsched, ftab),
+        "term_infer": factorized_work(xw, inc, votes, fsched, fpl),
     }
     print("BOUND_WORK " + json.dumps(
         {k: dict(bytes=b, ops=o) for k, (b, o) in work.items()}))

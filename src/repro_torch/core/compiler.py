@@ -46,9 +46,14 @@ from repro_torch.runtime import faults
 # sub-clause sharing
 FACTORIZE_SHARING_THRESHOLD = 0.30
 
+# the tiling keys of run_compiled's blocks that name each schedule engine's
+# schedule, in the order a placement key holds them
+_TILING_KEYS = {"factorized": ("block_c", "block_j", "block_t", "term_w"),
+                "sparse": ("block_c", "block_j")}
+
 # host spans of run_compiled (``repro_torch/spans.py``): the whole call, the
-# route (kwarg checks, engine choice, device tables, schedule lookup) and
-# the dead-word gather
+# route (kwarg checks, engine choice, the placement's lookup) and the
+# dead-word gather
 RUN_RANGE = "run_compiled"
 ROUTE_RANGE = "run_compiled.route"
 GATHER_RANGE = "run_compiled.gather"
@@ -258,9 +263,10 @@ class CompiledTM:
     # its HLO terms) load untouched
     features: dict = dataclasses.field(default_factory=dict, repr=False)
     # device copies of include_words / word_ids / votes, keyed by device,
-    # and of the margin tables, keyed (engine, tiling, device)
+    # and the schedule engines' placements with their gather index, keyed
+    # as run_compiled's route (:meth:`placement`)
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
-    _margin_dev: dict = dataclasses.field(default_factory=dict, repr=False)
+    _placements: dict = dataclasses.field(default_factory=dict, repr=False)
     # term_infer.pick_term_width of include_words, once computed
     _auto_term_w: Optional[int] = dataclasses.field(default=None, repr=False)
 
@@ -371,19 +377,36 @@ class CompiledTM:
                 fsched, self.votes)
         return self._fmargins[key]
 
-    def margin_tensor(self, engine: str, device, **tiling) -> torch.Tensor:
-        """The margin table of ``engine``'s schedule at ``tiling``
-        (:meth:`tile_margins` or :meth:`factorized_tile_margins`) as an
-        int32 tensor on ``device``, memoized so an early-exit serve loop
-        copies it to the device once."""
-        key = (engine, tuple(sorted((k, v) for k, v in tiling.items() if v is not None)),
-               str(device))
-        if key not in self._margin_dev:
-            margins = (self.factorized_tile_margins(**tiling)
-                       if engine == "factorized" else self.tile_margins(**tiling))
-            self._margin_dev[key] = torch.from_numpy(
-                np.asarray(margins, np.int32)).to(device)
-        return self._margin_dev[key]
+    def placement(self, key: tuple) -> tuple:
+        """``(word_ids, placed)`` for a schedule engine's launches: the gather
+        index and the ``PlacedSchedule`` of ``sparse_infer`` or ``term_infer``
+        that ``key`` names, ``(engine, tiling, quality, early_exit,
+        device)`` as :func:`_route` makes it, placed on the first call (in
+        build spans) and recalled by one dict lookup after it."""
+        got = self._placements.get(key)
+        if got is None:
+            got = self._placements[key] = self._place(*key)
+        return got
+
+    def _place(self, engine: str, tiling: tuple, quality: int, early_exit: bool,
+               device) -> tuple:
+        from repro_torch.kernels import sparse_infer, term_infer
+
+        factorized = engine == "factorized"
+        tiling = dict(zip(_TILING_KEYS[engine], tiling))
+        if quality > 0:
+            sched = self.quality_prefix_schedule(quality, engine, **tiling)
+        elif factorized:
+            sched = self.factorized_schedule(**tiling)
+        else:
+            sched = self.schedule(**tiling)
+        margin = None
+        if early_exit and sched.n_tiles:
+            margin = (self.factorized_tile_margins(**tiling) if factorized
+                      else self.tile_margins(**tiling))
+        tabs = self.tensors(device)
+        mod = term_infer if factorized else sparse_infer
+        return tabs["word_ids"], mod.place(sched, tabs["votes"], tile_margin=margin)
 
     def quality_levels(self, engine: str = "sparse", **tiling) -> list:
         """Quality tiers for this artifact on the given schedule engine:
@@ -977,23 +1000,30 @@ def run_compiled(
     ``early_exit=True`` runs the exact early-exit mode (argmax-identical to
     the full walk).  Both apply only on the schedule engines; the dense
     and oracle engines serve exact sums (a stronger answer).
+
+    A schedule engine's first call with a tiling, quality level and early
+    exit on a device places what its launches read
+    (:meth:`CompiledTM.placement`; :func:`place` does it ahead of a call);
+    every later call finds it by one dict lookup.
     """
     from repro_torch.kernels import ops
 
     with spans.span(RUN_RANGE):
         with spans.span(ROUTE_RANGE):
-            name, spec, sched, margin = _route(compiled, x_packed, engine, quality,
-                                               early_exit, blocks)
-            tabs = compiled.tensors(x_packed.device)
+            name, spec, key = _route(compiled, x_packed.device, engine, quality,
+                                     early_exit, blocks)
+            if key is None:
+                tabs = compiled.tensors(x_packed.device)
+                word_ids = tabs["word_ids"]
+            else:
+                word_ids, placed = compiled.placement(key)
         with spans.span(GATHER_RANGE):
-            xw = x_packed[:, tabs["word_ids"]]             # dead-word elimination
-        votes = tabs["votes"]
+            xw = x_packed[:, word_ids]                     # dead-word elimination
         if name == "factorized":
-            return ops.tm_forward_factorized(xw, votes, sched, tile_margin=margin,
-                                             block_s=blocks.get("block_s"))
+            return ops.tm_forward_factorized(xw, placed, block_s=blocks.get("block_s"))
         if name == "sparse":
-            return ops.tm_forward_schedule(xw, votes, sched, tile_margin=margin,
-                                           block_s=blocks.get("block_s"))
+            return ops.tm_forward_schedule(xw, placed, block_s=blocks.get("block_s"))
+        votes = tabs["votes"]
         if name == "dense":
             dense = ({k: blocks[k] for k in ("block_b", "block_c", "block_w")
                       if k in blocks} if blocks.keys() & {"block_b", "block_w"} else {})
@@ -1004,12 +1034,27 @@ def run_compiled(
         return ref.class_sum_ref(ref.clause_fire_ref(xw, tabs["include_words"]), votes)
 
 
-def _route(compiled: CompiledTM, x_packed, engine, quality: int, early_exit: bool,
+def place(compiled: CompiledTM, device: torch.device, *, engine=None, quality: int = 0,
+          early_exit: bool = False, **blocks):
+    """Put on ``device`` (as a tensor there reports it) what
+    ``run_compiled(compiled, x, ...)`` with these arguments reads for an
+    ``x`` there, so that its first call builds nothing: a schedule engine's
+    placement, which is returned, or the dense and oracle engines' device
+    tables (None returned)."""
+    device = torch.device(device)
+    _, _, key = _route(compiled, device, engine, quality, early_exit, blocks)
+    if key is None:
+        compiled.tensors(device)
+        return None
+    return compiled.placement(key)[1]
+
+
+def _route(compiled: CompiledTM, device, engine, quality: int, early_exit: bool,
            blocks: dict):
-    """:func:`run_compiled`'s checks and engine choice -> ``(name, spec,
-    schedule, margin)``: the engine that runs, its ``EngineSpec``, and for
-    the schedule engines the schedule (a tile prefix when ``quality > 0``)
-    and the early-exit margin table (else None)."""
+    """:func:`run_compiled`'s checks and engine choice for an input on
+    ``device`` -> ``(name, spec, key)``: the engine that runs, its
+    ``EngineSpec`` and, for the schedule engines, the key of its placement
+    (:meth:`CompiledTM.placement`; None for the others)."""
     from repro_torch.kernels import ops
 
     known = {"block_b", "block_c", "block_w", "block_j", "block_s",
@@ -1023,7 +1068,7 @@ def _route(compiled: CompiledTM, x_packed, engine, quality: int, early_exit: boo
     fact_keys = {"block_t", "term_w"} & blocks.keys()
     dense_keys = {"block_b", "block_w"} & blocks.keys()
     if name == "auto":
-        if not ops.kernel_dispatch(x_packed):
+        if not ops.kernel_dispatch(device):
             name = "oracle"
         elif dense_keys:
             name = "dense"
@@ -1036,21 +1081,11 @@ def _route(compiled: CompiledTM, x_packed, engine, quality: int, early_exit: boo
         raise TypeError(
             f"run_compiled: engine {name!r} with factorized-only block "
             f"kwargs {sorted(fact_keys)} — they would be silently dropped")
-    if name not in ("factorized", "sparse"):
-        return name, spec, None, None
-    keys = ("block_c", "block_j", "block_t", "term_w") if name == "factorized" else (
-        "block_c", "block_j")
-    tiling = {k: blocks.get(k) for k in keys}
-    if quality > 0:
-        sched = compiled.quality_prefix_schedule(quality, name, **tiling)
-    elif name == "factorized":
-        sched = compiled.factorized_schedule(**tiling)
-    else:
-        sched = compiled.schedule(**tiling)
-    margin = None
-    if early_exit and quality <= 0 and sched.n_tiles:
-        margin = compiled.margin_tensor(name, x_packed.device, **tiling)
-    return name, spec, sched, margin
+    if name not in _TILING_KEYS:
+        return name, spec, None
+    quality = quality if quality > 0 else 0
+    tiling = tuple(blocks.get(k) for k in _TILING_KEYS[name])
+    return name, spec, (name, tiling, quality, bool(early_exit) and not quality, device)
 
 
 def predict_compiled(compiled: CompiledTM, x: torch.Tensor, **kw) -> torch.Tensor:

@@ -177,19 +177,20 @@ def tm_shardings(config: tm.TMConfig, mesh):
 
 class _Placed:
     """Per-shard pieces of tables that do not change between calls, made
-    by ``split(*tables)`` on the first call and again only when other
-    tensors (or the same ones written since) come back."""
+    by ``split(*tables, **extra)`` on the first call and again only when
+    other tensors (or the same ones written since) or other ``extra``
+    values come back."""
 
     def __init__(self, split):
         self._split, self._key, self._value = split, None, None
 
-    def __call__(self, *tables):
+    def __call__(self, *tables, **extra):
         key = tuple((weakref.ref(t), t._version) for t in tables)
-        if self._key is None or any(
+        if self._key is None or self._key[1] != extra or any(
                 r() is not t or v != t._version
-                for (r, v), t in zip(self._key, tables)):
-            self._value = self._split(*tables)
-            self._key = key
+                for (r, v), t in zip(self._key[0], tables)):
+            self._value = self._split(*tables, **extra)
+            self._key = key, extra
         return self._value
 
 
@@ -308,10 +309,14 @@ def real_tiles(tile_stack, n_chain_rows: int, block_c: int) -> list:
     return out
 
 
-def _schedule_tables(mesh, block_c, *tables):
-    """Per-shard schedule tables with each shard's CSR pointers (and, for a
-    factorized table, its term-tile count) derived from its rows of the
-    tile stack (:func:`_shard_tile_walk`)."""
+def _schedule_placements(mesh, block_c, block_j, *tables, width):
+    """Each shard's placement of its schedule tables: ``sparse_infer``'s
+    for (chain, votes, tiles) stacks, ``term_infer``'s for (term, chain,
+    votes, tiles), with each shard's CSR pointers (and term-tile count)
+    derived from its rows of the tile stack (:func:`_shard_tile_walk`) and
+    the chains' literal sentinel from the literals' ``width`` in words."""
+    from repro_torch.kernels import sparse_infer, term_infer
+
     pieces = _model_pieces(mesh, tables, _stack_entry(mesh))
     out = {}
     for key, ts in pieces.items():
@@ -321,7 +326,10 @@ def _schedule_tables(mesh, block_c, *tables):
                              f"block_c={block_c}")
         indptr, n_term_tiles = _shard_tile_walk(tiles.cpu().numpy(),
                                                chain.shape[0] // block_c)
-        out[key] = ts + (torch.from_numpy(indptr).to(tiles.device), n_term_tiles)
+        indptr = torch.from_numpy(indptr).to(tiles.device)
+        kw = dict(block_c=block_c, block_j=block_j, n_lit_bits=32 * width)
+        out[key] = (term_infer.place_tables(*ts, indptr, n_term_tiles=n_term_tiles, **kw)
+                    if len(ts) == 4 else sparse_infer.place_tables(*ts, indptr, **kw))
     return out
 
 
@@ -336,27 +344,27 @@ def sharded_schedule_forward_fn(mesh, *, block_c: int, block_j: int,
 
     The returned fn: ``(chain_stack (n, Cp, Jp), votes_stack (n, Cp, K),
     tile_stack (n, 4, T), lit_words (B, Wa)) -> (B, K) int32``.  Each
-    shard's CSR pointers come from its rows of the tile stack, so a shard's
-    no-op padding tiles fold nothing.  ``block_s`` is the walk's sample
-    words a block (``sparse_infer.slab_words``; None: the kernel's choice).
+    shard's stacks are placed once (``sparse_infer.place_tables``), its
+    CSR pointers from its rows of the tile stack, so a shard's no-op
+    padding tiles fold nothing.  ``block_s`` is the walk's sample words a
+    block (``sparse_infer.walk_words``; None: the kernel's choice).
     """
     from repro_torch.kernels import sparse_infer
 
     oracle, _ = _engine_dispatch(engine, use_kernel,
                                  allowed=("auto", "sparse", "oracle"))
-    sparse_infer.slab_words(block_s)
-    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, *t))
+    sparse_infer.walk_words(block_s)
+    place = _Placed(lambda *t, width: _schedule_placements(mesh, block_c, block_j, *t,
+                                                           width=width))
 
     def fwd(chain_stack, votes_stack, tile_stack, lit_words):
-        pieces = place(chain_stack, votes_stack, tile_stack)
+        placed = place(chain_stack, votes_stack, tile_stack, width=lit_words.shape[1])
 
         def body(m, dev, lw):
-            chain, vt, tiles, indptr, _ = pieces[m, dev]
+            p = placed[m, dev]
             if oracle:
-                return sparse_infer.schedule_class_sums_ref(lw, chain, vt)
-            return sparse_infer.sparse_tm_forward_tables(
-                lw, chain, vt, tiles, indptr, block_c=block_c, block_j=block_j,
-                block_s=block_s)
+                return sparse_infer.schedule_class_sums_ref(lw, p.chain_ids, p.votes)
+            return sparse_infer.sparse_tm_forward(lw, p, block_s=block_s)
         return _forward(mesh, lit_words, body)
     return fwd
 
@@ -373,7 +381,8 @@ def sharded_factorized_forward_fn(mesh, *, block_t: int, block_c: int,
 
     The returned fn: ``(term_stack (n, Tp, term_w), chain_stack (n, Cp,
     Jp), votes_stack (n, Cp, K), tile_stack (n, 6, T), lit_words (B, Wa))
-    -> (B, K) int32``.  Each shard's term-tile count and CSR pointers come
+    -> (B, K) int32``.  Each shard's stacks are placed once
+    (``term_infer.place_tables``), its term-tile count and CSR pointers
     from its rows of the tile stack; no-op padding tiles and all-sentinel
     padding term rows change no shard's sums.  ``block_t`` names the
     stage-1 tiling the stacks were built at (the port's stage 1 takes every
@@ -385,19 +394,20 @@ def sharded_factorized_forward_fn(mesh, *, block_t: int, block_c: int,
         raise ValueError(f"block_t={block_t}")
     oracle, _ = _engine_dispatch(engine, use_kernel,
                                  allowed=("auto", "factorized", "oracle"))
-    sparse_infer.slab_words(block_s)
-    place = _Placed(lambda *t: _schedule_tables(mesh, block_c, *t))
+    sparse_infer.walk_words(block_s)
+    place = _Placed(lambda *t, width: _schedule_placements(mesh, block_c, block_j, *t,
+                                                           width=width))
 
     def fwd(term_stack, chain_stack, votes_stack, tile_stack, lit_words):
-        pieces = place(term_stack, chain_stack, votes_stack, tile_stack)
+        placed = place(term_stack, chain_stack, votes_stack, tile_stack,
+                       width=lit_words.shape[1])
 
         def body(m, dev, lw):
-            term, chain, vt, tiles, indptr, n_term_tiles = pieces[m, dev]
+            p = placed[m, dev]
             if oracle:
-                return term_infer.factorized_class_sums_ref(lw, term, chain, vt)
-            return term_infer.factorized_tm_forward_tables(
-                lw, term, chain, vt, tiles, indptr, block_c=block_c,
-                block_j=block_j, n_term_tiles=n_term_tiles, block_s=block_s)
+                return term_infer.factorized_class_sums_ref(lw, p.term_chain,
+                                                            p.clause_chain, p.votes)
+            return term_infer.factorized_tm_forward(lw, p, block_s=block_s)
         return _forward(mesh, lit_words, body)
     return fwd
 

@@ -27,10 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
-import weakref
 from pathlib import Path
-
-from repro_torch import spans
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_infer", "sparse_infer", "term_infer", "clause_eval",
@@ -148,30 +145,6 @@ def occupancy(name: str, *shape: int, extra: tuple = ()) -> dict:
     f = entry(name, f"{name}_occupancy", [I] * len(shape) + [P])
     check(name, f(*shape, ctypes.cast(info, P)))
     return dict(zip(keys, info))
-
-
-# (what, id(tensor)) -> (weak reference, versions and tag, deps' references,
-# value); an entry leaves with its tensor
-_derived: dict = {}
-
-
-def derived(what: str, tensor, fn, *deps, tag=None):
-    """``fn(tensor, *deps)``, derived once (in a build span,
-    ``spans.BUILD_RANGE``) and reused while ``tensor`` and ``deps`` are the
-    same tensors at the same versions and ``tag`` is equal, so the kernels'
-    wrappers launch nothing for it after the first call.  ``what`` keeps
-    apart the derivations of one tensor."""
-    key = (what, id(tensor))
-    ver = (tensor._version, tag, *(d._version for d in deps))
-    hit = _derived.get(key)
-    if (hit is not None and hit[0]() is tensor and hit[1] == ver
-            and all(r() is d for r, d in zip(hit[2], deps))):
-        return hit[3]
-    with spans.span(spans.BUILD_RANGE):
-        value = fn(tensor, *deps)
-    _derived[key] = (weakref.ref(tensor, lambda _: _derived.pop(key, None)), ver,
-                     tuple(weakref.ref(d) for d in deps), value)
-    return value
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -277,7 +277,7 @@ def _clip_slab(bs: int, B: int) -> int:
     """The reference clips the slab to the bucket's sample words; the walk
     takes powers of two, so the port clips to the one that covers them
     (equal wherever the bucket's words are a power of two)."""
-    return max(min(int(bs), sparse_infer.covering_slab(B)), 1)
+    return max(min(int(bs), sparse_infer.covering_walk_words(B)), 1)
 
 
 def _clip_sparse_candidate(blocks, B: int, U: int):
@@ -513,11 +513,13 @@ def _schedule_inputs(p, device):
 
 def _sparse_runs(p, clipped, device):
     lit, votes = _schedule_inputs(p, device)
-    runs = {}
+    runs, placed = {}, {}
     for bc, bj, bs in clipped:
-        sched = sparse_infer.build_schedule_cached(p["iw"], block_c=bc, block_j=bj)
+        if (bc, bj) not in placed:          # one placement a schedule
+            placed[bc, bj] = sparse_infer.place(
+                sparse_infer.build_schedule_cached(p["iw"], block_c=bc, block_j=bj), votes)
         runs[(bc, bj, bs)] = functools.partial(
-            sparse_infer.sparse_tm_forward, lit, votes, sched, block_s=bs)
+            sparse_infer.sparse_tm_forward, lit, placed[bc, bj], block_s=bs)
     return runs
 
 
@@ -570,12 +572,14 @@ def _term_key(p, clipped, mode):
 
 def _term_runs(p, clipped, device):
     lit, votes = _schedule_inputs(p, device)
-    runs = {}
+    runs, placed = {}, {}
     for bc, bj, bt, bs, tw in clipped:
-        sched = term_infer.build_factorized_schedule_cached(
-            p["iw"], block_c=bc, block_j=bj, block_t=bt, term_w=tw)
+        if (bc, bj, bt, tw) not in placed:  # one placement a schedule
+            placed[bc, bj, bt, tw] = term_infer.place(
+                term_infer.build_factorized_schedule_cached(
+                    p["iw"], block_c=bc, block_j=bj, block_t=bt, term_w=tw), votes)
         runs[(bc, bj, bt, bs, tw)] = functools.partial(
-            term_infer.factorized_tm_forward, lit, votes, sched, block_s=bs)
+            term_infer.factorized_tm_forward, lit, placed[bc, bj, bt, tw], block_s=bs)
     return runs
 
 

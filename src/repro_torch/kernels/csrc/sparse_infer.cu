@@ -1,7 +1,7 @@
 // Block-sparse compiled-schedule TM inference for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/sparse_infer.py:
-// _sparse_infer_kernel (launched by sparse_tm_forward_tables).  Each unique
+// _sparse_infer_kernel (launched by sparse_tm_forward).  Each unique
 // clause of a compiled artifact is a chain of literal ids (its include
 // bits); the kernel ANDs the bit-transposed literal rows on the chain and
 // folds the fired clauses' multiplicity x polarity votes into int32 class

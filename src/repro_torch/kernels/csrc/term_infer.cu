@@ -2,7 +2,7 @@
 // (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/term_infer.py:
-// _term_infer_kernel (launched by factorized_tm_forward_tables).  Stage 1
+// _term_infer_kernel (launched by factorized_tm_forward).  Stage 1
 // evaluates every unique (word, include-pattern) AND term of the artifact
 // once per sample word into a term bit table; stage 2 walks each clause's
 // chain of TERM ids over that table and folds the votes.  A term shared by

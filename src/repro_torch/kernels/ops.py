@@ -37,10 +37,10 @@ from repro_torch.kernels.ref import M32
 from repro_torch.runtime import faults
 
 
-def kernel_dispatch(x: torch.Tensor) -> bool:
-    """Whether ``engine="auto"`` takes the kernel path for input ``x``: it
-    does whenever the tensor lives on a CUDA device."""
-    return x.is_cuda
+def kernel_dispatch(device: torch.device) -> bool:
+    """Whether ``engine="auto"`` takes the kernel path for an input on
+    ``device``: it does whenever that is a CUDA device."""
+    return device.type == "cuda"
 
 
 def _ready(out):
@@ -311,34 +311,30 @@ def tm_forward_packed(
 
 def tm_forward_schedule(
     lit_words: torch.Tensor,    # (B, Wa) packed literals (word-compacted)
-    votes: torch.Tensor,        # (U, K) int32 multiplicity x polarity
-    schedule,                   # sparse_infer.SparseSchedule
+    placed,                     # sparse_infer.PlacedSchedule
     *,
-    tile_margin=None,           # (T,) int32 anytime margins -> exact early exit
     block_s: int | None = None,  # sample words a block of the walk
 ) -> torch.Tensor:
-    """Compiled-artifact class sums via the block-sparse chain schedule
-    (``sparse_infer.sparse_tm_forward``).  Vacuous-AND contract: all-zero
-    rows must carry zero votes (true for every ``compile_tm`` artifact)."""
+    """Compiled-artifact class sums via a placed block-sparse chain schedule
+    (``sparse_infer.sparse_tm_forward``; exact early exit when the
+    placement holds a margin table).  Vacuous-AND contract: all-zero rows
+    must carry zero votes (true for every ``compile_tm`` artifact)."""
     faults.raise_if("kernel.sparse")  # drill: chain-kernel failure
-    return _sparse_infer_kernel.sparse_tm_forward(
-        lit_words, votes, schedule, tile_margin=tile_margin, block_s=block_s)
+    return _sparse_infer_kernel.sparse_tm_forward(lit_words, placed, block_s=block_s)
 
 
 def tm_forward_factorized(
     lit_words: torch.Tensor,    # (B, Wa) packed literals (word-compacted)
-    votes: torch.Tensor,        # (U, K) int32 multiplicity x polarity
-    schedule,                   # term_infer.FactorizedSchedule
+    placed,                     # term_infer.PlacedSchedule
     *,
-    tile_margin=None,           # (T,) int32 anytime margins -> exact early exit
     block_s: int | None = None,  # sample words a block of the stage-2 walk
 ) -> torch.Tensor:
-    """Compiled-artifact class sums via the two-level FACTORIZED schedule
-    (``term_infer.factorized_tm_forward``): stage 1 evaluates each unique
-    AND term once per sample word, stage 2 chains term ids per clause."""
+    """Compiled-artifact class sums via a placed two-level FACTORIZED
+    schedule (``term_infer.factorized_tm_forward``): stage 1 evaluates each
+    unique AND term once per sample word, stage 2 chains term ids per
+    clause."""
     faults.raise_if("kernel.factorized")  # drill: factorized-kernel failure
-    return _term_infer_kernel.factorized_tm_forward(
-        lit_words, votes, schedule, tile_margin=tile_margin, block_s=block_s)
+    return _term_infer_kernel.factorized_tm_forward(lit_words, placed, block_s=block_s)
 
 
 # ---------------------------------------------------------------------------

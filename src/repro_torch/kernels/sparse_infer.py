@@ -15,12 +15,13 @@ the artifact's include bits, not with ``C x W``.  When a clause block's
 walk ends on its last tile, the fired bits fold into int32 class sums
 through the deduped multiplicity x polarity vote matrix.
 
-:func:`sparse_tm_forward_tables` runs the CUDA kernel
-(``csrc/sparse_infer.cu``) for CUDA tensors and :func:`sparse_tables_plain`,
-its plain PyTorch version, for CPU tensors.  With a margin table it runs
-exact early exit: a 32-sample slab stops once every sample's lead strictly
-beats the residual vote swing (``kernels/anytime.py``), so the argmax is
-the full walk's while the sums may be cut short.
+A schedule runs placed: :func:`place` puts its tables on a device as a
+:class:`PlacedSchedule`, checked once, and :func:`sparse_tm_forward` runs
+the CUDA kernel (``csrc/sparse_infer.cu``) over it for CUDA literals and a
+plain PyTorch version for CPU ones.  With a margin table in the placement
+it runs exact early exit: a 32-sample slab stops once every sample's lead
+strictly beats the residual vote swing (``kernels/anytime.py``), so the
+argmax is the full walk's while the sums may be cut short.
 
 Correctness contract: all-zero include rows FIRE (vacuous AND), so their
 vote rows must be zero — true for every ``compile_tm`` artifact.
@@ -33,6 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
@@ -50,13 +52,13 @@ _NEG_SUM = -(2 ** 28)
 # walk's grid and the threads that walk one clause's chain for one word
 GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 
-# kernel launches through sparse_tm_forward_tables on CUDA tensors
+# kernel launches through sparse_tm_forward on CUDA tensors
 launches = 0
 
-# sample words (32 samples each) a CUDA block of the exact walk takes: the
+# sample words (32 samples each) a CUDA block of the walk takes: the
 # reference's block_s, a power of two up to 8 (csrc/chain_walk.cuh); None
 # lets the kernel take the smallest that covers the bucket, capped at 8
-SLAB_WORDS = (1, 2, 4, 8)
+WALK_WORDS = (1, 2, 4, 8)
 
 
 def _rup(x: int, m: int) -> int:
@@ -72,9 +74,7 @@ class SparseSchedule:
     the clause's include count hold the sentinel ``n_lit_bits``, whose
     transposed literal row is all ones.  ``counts``/``indptr`` are the CSR
     view over chain tiles per clause block; ``tile_*`` is the flat tile
-    table, clause blocks in order.  ``_dev`` memoizes the tables as device
-    tensors (not copied by ``dataclasses.replace``, so a prefix schedule
-    gets its own).
+    table, clause blocks in order.
     """
 
     block_c: int
@@ -88,8 +88,6 @@ class SparseSchedule:
     tile_last: np.ndarray       # (T,) int32 1 = last tile of its block
     counts: np.ndarray          # (n_cblocks,) int32 tiles per clause block
     indptr: np.ndarray          # (n_cblocks + 1,) int32 CSR row pointers
-    _dev: dict = dataclasses.field(default_factory=dict, init=False,
-                                   repr=False, compare=False)
 
     @property
     def n_tiles(self) -> int:
@@ -98,21 +96,6 @@ class SparseSchedule:
     @property
     def n_cblocks(self) -> int:
         return int(self.counts.shape[0])
-
-    def tensors(self, device) -> dict:
-        """The chain, tile and CSR tables as int32 tensors on ``device``."""
-        key = str(device)
-        if key not in self._dev:
-            tiles = np.stack([self.tile_cb, self.tile_jb, self.tile_first,
-                              self.tile_last]).astype(np.int32).reshape(4, -1)
-            self._dev[key] = dict(
-                chain_ids=torch.from_numpy(
-                    np.ascontiguousarray(self.chain_ids, np.int32)).to(device),
-                tiles=torch.from_numpy(tiles).to(device),
-                indptr=torch.from_numpy(
-                    np.ascontiguousarray(self.indptr, np.int32)).to(device),
-            )
-        return self._dev[key]
 
 
 def cluster_order(include_words: np.ndarray) -> np.ndarray:
@@ -148,8 +131,7 @@ def artifact_tag(include_words) -> str:
 
 
 # content-keyed memo of build_schedule_cached: repeated builds for the same
-# include rows and tiling return the SAME object, so its device tables
-# (SparseSchedule.tensors) and chain-length memo are made once
+# include rows and tiling return the SAME object
 _SCHEDULE_CACHE: dict = {}
 
 
@@ -450,60 +432,58 @@ def chain_fold_plain(rows, chain_ids, votes, tile_jb, tile_last, indptr, *,
     return sums
 
 
-def chain_lengths(chain: torch.Tensor, sentinel, *deps: torch.Tensor) -> torch.Tensor:
+def chain_lengths(chain: torch.Tensor, sentinel) -> torch.Tensor:
     """(rows,) int32: how many ids each row of ``chain`` holds that are not
-    ``sentinel``, which is the length of that clause's own chain: both
-    builders put a row's real ids first and the sentinel after them
-    (``tests/test_torch_compiler.py`` holds them to it).  ``sentinel`` is
-    an id, or a function of ``deps`` that gives one on their device.
-    Derived once per chain tensor, then reused while the chain and
-    ``deps`` are the same tensors at the same version, so the kernels'
-    wrappers launch nothing for it after the first call (``_build.derived``)."""
-    def count(chain, *deps):
-        value = sentinel(*deps) if callable(sentinel) else sentinel
-        return (chain != value).sum(1, dtype=torch.int32)
-
-    return _build.derived("chain_lengths", chain, count, *deps,
-                          tag=None if callable(sentinel) else sentinel)
+    ``sentinel`` (an id, or a 0-dim tensor on the chain's device), which is
+    the length of that clause's own chain: :func:`build_schedule` and
+    ``term_infer.build_factorized_schedule`` put a row's real ids first and
+    the sentinel after them (``tests/test_torch_compiler.py`` holds them to
+    it)."""
+    return (chain != sentinel).sum(1, dtype=torch.int32)
 
 
-def slab_words(block_s) -> int:
-    """The slab words a block of the walk takes for ``block_s`` (0: the
+def walk_words(block_s) -> int:
+    """The sample words a block of the walk takes for ``block_s`` (0: the
     kernel's choice, for None).  Any value but 1, 2, 4 or 8 raises
     ``ValueError``: the walk's grid and the fold's staging assume one of
     them, and a value is never clamped to one."""
     if block_s is None:
         return 0
-    if int(block_s) not in SLAB_WORDS:
-        raise ValueError(f"block_s={block_s}: the chain walk takes {SLAB_WORDS} "
+    if int(block_s) not in WALK_WORDS:
+        raise ValueError(f"block_s={block_s}: the chain walk takes {WALK_WORDS} "
                          "sample words a block")
     return int(block_s)
 
 
-def covering_slab(B: int) -> int:
-    """The slab words the walk takes at batch ``B`` when ``block_s`` is None:
+def covering_walk_words(B: int) -> int:
+    """The sample words the walk takes at batch ``B`` when ``block_s`` is None:
     the smallest power of two that covers the bucket's ceil(B / 32) sample
     words, capped at 8 (``csrc/chain_walk.cuh:slab_words``)."""
     sw_total, sw = -(-B // 32), 1
-    while sw < sw_total and sw < SLAB_WORDS[-1]:
+    while sw < sw_total and sw < WALK_WORDS[-1]:
         sw *= 2
     return sw
 
 
-def _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, n_tile_rows):
-    tensors = dict(lit_words=lit_words, chain_ids=chain_ids, votes=votes,
-                   tiles=tiles, indptr=indptr)
-    if tile_margin is not None:
-        tensors["tile_margin"] = tile_margin
+def _check_tables(chain_ids, votes, tiles, indptr, tile_margin, n_tile_rows,
+                  term_chain=None):
+    """Raise unless the tables of a placement are contiguous int32 tensors on
+    ``votes``' device, the chains and votes 2-D, ``tiles`` ``n_tile_rows``
+    rows, the votes no more rows than the chains and ``tile_margin`` (or
+    None) one entry a tile."""
+    tensors = dict(chain_ids=chain_ids, votes=votes, tiles=tiles, indptr=indptr,
+                   tile_margin=tile_margin, term_chain=term_chain)
     for name, t in tensors.items():
+        if t is None:
+            continue
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-        if t.device != lit_words.device:
-            raise ValueError(f"{name} is on {t.device}, lit_words on {lit_words.device}")
+        if t.device != votes.device:
+            raise ValueError(f"{name} is on {t.device}, votes on {votes.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if lit_words.dim() != 2 or chain_ids.dim() != 2 or votes.dim() != 2:
-        raise ValueError("lit_words, chain_ids and votes must be 2-D")
+    if any(t is not None and t.dim() != 2 for t in (chain_ids, votes, term_chain)):
+        raise ValueError("the chains and votes must be 2-D")
     if tiles.dim() != 2 or tiles.shape[0] != n_tile_rows:
         raise ValueError(f"tiles must be ({n_tile_rows}, T), got {tuple(tiles.shape)}")
     if votes.shape[0] > chain_ids.shape[0]:
@@ -514,31 +494,91 @@ def _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, n_til
                          f"({tiles.shape[1]},)")
 
 
-def sparse_tables_plain(lit_words, chain_ids, votes, tiles, indptr, *,
-                        block_c, block_j, tile_margin=None, block_s=None):
-    """Plain PyTorch version of :func:`sparse_tables_cuda` (any device);
-    ``block_s`` is checked and has nothing to tile here."""
-    _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, 4)
-    slab_words(block_s)
+def _check_literals(lit_words, placed, block_s) -> int:
+    """What a schedule forward checks of each call: ``lit_words`` a
+    contiguous (B, W) int32 tensor on the placement's device whose W words
+    are its ``n_lit_bits``, and ``block_s`` (:func:`walk_words`, returned)."""
+    if lit_words.dtype != torch.int32:
+        raise TypeError(f"lit_words must be int32, got {lit_words.dtype}")
+    if lit_words.dim() != 2 or not lit_words.is_contiguous():
+        raise ValueError("lit_words must be a contiguous 2-D tensor")
+    if lit_words.device != placed.votes.device:
+        raise ValueError(f"lit_words is on {lit_words.device}, the schedule on "
+                         f"{placed.votes.device}")
+    if lit_words.shape[1] * 32 != placed.n_lit_bits:
+        raise ValueError(f"schedule covers {placed.n_lit_bits} literal bits, "
+                         f"lit_words has {lit_words.shape[1]} words")
+    return walk_words(block_s)
+
+
+def _upload(device, *arrays):
+    """Host tables as contiguous int32 tensors on ``device`` (None stays None)."""
+    return [None if a is None else torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+            for a in arrays]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlacedSchedule:
+    """A chain schedule on one device, as a launch of the walk reads it:
+    made and checked once by :func:`place_tables`, so that a call checks
+    only its literal words.  ``jb`` and ``last`` are the tile table's two
+    rows the walk reads, ``lens`` each chain row's length (the walk stops at
+    a clause's own end) and ``tile_margin`` the early-exit margin table, or
+    None for the exact walk."""
+
+    chain_ids: torch.Tensor     # (Cp, Jp) int32 literal bit ids
+    votes: torch.Tensor         # (U, K) int32
+    indptr: torch.Tensor        # (n_cblocks + 1,) int32 CSR tile pointers
+    jb: torch.Tensor            # (T,) int32 chain-block id per tile
+    last: torch.Tensor          # (T,) int32 1 = last tile of its block
+    lens: torch.Tensor          # (Cp,) int32
+    block_c: int
+    block_j: int
+    n_lit_bits: int             # the chains' sentinel id
+    tile_margin: torch.Tensor | None = None     # (T,) int32
+
+
+def place_tables(chain_ids, votes, tiles, indptr, *, block_c, block_j, n_lit_bits,
+                 tile_margin=None) -> PlacedSchedule:
+    """A chain schedule's device tables as a :class:`PlacedSchedule` on their
+    device: ``tiles`` is (4, T) (cb, jb, first, last), ``indptr`` the CSR
+    tile pointers a clause block and ``n_lit_bits`` the chains' sentinel.
+    Checks the tables and counts the chain lengths, in a build span."""
+    with spans.span(spans.BUILD_RANGE):
+        _check_tables(chain_ids, votes, tiles, indptr, tile_margin, 4)
+        return PlacedSchedule(chain_ids, votes, indptr, tiles[1].contiguous(),
+                              tiles[3].contiguous(), chain_lengths(chain_ids, n_lit_bits),
+                              block_c, block_j, n_lit_bits, tile_margin)
+
+
+def place(schedule: SparseSchedule, votes: torch.Tensor, *,
+          tile_margin=None) -> PlacedSchedule:
+    """``schedule``'s tables on ``votes``' device, then :func:`place_tables`;
+    ``tile_margin`` is a host margin table (early exit) or None."""
+    with spans.span(spans.BUILD_RANGE):
+        tiles = np.stack([schedule.tile_cb, schedule.tile_jb, schedule.tile_first,
+                          schedule.tile_last]).reshape(4, -1)
+        chain, tiles, indptr, margin = _upload(votes.device, schedule.chain_ids, tiles,
+                                               schedule.indptr, tile_margin)
+    return place_tables(chain, votes, tiles, indptr, block_c=schedule.block_c,
+                        block_j=schedule.block_j, n_lit_bits=schedule.n_lit_bits,
+                        tile_margin=margin)
+
+
+def _plain(lit_words, placed: PlacedSchedule):
     B, W = lit_words.shape
     lit_t = bit_transpose_literals(lit_words, W * 32)
-    sums = chain_fold_plain(lit_t, chain_ids, votes, tiles[1], tiles[3], indptr,
-                            tile_off=0, block_c=block_c, block_j=block_j,
-                            n_samples=B, tile_margin=tile_margin)
+    sums = chain_fold_plain(lit_t, placed.chain_ids, placed.votes, placed.jb, placed.last,
+                            placed.indptr, tile_off=0, block_c=placed.block_c,
+                            block_j=placed.block_j, n_samples=B,
+                            tile_margin=placed.tile_margin)
     return sums[:B]
 
 
-def sparse_tables_cuda(lit_words, chain_ids, votes, tiles, indptr, *,
-                       block_c, block_j, tile_margin=None, block_s=None):
-    """Launch ``csrc/sparse_infer.cu`` on CUDA tensors -> (B, K) int32, the
-    walk at ``block_s`` sample words a block (:func:`slab_words`)."""
+def _cuda(lit_words, placed: PlacedSchedule, walk: int):
     global launches
-    _check_tables(lit_words, chain_ids, votes, tiles, indptr, tile_margin, 4)
-    slab = slab_words(block_s)
-    if not lit_words.is_cuda:
-        raise ValueError("sparse_tables_cuda takes CUDA tensors")
     B, W = lit_words.shape
-    U, K = votes.shape
+    U, K = placed.votes.shape
     Sw = packetizer.n_words(B)
     # scratch for the kernel's own bit transpose of the literals (the
     # transpose launch zeroes `out` before the walk adds into it) and, with
@@ -546,18 +586,17 @@ def sparse_tables_cuda(lit_words, chain_ids, votes, tiles, indptr, *,
     dev = lit_words.device
     lit_t = torch.empty((W * 32 + 1, Sw), dtype=torch.int32, device=dev)
     out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
-    fired = None if tile_margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
-    lens = chain_lengths(chain_ids, W * 32)
-    jb, last = tiles[1].contiguous(), tiles[3].contiguous()
+    margin = placed.tile_margin
+    fired = None if margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
     P, I = _build.P, _build.I
     fn = _build.entry("sparse_infer", "sparse_infer_launch",
                       [P, I, I, P, I, P, P, I, P, I, I, P, I, P, P, P, I, I, I, P, P, P])
     err = fn(_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw,
-             _build.ptr(chain_ids), _build.ptr(lens), chain_ids.shape[1],
-             _build.ptr(votes), U, K, _build.ptr(indptr), indptr.shape[0] - 1,
-             _build.ptr(jb), _build.ptr(last),
-             None if tile_margin is None else _build.ptr(tile_margin),
-             block_c, block_j, slab, _build.ptr(out),
+             _build.ptr(placed.chain_ids), _build.ptr(placed.lens), placed.chain_ids.shape[1],
+             _build.ptr(placed.votes), U, K, _build.ptr(placed.indptr),
+             placed.indptr.shape[0] - 1, _build.ptr(placed.jb), _build.ptr(placed.last),
+             None if margin is None else _build.ptr(margin),
+             placed.block_c, placed.block_j, walk, _build.ptr(out),
              None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
     _build.check("sparse_infer", err)
     launches += 1
@@ -571,43 +610,25 @@ def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dic
     (``K`` decides whether the votes are staged in shared memory) and
     ``block_s`` sample words a block (None: the kernel's choice)."""
     return _build.occupancy("sparse_infer", B, n_cblocks, block_c, K,
-                            slab_words(block_s), extra=GRID_FIELDS)
+                            walk_words(block_s), extra=GRID_FIELDS)
 
 
-def sparse_tm_forward_tables(lit_words, chain_ids, votes, tiles, indptr, *,
-                             block_c, block_j, tile_margin=None, block_s=None):
-    """Packed literals (B, W) int32 -> (B, K) int32 class sums over chain
-    tables: ``tiles`` is (4, T) (cb, jb, first, last), ``indptr`` the CSR
-    tile pointers per clause block.  The kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    fn = sparse_tables_cuda if lit_words.is_cuda else sparse_tables_plain
-    return fn(lit_words, chain_ids, votes, tiles, indptr, block_c=block_c,
-              block_j=block_j, tile_margin=tile_margin, block_s=block_s)
-
-
-def sparse_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
-                      schedule: SparseSchedule, *, tile_margin=None,
+def sparse_tm_forward(lit_words: torch.Tensor, placed: PlacedSchedule, *,
                       block_s=None) -> torch.Tensor:
-    """Packed literals -> (B, K) int32 class sums via the chain schedule,
-    the walk at ``block_s`` sample words a block (:func:`slab_words`).
+    """Packed literals (B, W) int32 -> (B, K) int32 class sums over a placed
+    chain schedule, the walk at ``block_s`` sample words a block
+    (:func:`walk_words`): the kernel for CUDA literals, the plain version
+    for CPU ones.
 
     Bit-identical to ``class_sum_ref(clause_fire_ref(lit, include_words),
-    votes)`` for the include rows the schedule was built from; with
-    ``tile_margin`` argmax-identical (exact early exit).
+    votes)`` for the include rows the schedule was built from; with a
+    margin table in the placement argmax-identical (exact early exit).
     """
-    B, W = lit_words.shape
-    K = votes.shape[1]
-    if schedule.n_lit_bits != W * 32:
-        raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
-                         f"lit_words has {W} words")
-    slab_words(block_s)
-    if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
-        return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
-    tabs = schedule.tensors(lit_words.device)
-    return sparse_tm_forward_tables(
-        lit_words.contiguous(), tabs["chain_ids"], votes, tabs["tiles"],
-        tabs["indptr"], block_c=schedule.block_c, block_j=schedule.block_j,
-        tile_margin=tile_margin, block_s=block_s)
+    walk = _check_literals(lit_words, placed, block_s)
+    if placed.jb.shape[0] == 0:   # degenerate all-empty schedule: nothing votes
+        return torch.zeros((lit_words.shape[0], placed.votes.shape[1]), dtype=torch.int32,
+                           device=lit_words.device)
+    return _cuda(lit_words, placed, walk) if lit_words.is_cuda else _plain(lit_words, placed)
 
 
 def schedule_class_sums_ref(lit_words, chain_ids, votes):

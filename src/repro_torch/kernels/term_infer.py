@@ -13,17 +13,18 @@ factorized schedule exploits it:
 
 Stage 1 evaluates each unique term once per sample word into a term bit
 table; stage 2 walks the clause chains over that table and folds the
-votes.  :func:`factorized_tm_forward_tables` runs the CUDA kernel
-(``csrc/term_infer.cu``) for CUDA tensors and
-:func:`factorized_tables_plain` for CPU tensors.  On the card a call takes
-one of two designs, by :func:`slab_words_for` from what it can observe
-(the batch, the tables' shapes, the card's SMs and shared memory): at
-large batches in exact mode ONE launch, a CTA a slab of sample words with
-its literal rows and term table in shared memory; else bit transpose,
-stage 1 and the stage-2 walk of ``csrc/chain_walk.cuh`` as three launches
-on one stream (a fourth that folds in order with early exit).  Padding
-terms (rows past ``n_terms``) have all-sentinel chains and evaluate to all
-ones, so sentinel-padded clause chains are exact.
+votes.  A schedule runs placed: :func:`place` puts its tables on a device
+as a :class:`PlacedSchedule`, checked once, and
+:func:`factorized_tm_forward` runs the CUDA kernel (``csrc/term_infer.cu``)
+over it for CUDA literals and a plain PyTorch version for CPU ones.  On
+the card a call takes one of two designs, by :func:`slab_words_for` from
+what it can observe (the batch, the placement's shapes, the card's SMs and
+shared memory): at large batches in exact mode ONE launch, a CTA a slab of
+sample words with its literal rows and term table in shared memory; else
+bit transpose, stage 1 and the stage-2 walk of ``csrc/chain_walk.cuh`` as
+three launches on one stream (a fourth that folds in order with early
+exit).  Padding terms (rows past ``n_terms``) have all-sentinel chains and
+evaluate to all ones, so sentinel-padded clause chains are exact.
 """
 
 from __future__ import annotations
@@ -37,10 +38,10 @@ from repro_torch import spans
 from repro_torch.core import packetizer
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import class_sum_ref
-from repro_torch.kernels.sparse_infer import (_check_tables, _rup, and_reduce,
-                                              artifact_tag, bit_transpose_literals,
-                                              chain_fold_plain, chain_lengths,
-                                              slab_words)
+from repro_torch.kernels.sparse_infer import (_check_literals, _check_tables, _rup,
+                                              _upload, and_reduce, artifact_tag,
+                                              bit_transpose_literals, chain_fold_plain,
+                                              chain_lengths, walk_words)
 
 # default factorized tiling (the reference's, so shipped schedules are
 # memoized under the same key); small artifacts clip
@@ -56,9 +57,9 @@ GRID_FIELDS = ("grid_x", "grid_y", "chain_threads")
 # calls that launched the kernel (either design) on CUDA tensors
 launches = 0
 
-# host spans (``repro_torch/spans.py``): what precedes a launch (the device
-# tables, the checks, the scratch buffers, the entry point and the ctypes
-# arguments), the launch call itself and, inside it, the slab design's
+# host spans (``repro_torch/spans.py``): what precedes a launch (the check
+# of the literals, the design, the scratch buffers, the entry point and the
+# ctypes arguments), the launch call itself and, inside it, the slab design's
 PREP_RANGE = "term_infer.prep"
 LAUNCH_RANGE = "term_infer.launch"
 SLAB_RANGE = "term_infer.slab"
@@ -106,8 +107,6 @@ class FactorizedSchedule:
     tile_last: np.ndarray       # (T,) int32 1 = last clause tile of block
     counts: np.ndarray          # (n_cblocks,) int32 clause tiles per block
     indptr: np.ndarray          # (n_cblocks + 1,) int32 CSR row pointers
-    _dev: dict = dataclasses.field(default_factory=dict, init=False,
-                                   repr=False, compare=False)
 
     @property
     def n_tiles(self) -> int:
@@ -133,23 +132,6 @@ class FactorizedSchedule:
         if dense == 0:
             return 0.0
         return 1.0 - self.n_terms / dense
-
-    def tensors(self, device) -> dict:
-        """Term, clause, tile and CSR tables as int32 tensors on ``device``."""
-        key = str(device)
-        if key not in self._dev:
-            with spans.span(spans.BUILD_RANGE):
-                tiles = np.stack([self.tile_stage, self.tile_tb, self.tile_cb,
-                                  self.tile_jb, self.tile_first,
-                                  self.tile_last]).astype(np.int32).reshape(6, -1)
-
-                def t(a):
-                    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-                self._dev[key] = dict(term_chain=t(self.term_chain),
-                                      clause_chain=t(self.clause_chain),
-                                      tiles=t(tiles), indptr=t(self.indptr))
-        return self._dev[key]
 
 
 def pick_term_width(include_words: np.ndarray) -> int:
@@ -384,30 +366,6 @@ def stack_shard_factorized(
     return schedules, term_stack, chain_stack, votes_stack, tile_stack, C_loc
 
 
-def _check_terms(lit_words, term_chain):
-    if term_chain.dtype != torch.int32 or term_chain.dim() != 2:
-        raise TypeError("term_chain must be a 2-D int32 tensor")
-    if term_chain.device != lit_words.device or not term_chain.is_contiguous():
-        raise ValueError("term_chain must be contiguous on lit_words' device")
-
-
-def factorized_tables_plain(lit_words, term_chain, clause_chain, votes, tiles,
-                            indptr, *, block_c, block_j, n_term_tiles,
-                            tile_margin=None, block_s=None):
-    """Plain PyTorch version of :func:`factorized_tables_cuda` (any device);
-    ``block_s`` is checked and has nothing to tile here."""
-    _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
-    _check_terms(lit_words, term_chain)
-    slab_words(block_s)
-    B, W = lit_words.shape
-    lit_t = bit_transpose_literals(lit_words, W * 32)
-    term_bits = and_reduce(lit_t[term_chain.long()])          # (Tp, Sw)
-    sums = chain_fold_plain(term_bits, clause_chain, votes, tiles[3], tiles[5],
-                            indptr, tile_off=n_term_tiles, block_c=block_c,
-                            block_j=block_j, n_samples=B, tile_margin=tile_margin)
-    return sums[:B]
-
-
 def slab_shared_words(S: int, W: int, Tp: int, K: int, U: int, n_cblocks: int,
                       n_planes: int) -> int:
     """4-byte words of shared memory the slab design needs at ``S`` sample
@@ -449,13 +407,7 @@ def vote_planes(votes: torch.Tensor) -> tuple:
     n_planes)``, planes a (K, 32, ceil(U / 32)) int32 table whose word j of
     class kk's plane p has bit c set iff bit p of ``votes[32 j + c, kk]``
     is (two's complement; rows past U are 0), and n_planes the fewest
-    planes that hold every vote (at least 1).  Derived on the votes'
-    device once per votes tensor and version (``_build.derived``); reading
-    n_planes is its one copy to the host."""
-    return _build.derived("vote_planes", votes, _vote_planes)
-
-
-def _vote_planes(votes: torch.Tensor) -> tuple:
+    planes that hold every vote (at least 1), read to the host."""
     U, K = votes.shape
     n = -(-U // 32)
     v = torch.zeros((n * 32, K), dtype=torch.int64, device=votes.device)
@@ -468,113 +420,84 @@ def _vote_planes(votes: torch.Tensor) -> tuple:
     return planes, int(1 + (mag >= (1 << p[:31])).sum())
 
 
-# device index -> (SM count, opt-in shared bytes a block)
-_LIMITS: dict = {}
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlacedSchedule:
+    """A factorized schedule on one device, as a launch reads it: made and
+    checked once by :func:`place_tables`, so that a call checks only its
+    literal words.  ``jb`` and ``last`` are the tile table's two rows the
+    walk reads (term tiles first), ``lens`` each clause chain's length,
+    ``planes``/``n_planes`` the votes as the slab design folds them
+    (:func:`vote_planes`), ``sm_count``/``shared_bytes`` the card's SMs and
+    the shared bytes a block may opt in to (0 off the card) and
+    ``tile_margin`` the early-exit margin table, or None for the exact
+    walk."""
+
+    term_chain: torch.Tensor    # (Tp, term_w) int32 literal bit ids
+    clause_chain: torch.Tensor  # (Cp, Jp) int32 term ids
+    votes: torch.Tensor         # (U, K) int32
+    indptr: torch.Tensor        # (n_cblocks + 1,) int32 CSR clause-tile pointers
+    jb: torch.Tensor            # (T,) int32 chain-block id per tile
+    last: torch.Tensor          # (T,) int32 1 = last clause tile of its block
+    lens: torch.Tensor          # (Cp,) int32
+    planes: torch.Tensor        # (K, 32, ceil(U / 32)) int32
+    n_planes: int
+    block_c: int
+    block_j: int
+    n_term_tiles: int           # the clause tiles start here
+    n_lit_bits: int             # the term chains' sentinel id
+    sm_count: int
+    shared_bytes: int
+    tile_margin: torch.Tensor | None = None     # (T,) int32
 
 
-def _limits(dev) -> tuple:
-    """The card's SM count and the shared bytes a block may opt in to."""
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _LIMITS:
-        props = torch.cuda.get_device_properties(idx)
-        _LIMITS[idx] = (props.multi_processor_count, props.shared_memory_per_block_optin)
-    return _LIMITS[idx]
+def place_tables(term_chain, clause_chain, votes, tiles, indptr, *, block_c, block_j,
+                 n_term_tiles, n_lit_bits, tile_margin=None) -> PlacedSchedule:
+    """A factorized schedule's device tables as a :class:`PlacedSchedule` on
+    their device: ``tiles`` is (6, T) (stage, tb, cb, jb, first, last),
+    ``indptr`` the CSR clause-tile pointers, the clause tiles start at
+    ``n_term_tiles`` and ``n_lit_bits`` is the term chains' sentinel.
+    Checks the tables, counts the chain lengths and makes the vote planes,
+    in a build span."""
+    with spans.span(spans.BUILD_RANGE):
+        _check_tables(clause_chain, votes, tiles, indptr, tile_margin, 6, term_chain)
+        # the clause chains' sentinel is the first padding term, whose
+        # literal chain is all sentinels (real terms hold at least one bit)
+        lens = chain_lengths(clause_chain, (term_chain[:, 0] != n_lit_bits).sum())
+        planes, n_planes = vote_planes(votes)
+        limits = (0, 0)
+        if votes.is_cuda:
+            props = torch.cuda.get_device_properties(votes.device)
+            limits = (props.multi_processor_count, props.shared_memory_per_block_optin)
+        return PlacedSchedule(term_chain, clause_chain, votes, indptr, tiles[3].contiguous(),
+                              tiles[5].contiguous(), lens, planes, n_planes, block_c,
+                              block_j, n_term_tiles, n_lit_bits, *limits, tile_margin)
 
 
-def factorized_tables_cuda(lit_words, term_chain, clause_chain, votes, tiles,
-                           indptr, *, block_c, block_j, n_term_tiles,
-                           tile_margin=None, block_s=None):
-    """Launch ``csrc/term_infer.cu`` on CUDA tensors -> (B, K) int32: the
-    slab design where :func:`slab_words_for` picks it, else bit transpose,
-    stage 1 into a term buffer allocated here, then the stage-2 walk at
-    ``block_s`` sample words a block (``sparse_infer.slab_words``)."""
-    with spans.span(PREP_RANGE):
-        call = _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr,
-                            block_c=block_c, block_j=block_j, n_term_tiles=n_term_tiles,
-                            tile_margin=tile_margin, block_s=block_s)
-    return _launch(*call)
+def place(schedule: FactorizedSchedule, votes: torch.Tensor, *,
+          tile_margin=None) -> PlacedSchedule:
+    """``schedule``'s tables on ``votes``' device, then :func:`place_tables`;
+    ``tile_margin`` is a host margin table (early exit) or None."""
+    with spans.span(spans.BUILD_RANGE):
+        tiles = np.stack([schedule.tile_stage, schedule.tile_tb, schedule.tile_cb,
+                          schedule.tile_jb, schedule.tile_first,
+                          schedule.tile_last]).reshape(6, -1)
+        term, clause, tiles, indptr, margin = _upload(
+            votes.device, schedule.term_chain, schedule.clause_chain, tiles,
+            schedule.indptr, tile_margin)
+    return place_tables(term, clause, votes, tiles, indptr, block_c=schedule.block_c,
+                        block_j=schedule.block_j, n_term_tiles=schedule.n_term_tiles,
+                        n_lit_bits=schedule.n_lit_bits, tile_margin=margin)
 
 
-def _launch_args(lit_words, term_chain, clause_chain, votes, tiles, indptr, *,
-                 block_c, block_j, n_term_tiles, tile_margin, block_s):
-    """The checks, scratch buffers and entry point of one launch of
-    :func:`factorized_tables_cuda` -> ``(fn, args, keep, out, slab)``: the
-    ctypes entry, its arguments, the tensors they point into (held until
-    the launch returns), the (B, K) view of the output it fills and whether
-    it is the slab design."""
-    _check_tables(lit_words, clause_chain, votes, tiles, indptr, tile_margin, 6)
-    _check_terms(lit_words, term_chain)
-    slab = slab_words(block_s)
-    if not lit_words.is_cuda:
-        raise ValueError("factorized_tables_cuda takes CUDA tensors")
+def _plain(lit_words, placed: PlacedSchedule):
     B, W = lit_words.shape
-    U, K = votes.shape
-    Tp, term_w = term_chain.shape
-    Sw = packetizer.n_words(B)
-    dev = lit_words.device
-    n_cblocks = indptr.shape[0] - 1
-    # the clause chains' sentinel is the first padding term, whose
-    # literal chain is all sentinels (real terms hold at least one bit)
-    lens = chain_lengths(clause_chain, lambda tc: (tc[:, 0] != W * 32).sum(),
-                         term_chain)
-    jb, last = tiles[3].contiguous(), tiles[5].contiguous()
-    P, I = _build.P, _build.I
-    sm_count, shared_bytes = _limits(dev)
-    planes, n_planes = vote_planes(votes)
-    S = slab_words_for(B, W, Tp, K, U, n_cblocks, n_planes, tile_margin=tile_margin,
-                       block_s=block_s, sm_count=sm_count, shared_bytes=shared_bytes)
-    if S:
-        out = torch.empty((B, K), dtype=torch.int32, device=dev)
-        fn = _build.entry("term_infer", "term_infer_slab_launch",
-                          [P, I, I, P, I, I, P, P, I, P, I, I, I, P, I, P, P, I, I, I, I, I,
-                           P, P])
-        args = (_build.ptr(lit_words), B, W, _build.ptr(term_chain), Tp, term_w,
-                _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
-                _build.ptr(planes), n_planes, U, K, _build.ptr(indptr), n_cblocks,
-                _build.ptr(jb), _build.ptr(last), n_term_tiles, block_c, block_j, S,
-                shared_bytes, _build.ptr(out), _build.stream_ptr(dev))
-        keep = (lit_words, term_chain, clause_chain, lens, planes, indptr, jb, last, out)
-        return fn, args, keep, out, True
-    # scratch: the kernel's bit-transposed literals, stage-1 term table
-    # (rows of Sw words padded to a multiple of 4, for its 16-byte loads)
-    # and, with early exit, the fired words the walk stores for the
-    # in-order fold (the transpose launch zeroes `out` before the walk adds
-    # into it)
-    stride = _rup(Sw, 4)
-    lit_t = torch.empty((W * 32 + 1, stride), dtype=torch.int32, device=dev)
-    term_bits = torch.empty((Tp, stride), dtype=torch.int32, device=dev)
-    out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
-    fired = None if tile_margin is None else torch.empty((Sw, U), dtype=torch.int32, device=dev)
-    fn = _build.entry("term_infer", "term_infer_launch",
-                      [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
-                       I, P, I, I, I, P, P, P])
-    args = (_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
-            _build.ptr(term_chain), Tp, term_w, _build.ptr(term_bits),
-            _build.ptr(clause_chain), _build.ptr(lens), clause_chain.shape[1],
-            _build.ptr(votes), U, K, _build.ptr(indptr), n_cblocks,
-            _build.ptr(jb), _build.ptr(last), n_term_tiles,
-            None if tile_margin is None else _build.ptr(tile_margin),
-            block_c, block_j, slab, _build.ptr(out),
-            None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
-    keep = (lit_words, lit_t, term_chain, term_bits, clause_chain, lens, votes, indptr,
-            jb, last, tile_margin, out, fired)
-    return fn, args, keep, out[:B], False
-
-
-def _launch(fn, args, keep, out, slab):
-    """Call the entry point of :func:`_launch_args` while ``keep`` holds
-    the tensors its pointers address, check its error code and count the
-    launch -> ``out``."""
-    global launches
-    with spans.span(LAUNCH_RANGE):
-        if slab:
-            with spans.span(SLAB_RANGE):
-                err = fn(*args)
-        else:
-            err = fn(*args)
-        _build.check("term_infer", err)
-    launches += 1
-    return out
+    lit_t = bit_transpose_literals(lit_words, W * 32)
+    term_bits = and_reduce(lit_t[placed.term_chain.long()])   # (Tp, Sw)
+    sums = chain_fold_plain(term_bits, placed.clause_chain, placed.votes, placed.jb,
+                            placed.last, placed.indptr, tile_off=placed.n_term_tiles,
+                            block_c=placed.block_c, block_j=placed.block_j, n_samples=B,
+                            tile_margin=placed.tile_margin)
+    return sums[:B]
 
 
 def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dict:
@@ -584,48 +507,81 @@ def occupancy(B: int, n_cblocks: int, block_c: int, K: int, block_s=None) -> dic
     (``K`` decides whether the votes are staged in shared memory) and
     ``block_s`` sample words a block (None: the kernel's choice)."""
     return _build.occupancy("term_infer", B, n_cblocks, block_c, K,
-                            slab_words(block_s), extra=GRID_FIELDS)
+                            walk_words(block_s), extra=GRID_FIELDS)
 
 
-def factorized_tm_forward_tables(lit_words, term_chain, clause_chain, votes,
-                                 tiles, indptr, *, block_c, block_j,
-                                 n_term_tiles, tile_margin=None, block_s=None):
-    """Packed literals (B, W) int32 -> (B, K) int32 class sums over the
-    factorized tables: ``tiles`` is (6, T) (stage, tb, cb, jb, first,
-    last), ``indptr`` the CSR clause-tile pointers, and the clause tiles
-    start at ``n_term_tiles``.  The kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    fn = factorized_tables_cuda if lit_words.is_cuda else factorized_tables_plain
-    return fn(lit_words, term_chain, clause_chain, votes, tiles, indptr,
-              block_c=block_c, block_j=block_j, n_term_tiles=n_term_tiles,
-              tile_margin=tile_margin, block_s=block_s)
-
-
-def factorized_tm_forward(lit_words: torch.Tensor, votes: torch.Tensor,
-                          schedule: FactorizedSchedule, *,
-                          tile_margin=None, block_s=None) -> torch.Tensor:
-    """Packed literals -> (B, K) int32 class sums via the factorized
-    schedule, the stage-2 walk at ``block_s`` sample words a block; with
-    ``tile_margin`` argmax-identical (exact early exit)."""
+def factorized_tm_forward(lit_words: torch.Tensor, placed: PlacedSchedule, *,
+                          block_s=None) -> torch.Tensor:
+    """Packed literals (B, W) int32 -> (B, K) int32 class sums over a placed
+    factorized schedule: the plain version for CPU literals; on the card
+    the slab design where :func:`slab_words_for` picks it, else bit
+    transpose, stage 1 into a term buffer allocated here, then the stage-2
+    walk at ``block_s`` sample words a block (``sparse_infer.walk_words``).
+    With a margin table in the placement argmax-identical (exact early
+    exit)."""
+    global launches
     with spans.span(PREP_RANGE):
-        B, W = lit_words.shape
-        K = votes.shape[1]
-        if schedule.n_lit_bits != W * 32:
-            raise ValueError(f"schedule covers {schedule.n_lit_bits} literal bits, "
-                             f"lit_words has {W} words")
-        slab_words(block_s)
-        if schedule.n_tiles == 0:     # degenerate all-empty schedule: nothing votes
-            return torch.zeros((B, K), dtype=torch.int32, device=lit_words.device)
-        tabs = schedule.tensors(lit_words.device)
-        args = (lit_words.contiguous(), tabs["term_chain"], tabs["clause_chain"], votes,
-                tabs["tiles"], tabs["indptr"])
-        kw = dict(block_c=schedule.block_c, block_j=schedule.block_j,
-                  n_term_tiles=schedule.n_term_tiles, tile_margin=tile_margin,
-                  block_s=block_s)
-        call = _launch_args(*args, **kw) if lit_words.is_cuda else None
-    if call is None:
-        return factorized_tables_plain(*args, **kw)
-    return _launch(*call)
+        walk = _check_literals(lit_words, placed, block_s)
+        if lit_words.is_cuda:
+            B, W = lit_words.shape
+            U, K = placed.votes.shape
+            Tp, term_w = placed.term_chain.shape
+            Jp = placed.clause_chain.shape[1]
+            n_cblocks = placed.indptr.shape[0] - 1
+            dev = lit_words.device
+            P, I = _build.P, _build.I
+            S = slab_words_for(B, W, Tp, K, U, n_cblocks, placed.n_planes,
+                               tile_margin=placed.tile_margin, block_s=block_s,
+                               sm_count=placed.sm_count, shared_bytes=placed.shared_bytes)
+            if S:
+                out = torch.empty((B, K), dtype=torch.int32, device=dev)
+                fn = _build.entry("term_infer", "term_infer_slab_launch",
+                                  [P, I, I, P, I, I, P, P, I, P, I, I, I, P, I, P, P, I, I, I,
+                                   I, I, P, P])
+                args = (_build.ptr(lit_words), B, W, _build.ptr(placed.term_chain), Tp, term_w,
+                        _build.ptr(placed.clause_chain), _build.ptr(placed.lens), Jp,
+                        _build.ptr(placed.planes), placed.n_planes, U, K,
+                        _build.ptr(placed.indptr), n_cblocks, _build.ptr(placed.jb),
+                        _build.ptr(placed.last), placed.n_term_tiles, placed.block_c,
+                        placed.block_j, S, placed.shared_bytes, _build.ptr(out),
+                        _build.stream_ptr(dev))
+            else:
+                # scratch: the kernel's bit-transposed literals, stage-1
+                # term table (rows of Sw words padded to a multiple of 4,
+                # for its 16-byte loads) and, with early exit, the fired
+                # words the walk stores for the in-order fold (the
+                # transpose launch zeroes `out` before the walk adds into it)
+                Sw = packetizer.n_words(B)
+                stride = _rup(Sw, 4)
+                lit_t = torch.empty((W * 32 + 1, stride), dtype=torch.int32, device=dev)
+                term_bits = torch.empty((Tp, stride), dtype=torch.int32, device=dev)
+                out = torch.empty((Sw * 32, K), dtype=torch.int32, device=dev)
+                margin = placed.tile_margin
+                fired = (None if margin is None
+                         else torch.empty((Sw, U), dtype=torch.int32, device=dev))
+                fn = _build.entry("term_infer", "term_infer_launch",
+                                  [P, I, I, P, I, I, P, I, I, P, P, P, I, P, I, I, P, I, P, P,
+                                   I, P, I, I, I, P, P, P])
+                args = (_build.ptr(lit_words), B, W, _build.ptr(lit_t), Sw, stride,
+                        _build.ptr(placed.term_chain), Tp, term_w, _build.ptr(term_bits),
+                        _build.ptr(placed.clause_chain), _build.ptr(placed.lens), Jp,
+                        _build.ptr(placed.votes), U, K, _build.ptr(placed.indptr), n_cblocks,
+                        _build.ptr(placed.jb), _build.ptr(placed.last), placed.n_term_tiles,
+                        None if margin is None else _build.ptr(margin),
+                        placed.block_c, placed.block_j, walk, _build.ptr(out),
+                        None if fired is None else _build.ptr(fired), _build.stream_ptr(dev))
+    if not lit_words.is_cuda:
+        return _plain(lit_words, placed)
+    # the scratch tensors the pointers address stay alive as locals
+    with spans.span(LAUNCH_RANGE):
+        if S:
+            with spans.span(SLAB_RANGE):
+                err = fn(*args)
+        else:
+            err = fn(*args)
+        _build.check("term_infer", err)
+    launches += 1
+    return out[:B]
 
 
 def factorized_class_sums_ref(lit_words, term_chain, clause_chain, votes):

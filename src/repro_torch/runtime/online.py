@@ -385,9 +385,9 @@ class OnlineUpdater:
 
     def _integrity_roundtrip(self, candidate):
         """The artifact envelope: atomic save + checksum/validate re-load.
-        Also materializes both default schedules and puts the candidate's
-        tables and both schedules' tables on the bank's device, so the
-        promoted artifact's first bucket uploads nothing."""
+        Also places on the bank's device what ``run_compiled(engine="auto")``
+        reads there, so the promoted artifact's first bucket builds
+        nothing."""
         d = self._artifact_dir or tempfile.mkdtemp(prefix="online-cand-")
         os.makedirs(d, exist_ok=True)
         path = candidate.save(os.path.join(
@@ -403,9 +403,7 @@ class OnlineUpdater:
         # loaded ones, already memoized) + carried-over tunings; the
         # roundtrip's job was verification
         candidate.features = loaded.features or candidate.features
-        candidate.tensors(self._dev)
-        candidate.default_schedule.tensors(self._dev)
-        candidate.default_factorized_schedule.tensors(self._dev)
+        compiler.place(candidate, self._dev)
         return candidate
 
     # -- shadow canary -------------------------------------------------------

@@ -27,9 +27,9 @@ import time
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-# the build span: every cache miss on run_compiled's factorized path (the
-# artifact's device tables, the factorized schedule and its device tables,
-# the clause chains' lengths); its count in a window is the rebuild count
+# the build span: every build on run_compiled's path (the artifact's device
+# tables, a schedule, a placement of a schedule's tables on a device); its
+# count in a window is the rebuild count
 BUILD_RANGE = "run_compiled.build"
 
 _NULL = contextlib.nullcontext()

@@ -159,7 +159,7 @@ def test_candidates_are_launches_the_kernels_make():
 @pytest.mark.parametrize("bad", [3, 16, 0, -2])
 def test_wrappers_refuse_launches_they_cannot_make(bad):
     with pytest.raises(ValueError, match="sample words a block"):
-        sparse_infer.slab_words(bad)
+        sparse_infer.walk_words(bad)
     comp = port_compiler.CompiledTM.load(ASSET)
     x = port_pk.pack_literals(torch.zeros((4, 784), dtype=torch.uint8))
     for eng in ("sparse", "factorized"):

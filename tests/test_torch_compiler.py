@@ -144,26 +144,34 @@ def test_schedule_chains_put_real_ids_before_the_sentinel(bank):
         assert (fs.term_chain[fs.n_terms:] == fs.n_lit_bits).all()
 
 
-def test_chain_lengths_memo_follows_the_tables():
-    """chain_lengths derives once per chain tensor and derives again when
-    the chain, or the tensor its sentinel comes from, changes."""
+@pytest.mark.parametrize("engine", ["sparse", "factorized"])
+def test_a_placement_counts_chain_lengths_once_per_key(engine):
+    """A placement's chain lengths are each chain row's count of real ids,
+    and CompiledTM places a schedule once per (engine, tiling, quality,
+    early exit, device): a call with the same arguments finds it again."""
     import torch
 
-    from repro_torch.kernels.sparse_infer import chain_lengths
+    from repro_torch import spans
 
-    chain = torch.tensor([[1, 2, 9, 9], [3, 9, 9, 9]], dtype=torch.int32)
-    first = chain_lengths(chain, 9)
-    assert first.tolist() == [2, 1] and chain_lengths(chain, 9) is first
-    assert chain_lengths(chain, 3).tolist() == [4, 3]          # another sentinel
-    terms = torch.tensor([[0, 64], [5, 64], [64, 64]], dtype=torch.int32)
-    n_real = lambda tc: (tc[:, 0] != 64).sum()              # noqa: E731
-    clause = torch.tensor([[0, 1, 2], [1, 2, 2]], dtype=torch.int32)
-    lens = chain_lengths(clause, n_real, terms)
-    assert lens.tolist() == [2, 1] and chain_lengths(clause, n_real, terms) is lens
-    terms[1, 0] = 64                      # in place: one real term fewer
-    assert chain_lengths(clause, n_real, terms).tolist() == [2, 2]
-    clause[0, 2] = 1
-    assert chain_lengths(clause, n_real, terms).tolist() == [1, 2]
+    _, pcfg, ta = _random_tm(40, 3, 13, 0.25, 11)
+    comp = port_compiler.compile_tm(pcfg, ta, dedup=False)
+    x = torch.zeros((5, -(-2 * pcfg.n_features // 32)), dtype=torch.int32)
+    for tiling in (dict(), dict(block_c=8, block_j=4)):
+        port_compiler.run_compiled(comp, x, engine=engine, **tiling)
+        placed = list(comp._placements.values())[-1][1]
+        if engine == "factorized":
+            fs = comp.factorized_schedule(**tiling)
+            chain, sentinel = fs.clause_chain, fs.n_terms
+        else:
+            sched = comp.schedule(**tiling)
+            chain, sentinel = sched.chain_ids, sched.n_lit_bits
+        np.testing.assert_array_equal(placed.lens.numpy(), (chain != sentinel).sum(1))
+    assert len(comp._placements) == 2
+    spans.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for tiling in (dict(), dict(block_c=8, block_j=4)):
+            port_compiler.run_compiled(comp, x, engine=engine, **tiling)
+    assert len(comp._placements) == 2 and spans.BUILD_RANGE not in spans.totals()
 
 
 def test_asset_loads_identically_in_both_packages():

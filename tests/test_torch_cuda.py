@@ -206,53 +206,46 @@ def _requests(kind, B, Wa, seed):
 
 
 def _schedule_kernels_agree(dev, lit, iw, votes, **tiling):
-    """Both schedule kernels against their plain versions, tolerance 0, on
-    the full schedules (exact and early exit), every quality prefix and a
-    tile table whose clause blocks list their tiles in reverse order."""
+    """Both schedule kernels against their plain versions on the card,
+    tolerance 0, on the full schedules (exact and early exit), every
+    quality prefix and a tile table whose clause blocks list their tiles in
+    reverse order."""
     from repro_torch.kernels import anytime, sparse_infer, term_infer
     g = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)  # noqa: E731
     lit, v = lit.to(dev).contiguous(), g(votes)
     swing = anytime.total_swing(votes)
     sched = sparse_infer.build_schedule(iw, **tiling)
     fs = term_infer.build_factorized_schedule(iw, **tiling)
-    for kind, full, margins, min_tiles, prefix in (
-            ("sparse", sched, anytime.sparse_tile_margins(sched, votes), 1,
-             anytime.sparse_prefix_schedule),
-            ("factorized", fs, anytime.factorized_tile_margins(fs, votes),
-             fs.n_term_tiles + 1, anytime.factorized_prefix_schedule)):
+    for kind, mod, fwd, full, margins, min_tiles, prefix in (
+            ("sparse", sparse_infer, sparse_infer.sparse_tm_forward, sched,
+             anytime.sparse_tile_margins(sched, votes), 1, anytime.sparse_prefix_schedule),
+            ("factorized", term_infer, term_infer.factorized_tm_forward, fs,
+             anytime.factorized_tile_margins(fs, votes), fs.n_term_tiles + 1,
+             anytime.factorized_prefix_schedule)):
         levels = [q["n_tiles"] for q in anytime.quality_prefixes(margins, swing,
                                                                  min_tiles=min_tiles)]
         for n_tiles, margin in [(full.n_tiles, None), (full.n_tiles, margins)] + [
                 (n, None) for n in levels]:
             s = full if n_tiles == full.n_tiles else prefix(full, n_tiles)
-            t = s.tensors(dev)
-            m = None if margin is None else g(margin)
-            if kind == "sparse":
-                args = (lit, t["chain_ids"], v, t["tiles"], t["indptr"])
-                kw = dict(block_c=s.block_c, block_j=s.block_j, tile_margin=m)
-                want = sparse_infer.sparse_tables_plain(*args, **kw)
-                got = sparse_infer.sparse_tables_cuda(*args, **kw)
-            else:
-                args = (lit, t["term_chain"], t["clause_chain"], v, t["tiles"], t["indptr"])
-                kw = dict(block_c=s.block_c, block_j=s.block_j,
-                          n_term_tiles=s.n_term_tiles, tile_margin=m)
-                want = term_infer.factorized_tables_plain(*args, **kw)
-                got = term_infer.factorized_tables_cuda(*args, **kw)
+            placed = mod.place(s, v, tile_margin=margin)
             np.testing.assert_array_equal(
-                got.cpu().numpy(), want.cpu().numpy(),
-                err_msg=f"{kind} {tiling} tiles {n_tiles}/{full.n_tiles} early={m is not None}")
-    # a clause block's tiles in reverse order: the walk's tile-by-tile path
-    t = sched.tensors(dev)
-    tiles = t["tiles"].clone()
+                fwd(lit, placed).cpu().numpy(), mod._plain(lit, placed).cpu().numpy(),
+                err_msg=f"{kind} {tiling} tiles {n_tiles}/{full.n_tiles} "
+                        f"early={margin is not None}")
+    # a clause block's tiles in reverse order, placed from raw tables: the
+    # walk's tile-by-tile path
+    tiles = np.stack([sched.tile_cb, sched.tile_jb, sched.tile_first, sched.tile_last])
     for cb in range(sched.n_cblocks):
         lo, hi = int(sched.indptr[cb]), int(sched.indptr[cb + 1])
-        tiles[1, lo:hi] = tiles[1, lo:hi].flip(0)
-    args = (lit, t["chain_ids"], v, tiles, t["indptr"])
-    for m in (None, g(anytime.sparse_tile_margins(sched, votes))):
-        kw = dict(block_c=sched.block_c, block_j=sched.block_j, tile_margin=m)
-        np.testing.assert_array_equal(sparse_infer.sparse_tables_cuda(*args, **kw).cpu().numpy(),
-                                      sparse_infer.sparse_tables_plain(*args, **kw).cpu().numpy(),
-                                      err_msg=f"tiles reversed {tiling} early={m is not None}")
+        tiles[1, lo:hi] = tiles[1, lo:hi][::-1]
+    for margin in (None, anytime.sparse_tile_margins(sched, votes)):
+        placed = sparse_infer.place_tables(
+            g(sched.chain_ids), v, g(tiles), g(sched.indptr), block_c=sched.block_c,
+            block_j=sched.block_j, n_lit_bits=sched.n_lit_bits,
+            tile_margin=None if margin is None else g(margin))
+        np.testing.assert_array_equal(sparse_infer.sparse_tm_forward(lit, placed).cpu().numpy(),
+                                      sparse_infer._plain(lit, placed).cpu().numpy(),
+                                      err_msg=f"tiles reversed {tiling} early={margin is not None}")
 
 
 @pytest.mark.cuda
@@ -264,7 +257,7 @@ def _schedule_kernels_agree(dev, lit, iw, votes, **tiling):
       for kind in ("random", "ones", "zero")],
 ])
 def test_cuda_schedule_kernels_equal_plain_versions(cuda_device, case, kind, B):
-    """sparse_tables_cuda and factorized_tables_cuda against their plain
+    """The sparse and factorized schedule kernels against their plain
     versions, tolerance 0, exact and early exit and at every quality
     prefix: on the committed tm-mnist artifact at the serve shapes (B 1 to
     1030: one to more than two 16-word slabs), and on synthetic banks with
@@ -971,24 +964,24 @@ def test_cuda_schedule_walks_every_slab_equal_plain(cuda_device, case, B):
     for tiling in (dict(), dict(block_c=256, block_j=16)):
         sched = sparse_infer.build_schedule(iw, **tiling)
         fs = term_infer.build_factorized_schedule(iw, **tiling)
-        sm = torch.from_numpy(anytime.sparse_tile_margins(sched, votes).astype(np.int32))
-        fm = torch.from_numpy(anytime.factorized_tile_margins(fs, votes).astype(np.int32))
+        sm = anytime.sparse_tile_margins(sched, votes)
+        fm = anytime.factorized_tile_margins(fs, votes)
         for margin_on in (False, True):
-            for slab in sparse_infer.SLAB_WORDS:
-                for mod, s, m in ((sparse_infer, sched, sm), (term_infer, fs, fm)):
-                    fwd = (sparse_infer.sparse_tm_forward if mod is sparse_infer
-                           else term_infer.factorized_tm_forward)
-                    tm_ = m.to(cuda_device) if margin_on else None
-                    want = fwd(lit.cpu(), v.cpu(), s, tile_margin=m if margin_on else None)
-                    got = fwd(lit, v, s, tile_margin=tm_, block_s=slab)
+            for mod, fwd, s, m in ((sparse_infer, sparse_infer.sparse_tm_forward, sched, sm),
+                                   (term_infer, term_infer.factorized_tm_forward, fs, fm)):
+                m = m if margin_on else None
+                want = fwd(lit.cpu(), mod.place(s, v.cpu(), tile_margin=m))
+                placed = mod.place(s, v, tile_margin=m)
+                for walk in sparse_infer.WALK_WORDS:
+                    got = fwd(lit, placed, block_s=walk)
                     np.testing.assert_array_equal(
                         got.cpu().numpy(), want.numpy(),
-                        err_msg=f"{mod.__name__} {tiling} slab={slab} early={margin_on}")
+                        err_msg=f"{mod.__name__} {tiling} walk={walk} early={margin_on}")
     for mod in (sparse_infer, term_infer):
-        for slab in sparse_infer.SLAB_WORDS:
-            occ = mod.occupancy(B, 4, 512, 10, block_s=slab)
-            assert occ["grid_y"] == -(-(-(-B // 32)) // slab), occ
-            assert occ["grid_x"] == 4 * -(-512 // (256 // slab)), occ
+        for walk in sparse_infer.WALK_WORDS:
+            occ = mod.occupancy(B, 4, 512, 10, block_s=walk)
+            assert occ["grid_y"] == -(-(-(-B // 32)) // walk), occ
+            assert occ["grid_x"] == 4 * -(-512 // (256 // walk)), occ
             assert occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1, occ
 
 
@@ -1047,18 +1040,19 @@ def test_cuda_slab_walk_equals_plain_on_benchmark_artifacts(cuda_device, name, B
     x, lit = _dataset_literals(comp, name, B, B)
     v = torch.from_numpy(np.asarray(comp.votes, np.int32))
     fs = comp.factorized_schedule()
-    want = term_infer.factorized_tm_forward(lit, v, fs)
+    fwd = term_infer.factorized_tm_forward
+    want = fwd(lit, term_infer.place(fs, v))
     assert 0 < int((want != 0).sum()) < want.numel()
     # votes of 13 bit planes (they fit beside tm-mnist's tables at 4 sample
     # words a CTA) and of 22 (they do not: the rule takes 2)
     scales = (3000, 1 << 20) if name == "mnist" and B == 65519 else ()
-    wants = [term_infer.factorized_tm_forward(lit, v * scale, fs) for scale in scales]
+    wants = [fwd(lit, term_infer.place(fs, v * scale)) for scale in scales]
     lit_d, v_d = lit.to(cuda_device), v.to(cuda_device)
+    placed = [term_infer.place(fs, v_d * scale) for scale in (1, *scales)]
     with _slab_spans() as once:
-        got = once(term_infer.factorized_tm_forward, lit_d, v_d, fs)
+        got = once(fwd, lit_d, placed[0])
         got_run = once(compiler.run_compiled, comp, x.to(cuda_device), engine="factorized")
-        got_scaled = [once(term_infer.factorized_tm_forward, lit_d, v_d * scale, fs)
-                      for scale in scales]
+        got_scaled = [once(fwd, lit_d, p) for p in placed[1:]]
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     np.testing.assert_array_equal(got_run.cpu().numpy(), want.numpy())
     for scale, w, g in zip(scales, wants, got_scaled):
@@ -1102,19 +1096,25 @@ def test_cuda_slab_walk_equals_plain_on_wide_banks(cuda_device, W, K, tiling):
         if ((t1 > ps.n_term_tiles + ps.indptr[:-1]) & (ps.tile_last[t1 - 1] != 1)).any():
             schedules.append(ps)                          # a block left unclosed
     assert len(schedules) > 1
-    wants = [term_infer.factorized_tm_forward(lit.cpu(), v.cpu(), s) for s in schedules]
-    t = fs.tensors(cuda_device)
-    tiles = t["tiles"].clone()
+    fwd = term_infer.factorized_tm_forward
+    wants = [fwd(lit.cpu(), term_infer.place(s, v.cpu())) for s in schedules]
+    placed = [term_infer.place(s, v) for s in schedules]
+    # a clause block's tiles in reverse order, placed from raw tables
+    tiles = np.stack([fs.tile_stage, fs.tile_tb, fs.tile_cb, fs.tile_jb, fs.tile_first,
+                      fs.tile_last])
     for cb in range(fs.n_cblocks):
         lo = fs.n_term_tiles + int(fs.indptr[cb])
         hi = fs.n_term_tiles + int(fs.indptr[cb + 1])
-        tiles[3, lo:hi] = tiles[3, lo:hi].flip(0)
-    args = (lit, t["term_chain"], t["clause_chain"], v, tiles, t["indptr"])
-    kw = dict(block_c=fs.block_c, block_j=fs.block_j, n_term_tiles=fs.n_term_tiles)
-    want_rev = term_infer.factorized_tables_plain(*(a.cpu() for a in args), **kw)
+        tiles[3, lo:hi] = tiles[3, lo:hi][::-1]
+    g = lambda a, d: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(d)  # noqa: E731
+    rev = {d: term_infer.place_tables(
+        g(fs.term_chain, d), g(fs.clause_chain, d), v.to(d), g(tiles, d), g(fs.indptr, d),
+        block_c=fs.block_c, block_j=fs.block_j, n_term_tiles=fs.n_term_tiles,
+        n_lit_bits=fs.n_lit_bits) for d in ("cpu", cuda_device)}
+    want_rev = fwd(lit.cpu(), rev["cpu"])
     with _slab_spans() as once:
-        gots = [once(term_infer.factorized_tm_forward, lit, v, s) for s in schedules]
-        got_rev = once(term_infer.factorized_tables_cuda, *args, **kw)
+        gots = [once(fwd, lit, p) for p in placed]
+        got_rev = once(fwd, lit, rev[cuda_device])
     for s, want, got in zip(schedules, wants, gots):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
                                       err_msg=f"{s.n_tiles}/{fs.n_tiles} tiles")
@@ -1133,7 +1133,8 @@ def test_cuda_slab_walk_clause_sharded_equals_unsharded(card_mesh, cuda_device):
     mesh = card_mesh("model=2")
     xw = _dataset_literals(comp, "mnist", 65536, 5)[1].to(cuda_device)
     v = torch.from_numpy(np.asarray(comp.votes, np.int32))
-    want = term_infer.factorized_tm_forward(xw.cpu(), v, comp.factorized_schedule())
+    want = term_infer.factorized_tm_forward(xw.cpu(),
+                                            term_infer.place(comp.factorized_schedule(), v))
     fs, *stacks, _ = term_infer.stack_shard_factorized(comp.include_words, comp.votes, 2)
     fwd = sharding.sharded_factorized_forward_fn(mesh, block_t=fs[0].block_t,
                                                  block_c=fs[0].block_c, block_j=fs[0].block_j)
@@ -1151,15 +1152,15 @@ def test_cuda_slab_choice_and_ptxas_figures(cuda_device):
     import re
 
     from repro_torch.kernels import _build, term_infer
-    sms, shared = term_infer._limits(cuda_device)
-    assert sms >= 100 and shared >= 227 * 1024
     for name in ("mnist", "cifar2"):
         comp = compiler.CompiledTM.load(BENCH_ASSETS[name])
         fs = comp.factorized_schedule()
         (U, W), K = comp.include_words.shape, comp.votes.shape[1]
         Tp = fs.term_chain.shape[0]
-        n_planes = term_infer.vote_planes(
-            torch.from_numpy(np.asarray(comp.votes, np.int32)).to(cuda_device))[1]
+        placed = term_infer.place(
+            fs, torch.from_numpy(np.asarray(comp.votes, np.int32)).to(cuda_device))
+        sms, shared, n_planes = placed.sm_count, placed.shared_bytes, placed.n_planes
+        assert sms >= 100 and shared >= 227 * 1024
         pick = dict(tile_margin=None, block_s=None, sm_count=sms, shared_bytes=shared)
         shape = (W, Tp, K, U, fs.n_cblocks)
         assert n_planes == 2

@@ -286,8 +286,7 @@ def test_schedule_modules_match_pallas(batch, margin):
         xw_r, jnp.asarray(a.votes), s_r, block_s=1, interpret=True,
         tile_margin=None if m_np is None else jnp.asarray(m_np, jnp.int32)))
     got = sparse_infer.sparse_tm_forward(
-        xw_t, votes_t, s_t,
-        tile_margin=None if m_np is None else torch.from_numpy(m_np.astype(np.int32)))
+        xw_t, sparse_infer.place(s_t, votes_t, tile_margin=m_np))
     # with a one-word slab on both sides the early-exit walks stop alike
     np.testing.assert_array_equal(got.numpy(), want)
     ftiling = dict(block_c=8, block_j=4, block_t=16, term_w=2)
@@ -297,8 +296,7 @@ def test_schedule_modules_match_pallas(batch, margin):
         xw_r, jnp.asarray(a.votes), f_r, block_s=1, interpret=True,
         tile_margin=None if fm_np is None else jnp.asarray(fm_np, jnp.int32)))
     got = term_infer.factorized_tm_forward(
-        xw_t, votes_t, f_t,
-        tile_margin=None if fm_np is None else torch.from_numpy(fm_np.astype(np.int32)))
+        xw_t, term_infer.place(f_t, votes_t, tile_margin=fm_np))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -330,9 +328,9 @@ def test_table_oracles_match_reference():
 
 
 def test_ops_forward_over_given_schedules_and_margin_memo():
-    """``ops.tm_forward_schedule``/``tm_forward_factorized`` run the schedule
-    they are given, and early exit copies each margin table to the device
-    once per (engine, tiling, device)."""
+    """``ops.tm_forward_schedule``/``tm_forward_factorized`` run the placed
+    schedule they are given, and early exit puts each margin table on the
+    device once per (engine, tiling, device), in the placement."""
     from repro_torch.kernels import ops
 
     rcfg, pcfg, ta = _random_tm(30, 3, 10, 0.1, 4)
@@ -341,19 +339,20 @@ def test_ops_forward_over_given_schedules_and_margin_memo():
     want = np.asarray(ref_compiler.run_compiled(a, xr, engine="oracle"))
     xw = xt[:, b.tensors("cpu")["word_ids"]]
     votes = b.tensors("cpu")["votes"]
-    for fn, sched in ((ops.tm_forward_schedule, b.schedule(block_c=8, block_j=4)),
-                      (ops.tm_forward_factorized,
-                       b.factorized_schedule(block_c=8, term_w=2))):
-        got = fn(xw, votes, sched)
+    for fn, mod, sched in ((ops.tm_forward_schedule, sparse_infer,
+                            b.schedule(block_c=8, block_j=4)),
+                           (ops.tm_forward_factorized, term_infer,
+                            b.factorized_schedule(block_c=8, term_w=2))):
+        got = fn(xw, mod.place(sched, votes))
         np.testing.assert_array_equal(got.numpy(), want)
     for eng in ("sparse", "factorized"):
         for _ in range(2):
             ee = port_compiler.run_compiled(b, xt, engine=eng, early_exit=True,
                                             block_c=8)
             np.testing.assert_array_equal(ee.numpy().argmax(-1), want.argmax(-1))
-        m = b.margin_tensor(eng, "cpu", block_c=8)
-        assert m is b.margin_tensor(eng, "cpu", block_c=8)
+        (key,) = [k for k in b._placements if k[0] == eng]
+        m = b.placement(key)[1].tile_margin
         ref_m = a.factorized_tile_margins(block_c=8) if eng == "factorized" \
             else a.tile_margins(block_c=8)
         np.testing.assert_array_equal(m.numpy(), ref_m)
-    assert len(b._margin_dev) == 2
+    assert len(b._placements) == 2

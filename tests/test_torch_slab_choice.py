@@ -114,7 +114,7 @@ VOTE_SETS = {
 def test_vote_planes_hold_the_votes(case):
     """The slab fold's bit planes give back every vote (the top plane
     negative), with the fewest planes that do (the planes above them
-    repeat the sign), and are derived once per votes tensor and version."""
+    repeat the sign)."""
     votes, want_np = VOTE_SETS[case]
     v = torch.from_numpy(votes.astype(np.int32))
     planes, n_planes = term_infer.vote_planes(v)
@@ -126,6 +126,3 @@ def test_vote_planes_hold_the_votes(case):
     weights[-1] = -weights[-1]
     assert torch.equal(bits[..., n_planes - 1:], bits[..., 31:].expand(-1, -1, 33 - n_planes))
     assert torch.equal((bits[..., :n_planes] * weights).sum(-1), v.to(torch.int64))
-    assert term_infer.vote_planes(v)[0] is planes
-    v += 0
-    assert term_infer.vote_planes(v)[0] is not planes

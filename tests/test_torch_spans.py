@@ -176,6 +176,49 @@ def test_only_the_first_call_on_an_artifact_builds():
     assert spans.totals()[compiler.RUN_RANGE][0] == 1
 
 
+def _shared_bank():
+    """A bank whose clauses share word-level AND terms (every clause
+    includes literals 0 and 1, one of 4 in its second word and one of 3 in
+    its third): ``run_compiled(engine="auto")`` takes the factorized
+    schedule on the card."""
+    cfg = tm.TMConfig(n_features=40, n_classes=3, clauses_per_class=8)
+    ta = np.full((cfg.n_clauses_total, cfg.n_literals), -100, np.int8)
+    c = np.arange(cfg.n_clauses_total)
+    ta[:, [0, 1]] = 100
+    ta[c, 32 + c % 4] = 100
+    ta[c, 64 + c % 3] = 100
+    return cfg, ta
+
+
+@pytest.mark.parametrize("where", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_a_swapped_in_artifact_builds_nothing_on_its_first_call(where, request):
+    """The online updater places a candidate before it swaps it in, so the
+    first ``run_compiled(engine="auto")`` on the promoted artifact opens no
+    build span: on the CPU its oracle tables, on the card its factorized
+    placement."""
+    from repro_torch.runtime import online
+
+    dev = request.getfixturevalue("cuda_device") if where == "cuda" else torch.device("cpu")
+    cfg, ta = _shared_bank()
+    first = compiler.compile_tm(cfg, ta)
+    upd = online.OnlineUpdater(cfg, torch.from_numpy(ta).to(dev), first,
+                               cfg=online.OnlineConfig(drift_threshold=0.0, batch_size=4,
+                                                       swap_policy="immediate"))
+    x = np.random.default_rng(2).integers(0, 2, (4, cfg.n_features), dtype=np.uint8)
+    for i in range(4):
+        assert upd.ingest(x[i], i % cfg.n_classes)
+    assert upd.step() and upd.promotions == 1 and upd.deployed is not first
+    art = upd.deployed
+    assert art.stats.partial_term_sharing >= compiler.FACTORIZE_SHARING_THRESHOLD
+    xp = _packed().to(dev)
+    n0 = term_infer.launches
+    got, _ = _profiled(compiler.run_compiled, art, xp, engine="auto")
+    assert spans.BUILD_RANGE not in spans.totals()
+    assert term_infer.launches - n0 == (where == "cuda")
+    want = compiler.run_compiled(art, xp.cpu(), engine="oracle")
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
