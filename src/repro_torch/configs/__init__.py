@@ -3,7 +3,9 @@ architecture of the LM substrate, copied from the reference as data.
 
 ``get_config(name)`` returns the full ModelConfig; ``get_smoke_config(name)``
 the reduced same-family config the CPU tests use (few layers, narrow
-widths, tiny vocabulary).
+widths, tiny vocabulary).  ``ARCH_IDS`` is the reference's pool;
+``PORT_ARCH_IDS`` the architectures the port runs beyond it, which the
+reference package has no config of.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ ARCH_IDS = (
     "pixtral-12b",
 )
 
+PORT_ARCH_IDS = ("longcat-flash-560b",)
+
 _MODULES = {name: "repro_torch.configs." + name.replace("-", "_").replace(".", "_")
-            for name in ARCH_IDS}
+            for name in ARCH_IDS + PORT_ARCH_IDS}
 
 
 def _load(name: str):

@@ -591,7 +591,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", required=True,
                     help="a TM config of configs/matador_tm.py (e.g. tm-mnist) "
-                         "or an LM of configs.ARCH_IDS (e.g. tinyllama-1.1b)")
+                         "or an LM of configs.ARCH_IDS or configs.PORT_ARCH_IDS "
+                         "(e.g. tinyllama-1.1b, longcat-flash-560b)")
     ap.add_argument("--artifact", default=None,
                     help="TM: compiled-artifact .npz, loaded instead of "
                          "train + compile when it exists, saved at exit when "

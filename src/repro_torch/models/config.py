@@ -1,10 +1,13 @@
 """Model configuration for the assigned architecture pool.
 
-One frozen dataclass covers all 10 families via a layer-kind ``pattern``
-(tiled over ``n_layers``) and per-family sub-configs (MoE, MLA, RG-LRU,
-xLSTM).  ``[audio]``/``[vlm]`` archs specify the transformer backbone only;
-their modality frontends are stubs fed by ``input_specs()`` with precomputed
-frame/patch embeddings (per assignment).
+One frozen dataclass covers the reference's 10 families via a layer-kind
+``pattern`` (tiled over ``n_layers``) and per-family sub-configs (MoE, MLA,
+RG-LRU, xLSTM); two subclasses carry the published settings of DeepSeek-V2
+(:class:`DeepSeekV2Config`) and of LongCat-Flash
+(:class:`LongcatFlashConfig`, whose layer kind ``scmoe`` is a double
+layer).  ``[audio]``/``[vlm]`` archs specify the transformer backbone only;
+their modality frontends are stubs fed by ``input_specs()`` with
+precomputed frame/patch embeddings (per assignment).
 """
 
 from __future__ import annotations
@@ -68,6 +71,14 @@ class ModelConfig:
     dropless = False
     held_group = None
     yarn = None
+    # LongCat-Flash's (:class:`LongcatFlashConfig`), at the values that
+    # leave every other configuration as it is: no zero-compute experts, no
+    # selection bias on the router, no LoRA scales in MLA, no held range
+    zero_experts = 0
+    score_bias = False
+    mla_scale_q_lora = False
+    mla_scale_kv_lora = False
+    held_range = None
 
     @property
     def resolved_head_dim(self) -> int:
@@ -81,6 +92,11 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def router_width(self) -> int:
+        """The router's outputs: the FFN experts, then the zero-compute ones."""
+        return self.n_experts + self.zero_experts
 
     def param_count(self) -> int:
         """Analytic parameter count (for MODEL_FLOPS = 6 N D)."""
@@ -145,9 +161,54 @@ class DeepSeekV2Config(ModelConfig):
             raise ValueError(f"held group {self.held_group} of {self.n_group}")
 
 
+@dataclasses.dataclass(frozen=True)
+class LongcatFlashConfig(ModelConfig):
+    """A :class:`ModelConfig` with LongCat-Flash's published settings
+    (``LongcatFlashDecoderLayer``, ``LongcatFlashTopkRouter``,
+    ``LongcatFlashMLA``), by default at its published values.
+
+    Every layer is a double layer (layer kind ``scmoe``, ``n_layers`` of
+    them): two MLA sublayers, each followed by a dense SwiGLU of width
+    ``d_ff``, and one mixture of experts on sublayer 0's feed-forward input
+    whose output joins after sublayer 1 (the shortcut).  The router scores
+    ``n_experts`` FFN experts and then ``zero_experts`` zero-compute
+    (identity) experts in one float32 softmax; a token's ``top_k`` are
+    chosen by the scores plus a learned bias (``score_bias``, for the
+    choice only), and their gates are the chosen scores times
+    ``routed_scaling_factor``, not renormalized.  A chosen identity expert
+    adds its gate times the token.  The dispatch is always dropless.
+    ``held_range``: the FFN experts ``(start, stop)`` this device holds
+    (the router still scores all of them), None for all.  MLA's q is
+    scaled by ``sqrt(d_model / q_lora)`` under ``mla_scale_q_lora`` and its
+    normed latent by ``sqrt(d_model / kv_lora)`` before ``wk_b`` and
+    ``wv_b`` under ``mla_scale_kv_lora``.
+    """
+
+    pattern: Tuple[str, ...] = ("scmoe",)
+    zero_experts: int = 256
+    routed_scaling_factor: float = 6.0
+    mla_scale_q_lora: bool = True
+    mla_scale_kv_lora: bool = True
+    held_range: Optional[Tuple[int, int]] = None
+    attn_kind: str = "mla"
+    norm_topk_prob = False
+    score_bias = True
+    dropless = True
+
+    def __post_init__(self):
+        if self.pattern != ("scmoe",):
+            raise ValueError(f"LongCat-Flash's layers are double layers, not {self.pattern}")
+        if self.held_range is not None and not 0 <= self.held_range[0] < self.held_range[1] \
+                <= self.n_experts:
+            raise ValueError(f"held experts {self.held_range} of {self.n_experts}")
+
+
 def held_experts(cfg: ModelConfig) -> range:
-    """The experts this device holds of ``cfg.n_experts``: one routing
-    group's under ``held_group``, else all of them."""
+    """The FFN experts this device holds of ``cfg.n_experts``: the range
+    ``held_range`` where one is set, one routing group's under
+    ``held_group``, else all of them."""
+    if cfg.held_range is not None:
+        return range(*cfg.held_range)
     if cfg.held_group is None:
         return range(cfg.n_experts)
     size = cfg.n_experts // cfg.n_group
@@ -159,15 +220,19 @@ def _ff_params(cfg: ModelConfig, kind: str, layer_idx: int, active: bool) -> int
     if kind in ("mlstm", "slstm"):
         return 0  # recurrent blocks carry their own FF inside block params
     if cfg.is_moe and layer_idx >= cfg.first_dense_layers:
-        fe = cfg.d_ff_expert
-        routed = len(held_experts(cfg)) * 3 * d * fe
-        if active:
-            routed = cfg.top_k * 3 * d * fe
-        shared = cfg.n_shared_experts * 3 * d * fe
-        router = d * cfg.n_experts
-        return routed + shared + router
+        return _moe_params(cfg, active)
     n_mats = 3 if cfg.gated_mlp else 2
     return n_mats * d * cfg.d_ff
+
+
+def _moe_params(cfg: ModelConfig, active: bool) -> int:
+    """An expert layer's: the held (or, ``active``, top-k) experts, the
+    shared ones and the router (with its selection bias)."""
+    d, fe = cfg.d_model, cfg.d_ff_expert
+    routed = (cfg.top_k if active else len(held_experts(cfg))) * 3 * d * fe
+    shared = cfg.n_shared_experts * 3 * d * fe
+    router = (d + cfg.score_bias) * cfg.router_width
+    return routed + shared + router
 
 
 def _mix_params(cfg: ModelConfig, kind: str) -> int:
@@ -213,6 +278,11 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
             hd_s = d // cfg.n_heads
             ff = int(4 * d / 3)
             total += 4 * d * d + 4 * cfg.n_heads * hd_s * hd_s + 2 * d * ff
+            continue
+        if kind == "scmoe":
+            # two MLA sublayers and dense SwiGLUs, four norms, one expert layer
+            total += 2 * (_mix_params(cfg, "attn") + 3 * d * cfg.d_ff + 2 * d)
+            total += _moe_params(cfg, active_only)
             continue
         total += _mix_params(cfg, kind)
         total += _ff_params(cfg, kind, i, active_only)

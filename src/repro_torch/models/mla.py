@@ -16,6 +16,15 @@ dimensions rotate by YaRN's frequencies, and the softmax scale is
 ``(nope + rope)^-0.5 mscale(factor, mscale_all_dim)^2``, as DeepSeek-V2
 publishes them; otherwise plain RoPE and ``(nope + rope)^-0.5``.
 
+LongCat-Flash's LoRA scales (:func:`lora_scales`): q, nope and rope parts,
+times ``sqrt(d_model / q_lora)``, which is folded into the softmax scale
+(exact where the factor is a power of two, as LongCat-Flash's 2 is;
+otherwise the scores round once where q times the factor would round in
+q's type first); the normed latent times ``sqrt(d_model / kv_lora)``
+before ``wk_b`` and ``wv_b``, in the latent's type on the prefill routes
+and in float32 in ``_mla_decode``.  The cache keeps the unscaled normed
+latent and the rotated rope key, as DeepSeek-V2's does.
+
 The shared rope key rotates in torch (the cache stores it).  q's rotation
 and k's assembly from ``k_nope`` and that key (``_operands``) are one
 launch of ``kernels/mla_rope.py`` on the card, q rotated in place (in a
@@ -64,6 +73,20 @@ def softmax_scale(cfg: ModelConfig) -> float:
     return scale
 
 
+def lora_scales(cfg: ModelConfig) -> tuple:
+    """(q's, the latent's) LoRA scales: ``sqrt(d_model / q_lora)`` under
+    ``mla_scale_q_lora`` and ``sqrt(d_model / kv_lora)`` under
+    ``mla_scale_kv_lora``, else 1."""
+    return ((cfg.d_model / cfg.q_lora) ** 0.5 if cfg.mla_scale_q_lora else 1.0,
+            (cfg.d_model / cfg.kv_lora) ** 0.5 if cfg.mla_scale_kv_lora else 1.0)
+
+
+def _scores_scale(cfg: ModelConfig) -> float:
+    """What the scores q . k are multiplied by: the softmax scale times q's
+    LoRA scale."""
+    return softmax_scale(cfg) * lora_scales(cfg)[0]
+
+
 def _rope_tables(cfg: ModelConfig, positions):
     """The rope dimensions' (cos, sin) tables (B, S, rope/2) float32:
     YaRN's frequencies and mscale under ``yarn``."""
@@ -98,6 +121,9 @@ def _operands(cfg: ModelConfig, params, q, rope, c_kv=None, k_rope=None):
     nope = cfg.resolved_head_dim
     k_nope = v = None
     if c_kv is not None:
+        kv_scale = lora_scales(cfg)[1]
+        if kv_scale != 1.0:
+            c_kv = c_kv * kv_scale
         k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"])
         v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"])
     n0 = mla_rope.launches
@@ -113,7 +139,7 @@ def mla_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = No
     """-> (y (B, S, d), cache).  ``arange`` as in ``attention.attention_block``."""
     q, rope, c_kv, k_rope = _mla_qkv(cfg, params, x, positions)
     S = x.shape[1]
-    scale = softmax_scale(cfg)
+    scale = _scores_scale(cfg)
     with torch.profiler.record_function(attention.ATTEND_RANGE):
         if cache is None:
             q, k, v = _operands(cfg, params, q, rope, c_kv, k_rope)
@@ -148,17 +174,22 @@ def mla_block(cfg: ModelConfig, params, x, positions, *, cache: dict | None = No
 def _mla_decode(cfg: ModelConfig, params, q, c_kv, k_rope, positions):
     """One query (B, 1, H, nope + rope) against the latent cache (B, T,
     kv_lora) and rope keys (B, T, rope), in float32: ``wk_b`` folded into
-    the query, ``wv_b`` into the output -> (B, 1, H, vd) in q's type."""
+    the query, ``wv_b`` into the output, the latent times its LoRA scale ->
+    (B, 1, H, vd) in q's type."""
     nope = cfg.resolved_head_dim
     f32 = torch.float32
+    c32 = c_kv.to(f32)
+    kv_scale = lora_scales(cfg)[1]
+    if kv_scale != 1.0:
+        c32 = c32 * kv_scale
     q_lat = torch.einsum("bshk,rhk->bshr", q[..., :nope], params["wk_b"])[:, 0]
-    s = torch.einsum("bhr,btr->bht", q_lat.to(f32), c_kv.to(f32))
+    s = torch.einsum("bhr,btr->bht", q_lat.to(f32), c32)
     s = s + torch.einsum("bshk,btk->bht", q[..., nope:].to(f32), k_rope.to(f32))
-    s = s * softmax_scale(cfg)
+    s = s * _scores_scale(cfg)
     T = c_kv.shape[1]
     mask = torch.arange(T, dtype=positions.dtype, device=q.device)[None, :] <= positions[:, :1]
     p = torch.softmax(torch.where(mask[:, None, :], s, attention.NEG_INF), dim=-1)
-    o_lat = torch.einsum("bht,btr->bhr", p, c_kv.to(f32))
+    o_lat = torch.einsum("bht,btr->bhr", p, c32)
     out = torch.einsum("bhr,rhk->bhk", o_lat, params["wv_b"].to(f32))
     return out[:, None].to(q.dtype)
 

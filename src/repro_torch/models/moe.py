@@ -31,10 +31,22 @@ pair is computed, sorted by expert, each expert's SwiGLU over its own
 rows, the gated outputs summed in float32.  Under ``held_group`` the layer
 holds one routing group's experts (expert parallelism's share of one
 device) and computes their part of the result; the router scores all
-``n_experts``.  The spans ``moe_route`` and ``moe_experts`` time the two
-parts; the counters ``moe_experts.rows`` and ``moe_experts.pad_rows``
-count the rows the held experts' products computed and those of them no
-routed pair filled.
+``n_experts``.
+
+LongCat-Flash's (:class:`config.LongcatFlashConfig`): the router scores
+the ``n_experts`` FFN experts and then ``zero_experts`` zero-compute
+(identity) experts in one softmax; the top-k are chosen by the scores
+plus the learned ``score_bias`` (for the choice only), and the gates are
+the chosen scores times ``routed_scaling_factor``.  In the dropless
+dispatch a pair of an identity expert adds its gate times the token, in
+the float32 sum; the layer holds the FFN experts of ``held_range`` and
+computes the identity experts for every token it is given.
+
+The spans ``moe_route`` and ``moe_experts`` time the two parts; the
+counters ``moe_experts.rows`` and ``moe_experts.pad_rows`` count the rows
+the held experts' products computed and those of them no routed pair
+filled, ``moe.pairs`` and ``moe.zero_pairs`` the routed pairs of all
+experts and those of them that went to an identity expert.
 """
 
 from __future__ import annotations
@@ -59,16 +71,24 @@ EXPERTS_RANGE = "moe_experts"
 # computed, and those of them that no routed pair filled
 ROWS_COUNTER = "moe_experts.rows"
 PAD_COUNTER = "moe_experts.pad_rows"
+# counters of the dropless dispatch: routed (token, expert) pairs, and those
+# of them that went to a zero-compute (identity) expert
+PAIRS_COUNTER = "moe.pairs"
+ZERO_PAIRS_COUNTER = "moe.zero_pairs"
 
 
 def init_moe(generator, cfg: ModelConfig, dtype, device) -> dict:
-    """``router`` (d, n_experts) float32 whatever ``dtype`` is, as the
-    reference keeps it; ``gate``, ``up`` (E, d, fe) and ``down`` (E, fe, d)
-    of the E experts held (``config.held_experts``); and a ``shared``
-    SwiGLU of width ``n_shared_experts * fe`` when there is one."""
+    """``router`` (d, router_width) float32 whatever ``dtype`` is, as the
+    reference keeps it, and its float32 ``score_bias`` (router_width,),
+    zeros, when it has one; ``gate``, ``up`` (E, d, fe) and ``down`` (E,
+    fe, d) of the E experts held (``config.held_experts``); and a
+    ``shared`` SwiGLU of width ``n_shared_experts * fe`` when there is
+    one."""
     d, E, fe = cfg.d_model, len(held_experts(cfg)), cfg.d_ff_expert
-    p = {"router": layers.dense(generator, d, cfg.n_experts, torch.float32, device),
-         "gate": layers.normal(generator, (E, d, fe), d ** -0.5, dtype, device),
+    p = {"router": layers.dense(generator, d, cfg.router_width, torch.float32, device)}
+    if cfg.score_bias:
+        p["score_bias"] = torch.zeros((cfg.router_width,), dtype=torch.float32, device=device)
+    p |= {"gate": layers.normal(generator, (E, d, fe), d ** -0.5, dtype, device),
          "up": layers.normal(generator, (E, d, fe), d ** -0.5, dtype, device),
          "down": layers.normal(generator, (E, fe, d), fe ** -0.5, dtype, device)}
     if cfg.n_shared_experts:
@@ -86,11 +106,13 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _top_experts(cfg: ModelConfig, router_w, x_flat):
+def _top_experts(cfg: ModelConfig, router_w, x_flat, bias=None):
     """x_flat (T, d) -> (gates (T, k) float32, experts (T, k)): each token's
-    top-k of the float32 softmax router over all ``n_experts``, among its
-    best ``topk_group`` groups under ``group_limited_greedy``; the gates
-    renormalized under ``norm_topk_prob``, times ``routed_scaling_factor``."""
+    top-k of the float32 softmax router over all its outputs, among its
+    best ``topk_group`` groups under ``group_limited_greedy``, chosen by
+    the probabilities plus ``bias`` (router_width,) when one is given, the
+    gates being the chosen probabilities; renormalized under
+    ``norm_topk_prob``, times ``routed_scaling_factor``."""
     probs = torch.softmax(x_flat.to(torch.float32) @ router_w, dim=-1)
     if cfg.topk_method == "group_limited_greedy":
         T, E = probs.shape
@@ -100,7 +122,11 @@ def _top_experts(cfg: ModelConfig, router_w, x_flat):
         probs = torch.where(keep.repeat_interleave(E // cfg.n_group, dim=1), probs, 0.0)
     elif cfg.topk_method != "greedy":
         raise ValueError(f"unknown topk_method {cfg.topk_method!r}")
-    top_v, top_i = top_k(probs, cfg.top_k)
+    if bias is None:
+        top_v, top_i = top_k(probs, cfg.top_k)
+    else:
+        _, top_i = top_k(probs + bias, cfg.top_k)
+        top_v = probs.gather(1, top_i)
     if cfg.norm_topk_prob:
         top_v = top_v / torch.clamp(top_v.sum(-1, keepdim=True), min=1e-9)
     return top_v * cfg.routed_scaling_factor, top_i
@@ -134,19 +160,24 @@ def _expert_compute(cfg: ModelConfig, gates, x_flat, gate_w, up_w, down_w):
     return torch.zeros_like(x_flat).index_add(0, flat, out_e.reshape(-1, d))
 
 
-def _dropless_compute(top_v, top_i, x_flat, gate_w, up_w, down_w, e0: int):
+def _dropless_compute(top_v, top_i, x_flat, gate_w, up_w, down_w, e0: int, n_ffn: int):
     """Every routed pair of the held experts ``e0 .. e0 + E`` (weights (E,
-    ...)): top_v, top_i (T, k) -> (T, d) in x's type.  The pairs sorted by
-    held expert (the others last), one host sync for the counts, each
-    expert's SwiGLU over its own rows, the outputs times their float32
-    gates summed into their tokens in float32."""
+    ...)) and of the identity experts, those from ``n_ffn`` on: top_v, top_i
+    (T, k) -> (T, d) in x's type.  The pairs sorted by held expert (then the
+    identity experts' pairs, then the other experts'), one host sync for
+    the counts, each expert's SwiGLU over its own rows, the outputs times
+    their float32 gates summed into their tokens in float32, and each
+    identity pair's gate times its token added to that sum."""
     T, d = x_flat.shape
     E = gate_w.shape[0]
     local = top_i.reshape(-1) - e0
-    key = torch.where((local >= 0) & (local < E), local, E)
+    other = torch.where(top_i.reshape(-1) >= n_ffn, E, E + 1)
+    key = torch.where((local >= 0) & (local < E), local, other)
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=E + 1).tolist()
+    counts = torch.bincount(key, minlength=E + 2).tolist()
     pairs = sum(counts[:E])
+    spans.count(PAIRS_COUNTER, key.numel())
+    spans.count(ZERO_PAIRS_COUNTER, counts[E])
     order = order[:pairs]
     tok = torch.div(order, top_i.shape[1], rounding_mode="floor")
     gates = top_v.reshape(-1)[order]
@@ -164,6 +195,10 @@ def _dropless_compute(top_v, top_i, x_flat, gate_w, up_w, down_w, e0: int):
     out = torch.zeros((T, d), dtype=torch.float32, device=x_flat.device)
     if outs:
         out.index_add_(0, tok, torch.cat(outs).to(torch.float32) * gates[:, None])
+    if counts[E]:
+        # a token's identity pairs add its gates' sum times the token
+        zero_gates = torch.where(top_i >= n_ffn, top_v, 0.0).sum(-1)
+        out.addcmul_(x_flat.to(torch.float32), zero_gates[:, None])
     return out.to(x_flat.dtype)
 
 
@@ -177,10 +212,11 @@ def _routed(cfg: ModelConfig, params, x: torch.Tensor, e0: int = 0,
     x_flat = x.reshape(B * S, d)
     if cfg.dropless:
         with spans.span(ROUTE_RANGE):
-            top_v, top_i = _top_experts(cfg, params["router"], x_flat)
+            top_v, top_i = _top_experts(cfg, params["router"], x_flat,
+                                        params.get("score_bias"))
         with spans.span(EXPERTS_RANGE):
             out = _dropless_compute(top_v, top_i, x_flat, params["gate"], params["up"],
-                                    params["down"], held_experts(cfg).start)
+                                    params["down"], held_experts(cfg).start, cfg.n_experts)
         return out.view(B, S, d)
     E = cfg.n_experts if e_loc is None else e_loc
     with spans.span(ROUTE_RANGE):

@@ -4,7 +4,8 @@ One :class:`Block` per layer (the reference stacks each group's layers and
 scans over them; here the layers are a ``ModuleList``), built from its
 spec ``(kind, ff)``: the mixer is global or local (windowed) attention, GQA
 or MLA, an RG-LRU, an mLSTM or an sLSTM; the feed-forward a dense MLP, the
-sLSTM's 4/3-wide one, a mixture of experts, or none (mLSTM).  Parameter
+sLSTM's 4/3-wide one, a mixture of experts, or none (mLSTM).  LongCat-Flash's
+layer kind ``scmoe`` is a :class:`ScMoEBlock`, a double layer.  Parameter
 names and shapes follow the reference's tree (``norm1``, ``mix``,
 ``norm2``, ``ff``, MoE's ``ff.shared``; ``embed``, ``unembed``,
 ``final_norm``), so :func:`params_from_numpy` carries a reference
@@ -59,6 +60,8 @@ class RunCtx:
 
 
 def _ff_kind(cfg: ModelConfig, layer_idx: int, kind: str) -> str:
+    if kind == "scmoe":
+        return "scmoe"
     if kind == "mlstm":
         return "none"
     if kind == "slstm":
@@ -174,6 +177,55 @@ class Block(nn.Module):
         return xlstm.init_slstm_cache(cfg, batch, dev)
 
 
+class ScMoEBlock(nn.Module):
+    """LongCat-Flash's double layer (``LongcatFlashDecoderLayer``): two
+    pre-norm MLA sublayers, each followed by a pre-norm dense SwiGLU, and a
+    mixture of experts on sublayer 0's feed-forward input whose output
+    joins after sublayer 1 (the shortcut):
+
+        h = x + MLA_0(n_0(x));  u = m_0(h);  h = h + FFN_0(u)
+        h = h + MLA_1(n_1(h));  y = h + FFN_1(m_1(h)) + MoE(u)
+
+    with ``norm1[j]`` = n_j, ``mix[j]`` = MLA_j, ``norm2[j]`` = m_j,
+    ``ff[j]`` = FFN_j and ``moe``.  Its cache is the list of the two
+    sublayers' latent caches."""
+
+    def __init__(self, cfg: ModelConfig, spec, generator, dtype, device):
+        super().__init__()
+        self.cfg, self.spec = cfg, tuple(spec)
+        d = cfg.d_model
+
+        def norms():
+            return nn.ParameterList(_param(torch.zeros((d,), dtype=dtype, device=device))
+                                    for _ in range(2))
+
+        self.norm1, self.norm2 = norms(), norms()
+        self.mix = nn.ModuleList(
+            layers.parameters(mla.init_mla(generator, cfg, dtype, device)) for _ in range(2))
+        self.ff = nn.ModuleList(
+            layers.parameters(layers.init_mlp(generator, d, cfg.d_ff, dtype, device=device))
+            for _ in range(2))
+        self.moe = layers.parameters(moe.init_moe(generator, cfg, dtype, device))
+
+    def forward(self, x, positions, cache=None, arange: bool = False,
+                ctx: RunCtx = RunCtx()):
+        cfg = self.cfg
+        for j in range(2):
+            h = layers.rms_norm(x, self.norm1[j], cfg.norm_eps)
+            h, _ = mla.mla_block(cfg, self.mix[j], h, positions,
+                                 cache=None if cache is None else cache[j], arange=arange)
+            x = x + h
+            u = layers.rms_norm(x, self.norm2[j], cfg.norm_eps)
+            if j == 0:
+                shortcut = moe.moe_ff(cfg, self.moe, u, ctx.moe_mesh, ctx.dp_axes)
+            x = x + layers.mlp(self.ff[j], u)
+        return x + shortcut, cache
+
+    def init_cache(self, batch: int, s_max: int, dtype) -> list:
+        dev = self.norm1[0].device
+        return [mla.init_mla_cache(self.cfg, batch, s_max, dtype, dev) for _ in range(2)]
+
+
 class Transformer(nn.Module):
     """Embedding (none under ``audio_stub``, whose inputs are frame
     embeddings), ``n_layers`` blocks, final norm, and an unembedding
@@ -189,8 +241,9 @@ class Transformer(nn.Module):
             self.embed = _param(layers.normal(generator, (V, d), 0.02, dtype, dev))
         if not cfg.tie_embeddings:
             self.unembed = _param(layers.dense(generator, d, V * cfg.n_codebooks, dtype, dev))
-        self.blocks = nn.ModuleList(Block(cfg, spec, generator, dtype, dev)
-                                    for spec in layer_specs(cfg))
+        self.blocks = nn.ModuleList(
+            (ScMoEBlock if spec[0] == "scmoe" else Block)(cfg, spec, generator, dtype, dev)
+            for spec in layer_specs(cfg))
         self.final_norm = _param(torch.zeros((d,), dtype=dtype, device=dev))
 
     def forward(self, tokens=None, positions=None, caches=None, *, embeds=None,
